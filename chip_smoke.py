@@ -5,20 +5,29 @@ Run from the repository root, with one CUDA card:
 
     python3 chip_smoke.py
 
-1. Builds the CUDA kernels of ``scarlet_tpu_torch/ops/csrc`` with nvcc.
-2. Holds each kernel against its plain PyTorch version on the card at the
-   main path's shapes (128 blends x 16 components, box 59, 5 bands,
+1. Builds the CUDA kernels of ``scarlet_tpu_torch/ops/csrc`` with nvcc
+   (one compiler process per source, all at once).
+2. Holds K1-K4 against their plain PyTorch versions on the card at the
+   host path's shapes (128 blends x 16 components, box 59, 5 bands,
    58 x 48 scenes, with negative origins and an argmax tie), and times
    both with CUDA events.
-3. Drives the main path: 128 generated blends (fixed seed), host
+3. Drives the host path: 128 generated blends (fixed seed), host
    initialization, one ``LiteBlend.fit`` on the card, then ``pack_blends``
    and ``fit_batch_device_converged`` for all 128; checks the results,
-   that every kernel was launched, and that 4 blends refitted on the CPU
-   (plain versions) end at the same logL.
-4. Profiles 20 iterations of the batched fit: device time by kernel and
-   the device's busy share of the wall time.
-5. Prints one JSON line with the kernels, then, last, the device line
-   ``{"ok": true, "device": {...}}``.
+   that its kernels were launched, and that 4 blends refitted on the CPU
+   (plain versions) end at the same logL.  Profiles 20 iterations.
+4. The device stream: 256 generated heterogeneous blends (the JAX
+   bench's het cell: ``default_rng(42)``, box 59, 16 slots, cap 100,
+   check every 25, chunks of 128, compaction at 50, overflow retry, bulk
+   upload).  Holds K5 and K6 against their plain versions at the stream's
+   shapes; runs ``deblend_device_stream`` once to warm up, then three
+   times from host and three times from device-resident inputs; checks
+   the records and that K1, K3 and K4 were launched; reruns 4 blends on
+   the CPU (same discrete init decisions, same final logL); and fits
+   chunk 0 three ways (default, ``packed_prox_chain`` = K5,
+   ``fuse_morph`` = K6), which must agree.
+5. Prints one JSON line with the kernels, the card's name and power
+   limit, then, last, the device line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without a CUDA device, or outside
 the repository, it exits non-zero before printing any result.
@@ -40,13 +49,31 @@ N_CPU = 4
 CPU_RTOL = 1e-4          # final logL, card vs CPU (FFT and sum order)
 GRAD_SED_RTOL = 1e-5     # g_sed vs plain, relative to sum |g * morph|
 
+# the device stream: the JAX bench's het cell (bench.py:40, 48, 109-129,
+# 294-308), uploaded in bulk from numpy
+N_HET, HET_SEED = 256, 42
+HET = dict(box_size=59, n_slots=16, max_iter=100, check_every=25, chunk=128,
+           compact=50, retry_overflow=True, upload="bulk")
+# het blends that a 1e-7 relative change of the images moves by < 4e-7 in
+# logL over 30 CPU iterations (PERF.md): the card-vs-CPU rerun
+CPU_BLENDS = [3, 7, 11, 15]
+FUSED_MEDIAN_RTOL, FUSED_BLEND_RTOL = 1e-5, 1e-3
+MAX_WORSE = 0.02    # share of stream blends that may end below their init
+# the kernels of the default fit configuration (K5 and K6 run in the
+# packed_prox_chain and fuse_morph configurations)
+PATH_KERNELS = ("monotonic_prox", "scene_assembly", "grad_gather")
+
 REPLACES = {
     "monotonic_prox": "scarlet_tpu/ops/pallas_kernels.py:204",
+    "prox_chain": "scarlet_tpu/ops/pallas_kernels.py:399",
+    "fused_morph_update": "scarlet_tpu/ops/pallas_kernels.py:612",
     "scene_assembly": "scarlet_tpu/ops/pallas_kernels.py:694",
     "grad_gather": "scarlet_tpu/ops/pallas_kernels.py:772",
 }
 SOURCES = {
     "monotonic_prox": "scarlet_tpu_torch/ops/csrc/mono.cu",
+    "prox_chain": "scarlet_tpu_torch/ops/csrc/mono.cu",
+    "fused_morph_update": "scarlet_tpu_torch/ops/csrc/mono.cu",
     "scene_assembly": "scarlet_tpu_torch/ops/csrc/scene.cu",
     "grad_gather": "scarlet_tpu_torch/ops/csrc/grad.cu",
 }
@@ -255,10 +282,10 @@ def main_path(dev, card, single, setup, init_s):
     if not np.all(final > losses[0]):
         raise AssertionError(f"logL did not improve for blends "
                              f"{np.flatnonzero(final <= losses[0])}")
-    for name, n in counts.items():
-        if n <= 0:
+    for name in PATH_KERNELS:
+        if counts[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
-                                 "main path")
+                                 "host path")
     bpm = N_BLENDS / times[-1] * 60.0
     log(f"batched fit of {N_BLENDS} blends on {dev}: {len(losses)} "
         f"iterations run, per-blend iterations {its.min()}..{its.max()} (median "
@@ -287,24 +314,12 @@ def main_path(dev, card, single, setup, init_s):
     return counts, summary
 
 
-def profile_fit(setup, n_iter=20):
-    """Device time by kernel over ``n_iter`` iterations of the batched fit
-    (``torch.profiler``), and the device's busy share of the wall time:
-    the union of the kernels' intervals over the profiled window."""
-    import torch
+def device_busy(prof):
+    """(device kernel events, busy us, us from the first kernel's start to
+    the last one's end) of a ``torch.profiler`` run: the union of the
+    kernels' intervals."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from scarlet_tpu_torch.lite import engine
 
-    config, data, state = setup
-    engine.fit_scan(state, data, config, 2)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        engine.fit_scan(state, data, config, n_iter)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
     # device kernels only: operator ranges projected onto the device
     # timeline (user annotations) repeat their kernels' time
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA
@@ -320,7 +335,27 @@ def profile_fit(setup, n_iter=20):
         else:
             hi = max(hi, t)
     busy_us += hi - lo
-    window_us = max(t for _, t in spans) - spans[0][0]
+    return kern, busy_us, max(t for _, t in spans) - spans[0][0]
+
+
+def profile_fit(setup, n_iter=20):
+    """Device time by kernel over ``n_iter`` iterations of the batched fit
+    (``torch.profiler``), and the device's busy share of the wall time:
+    the union of the kernels' intervals over the profiled window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from scarlet_tpu_torch.lite import engine
+
+    config, data, state = setup
+    engine.fit_scan(state, data, config, 2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.fit_scan(state, data, config, n_iter)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern, busy_us, window_us = device_busy(prof)
     log(f"profile of {n_iter} batched iterations: wall {wall * 1e3:.2f} ms, "
         f"kernels span {window_us / 1e3:.2f} ms, device busy "
         f"{busy_us / 1e3:.2f} ms ({100.0 * busy_us / 1e6 / wall:.1f}% of "
@@ -334,6 +369,311 @@ def profile_fit(setup, n_iter=20):
     for name, (tot, n) in top:
         log(f"  {tot / n_iter / 1e3:9.4f} ms/iter {n / n_iter:6.1f} "
             f"calls/iter  {name[:90]}")
+
+
+def make_het():
+    """bench.py's ``make_heterogeneous``: N_HET generated blends packed to
+    one catalog layout (numpy)."""
+    from scarlet_tpu_torch.testing import generate_blend
+
+    rng = np.random.default_rng(HET_SEED)
+    blends = [generate_blend(rng) for _ in range(N_HET)]
+    K = max(len(b["catalog"]) for b in blends)
+    centers = np.zeros((N_HET, K, 2), np.int32)
+    active = np.zeros((N_HET, K), bool)
+    for i, b in enumerate(blends):
+        k = len(b["catalog"])
+        centers[i, :k, 0] = np.round(b["catalog"]["y"])
+        centers[i, :k, 1] = np.round(b["catalog"]["x"])
+        active[i, :k] = True
+    return dict(images=np.stack([b["images"] for b in blends]),
+                variance=np.stack([b["variance"] for b in blends]),
+                psfs=np.stack([b["psfs"] for b in blends]),
+                centers=centers, active=active)
+
+
+def model_psf():
+    from scarlet_tpu_torch import lite
+
+    return lite.integrated_circular_gaussian(sigma=0.8)[None].astype(
+        np.float32)
+
+
+def het_setup(dev, het, sel, **kw):
+    from scarlet_tpu_torch.parallel import stream
+
+    return stream.stream_setup(
+        het["images"][sel], het["variance"][sel], het["psfs"][sel],
+        het["centers"][sel], model_psf(), center_active=het["active"][sel],
+        box_size=HET["box_size"], n_slots=HET["n_slots"], device=dev, **kw)
+
+
+def stream_kernel_phases(dev, card, het):
+    """K5 and K6 against their plain versions on chunk 0 of the stream
+    (its morphologies, box masks, seds and noise), with some gates off,
+    nonzero thresholds, an argmax tie, and blends at their first
+    iteration beside later ones."""
+    import torch
+    from scarlet_tpu_torch.ops import kernels as kn
+    from scarlet_tpu_torch.optim import AdaproxState
+
+    config, data, state, _ = het_setup(dev, het, slice(0, HET["chunk"]))
+    wt, kt = data.mono_weights[0], data.mono_keep[0]
+    n_iter = config.mono_n_iters[0]
+    morphs, masks, seds = state.morphs[0], data.box_masks[0], state.seds[0]
+    B, K, hb, wb = morphs.shape
+    shape = (f"B={B} K={K} box={hb} C={seds.shape[-1]} "
+             f"{config.scene_shape[1]}x{config.scene_shape[2]} "
+             f"n_iter={n_iter}")
+    gen = torch.Generator().manual_seed(SEED)
+
+    def rand(scale, like=morphs):
+        return (scale * torch.randn(like.shape, generator=gen)).to(dev)
+
+    grads = rand(0.1)
+    opt = AdaproxState(rand(0.05), rand(0.01).abs(), rand(0.01).abs())
+    gate = state.comp_active[0] & (torch.rand(B, K, generator=gen)
+                                   > 0.2).to(dev)
+    # the packed branch's cutoff at bg_thresh 0.25: nonzero thresholds
+    thr = ((0.25 * data.bg_rms)[:, None, :]
+           / seds.clamp_min(config.floor)).amin(dim=-1)
+    it = torch.arange(B, device=dev) % 3
+    ds = torch.where(it > 0, 1.0, 0.1) * config.morph_step
+    stepped = ((morphs + grads) * masks).contiguous()
+    c = hb // 2
+    stepped[0, 0, c - 1:c + 2, c - 1:c + 2] = 2.0
+    idx = kn.candidate_index(stepped, 1)
+    if int(idx[0, 0]) != 0 or not (thr > 0).any() or bool(gate.all()) \
+            or not bool((it == 0).any()):
+        raise AssertionError("K5/K6 inputs miss a tie, a threshold, a "
+                             "gated-off slot or a first iteration")
+    out = {}
+
+    chain = lambda f, tol: f(morphs, stepped, idx, wt, kt, thr, gate,  # noqa
+                             n_iter, 0.0, config.floor, tol=tol)
+    err = max(float((chain(kn.prox_chain, tol)
+                     - chain(kn.prox_chain_plain, tol)).abs().max())
+              for tol in (0.0, config.mono_tol))
+    out["prox_chain"] = dict(
+        max_abs_err=err, limit=0.0,
+        ms=time_ms(lambda: chain(kn.prox_chain, config.mono_tol), 10),
+        plain_ms=time_ms(lambda: chain(kn.prox_chain_plain,
+                                       config.mono_tol), 3),
+        shape=f"{shape} tol={config.mono_tol} and 0")
+
+    fused = lambda f: f(morphs, grads, opt, gate, wt, kt, masks, thr,  # noqa
+                        ds, n_iter, 0.0, 1, config.b1, config.b2, config.eps,
+                        config.floor)
+    (x, o), (rx, ro) = fused(kn.fused_morph_update), fused(
+        kn.fused_morph_update_plain)
+    errs = [float((a - b).abs().max()) for a, b in zip((x, *o), (rx, *ro))]
+    out["fused_morph_update"] = dict(
+        max_abs_err=max(errs), limit=0.0,
+        errors_x_m_v_vhat=errs,
+        ms=time_ms(lambda: fused(kn.fused_morph_update), 10),
+        plain_ms=time_ms(lambda: fused(kn.fused_morph_update_plain), 3),
+        shape=shape)
+    for name, res in out.items():
+        if res["max_abs_err"] > res["limit"]:
+            raise AssertionError(f"{name}: kernel differs from its plain "
+                                 f"version by {res['max_abs_err']}")
+        log(f"kernel {name}: max_abs_err {res['max_abs_err']:.3g} (limit "
+            f"{res['limit']}), kernel {res['ms']:.4f} ms, plain "
+            f"{res['plain_ms']:.4f} ms [{res['shape']}] on {card}")
+    return out
+
+
+def stream_path(dev, card, het, host_init_s):
+    """The device stream end to end, from host and from device-resident
+    inputs.  Returns (launch counts of one run, summary)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from scarlet_tpu_torch.ops import kernels as kn
+    from scarlet_tpu_torch.parallel import stream
+
+    mp = model_psf()
+
+    def run(images, variance, psfs, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = stream.deblend_device_stream(
+            images, variance, psfs, het["centers"], mp,
+            center_active=het["active"], device=dev, **dict(HET, **kw))
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    host_in = (het["images"], het["variance"], het["psfs"])
+    _, warm_s = run(*host_in)
+    kn.reset_launch_counts()
+    res, t = run(*host_in)
+    counts = kn.launch_counts()
+    host_times = [t] + [run(*host_in)[1] for _ in range(2)]
+    dev_in = tuple(torch.from_numpy(x).to(dev) for x in host_in)
+    dev_times = [run(*dev_in)[1] for _ in range(3)]
+    # per-chunk uploads on a side stream: the same records
+    over, over_s = run(*host_in, upload="overlap")
+    if [(r["iterations"], r["logL"]) for r in over[0]] != \
+            [(r["iterations"], r["logL"]) for r in res[0]]:
+        raise AssertionError("upload='overlap' changed the stream's records")
+
+    records = res[0]
+    for i, r in enumerate(records):
+        if not (np.isfinite(r["logL"]) and np.isfinite(r["init logL"])
+                and np.all(np.isfinite(r["flux"]))):
+            raise AssertionError(f"stream record {i} is not finite")
+    # the fit is not monotone: a blend may stop (|dL| < e_rel |L|) below
+    # its initial logL, as in the JAX package (het blend 180: -7149.78 ->
+    # -7160.02 in 6 iterations there, on the CPU)
+    worse = [i for i, r in enumerate(records)
+             if not r["logL"] > r["init logL"]]
+    log(f"stream blends whose final logL is not above their initial one: "
+        f"{worse}")
+    if len(worse) > MAX_WORSE * len(records):
+        raise AssertionError(f"logL did not improve for {len(worse)} of "
+                             f"{len(records)} stream blends")
+    for name in PATH_KERNELS:
+        if counts[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 "stream path")
+
+    # the init program alone, per chunk of 128 (device-resident inputs)
+    sl = slice(0, HET["chunk"])
+    setup_times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stream.stream_setup(*(x[sl] for x in dev_in), het["centers"][sl], mp,
+                            center_active=het["active"][sl],
+                            box_size=HET["box_size"], n_slots=HET["n_slots"],
+                            device=dev)
+        torch.cuda.synchronize()
+        setup_times.append(time.perf_counter() - t0)
+
+    # how much of one device-resident stream run the device is busy
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, prof_s = run(*dev_in)
+    _, busy_us, _ = device_busy(prof)
+
+    its = np.array([r["iterations"] for r in records])
+    summary = dict(
+        blends_per_min=N_HET / float(np.median(host_times)) * 60.0,
+        wall_s=sorted(host_times), warmup_s=warm_s,
+        device_resident_blends_per_min=N_HET / float(np.median(dev_times))
+        * 60.0, device_resident_wall_s=sorted(dev_times),
+        overlap_upload_wall_s=over_s,
+        stream_setup_s_per_chunk=float(np.median(setup_times)),
+        host_init_s_per_128=host_init_s,
+        median_iterations=float(np.median(its)),
+        overflow=int(sum(r["overflow"] for r in records)),
+        retried=int(sum(bool(r.get("overflow_retried")) for r in records)),
+        profiled_wall_s=prof_s,
+        profiled_device_busy_share=busy_us / 1e6 / prof_s)
+    log(f"device stream of {N_HET} het blends on {dev}: "
+        f"{summary['blends_per_min']:.1f} blends/min from numpy (walls "
+        f"{[round(x, 3) for x in sorted(host_times)]} s, warm-up "
+        f"{warm_s:.2f} s), {summary['device_resident_blends_per_min']:.1f} "
+        f"blends/min device-resident; stream_setup "
+        f"{summary['stream_setup_s_per_chunk']:.4f} s per chunk of "
+        f"{HET['chunk']} vs host init {host_init_s:.2f} s per 128; median "
+        f"iterations {summary['median_iterations']}; overflow "
+        f"{summary['overflow']} (retried {summary['retried']}); device busy "
+        f"{100 * summary['profiled_device_busy_share']:.1f}% of a profiled "
+        f"run ({prof_s:.3f} s) on {card}")
+    log(f"stream kernel launches (one run): {counts}")
+    return counts, summary
+
+
+def cpu_rerun(dev, het):
+    """4 well-conditioned blends initialized and fitted on the card and on
+    the CPU (plain versions) at the card's mono_tol: the same discrete
+    init decisions, the same final logL."""
+    from scarlet_tpu_torch.parallel import batch
+
+    card = het_setup(dev, het, CPU_BLENDS)
+    cfg = card[0]
+    cpu = het_setup("cpu", het, CPU_BLENDS, mono_tol=cfg.mono_tol)
+    pairs = [("origins", card[2].origins[0], cpu[2].origins[0]),
+             ("comp_active", card[2].comp_active[0], cpu[2].comp_active[0]),
+             ("box_masks", card[1].box_masks[0], cpu[1].box_masks[0])]
+    pairs += [(k, card[3][k], cpu[3][k])
+              for k in ("slot_source", "split", "psf_fallback")]
+    for name, a, b in pairs:
+        if not bool((a.cpu() == b).all()):
+            raise AssertionError(f"card and CPU init disagree on {name}")
+    finals = []
+    t0 = time.perf_counter()
+    for _, data, state, _ in (card, cpu):
+        out, _ = batch.fit_batch_device_converged(
+            state, data, cfg, HET["max_iter"], HET["check_every"])
+        finals.append(out.last_loss.cpu().numpy())
+    rel = np.abs(finals[1] - finals[0]) / np.abs(finals[0])
+    log(f"CPU rerun of het blends {CPU_BLENDS} at mono_tol {cfg.mono_tol} "
+        f"({time.perf_counter() - t0:.1f} s): init decisions equal; logL "
+        f"{finals[1]} vs card {finals[0]}, max rel diff {rel.max():.3g} "
+        f"(limit {CPU_RTOL})")
+    if not rel.max() <= CPU_RTOL:
+        raise AssertionError("CPU and card stream logL disagree")
+    return float(rel.max())
+
+
+def fused_configs(dev, het):
+    """Chunk 0 at mono_tol 0, fitted three ways: the default, K5
+    (packed_prox_chain) and K6 (packed_morphs off, fuse_morph on).
+    Returns ({config: counts}, summary)."""
+    import dataclasses
+    import torch
+    from scarlet_tpu_torch.ops import kernels as kn
+    from scarlet_tpu_torch.parallel import batch
+
+    config, data, state, _ = het_setup(dev, het, slice(0, HET["chunk"]),
+                                       mono_tol=0.0)
+    configs = {
+        "default": config,
+        "packed_prox_chain": dataclasses.replace(config,
+                                                 packed_prox_chain=True),
+        "fuse_morph": dataclasses.replace(config, packed_morphs=False,
+                                          fuse_morph=True)}
+    finals, counts, summary = {}, {}, {}
+    for name, cfg in configs.items():
+        batch.fit_batch_device_converged(state, data, cfg, HET["max_iter"],
+                                         HET["check_every"])
+        kn.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, losses = batch.fit_batch_device_converged(
+            state, data, cfg, HET["max_iter"], HET["check_every"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[name] = kn.launch_counts()
+        finals[name] = out.last_loss.cpu().numpy()
+        summary[name] = dict(ms_per_iteration=wall * 1e3 / len(losses),
+                             iterations_run=int(len(losses)))
+    for name, kernel in (("packed_prox_chain", "prox_chain"),
+                         ("fuse_morph", "fused_morph_update")):
+        if counts[name][kernel] <= 0:
+            raise AssertionError(f"{kernel} was not launched by {name}")
+    ref = finals["default"]
+    for name in ("packed_prox_chain", "fuse_morph"):
+        rel = np.abs(finals[name] - ref) / np.abs(ref)
+        med = abs(np.median(finals[name]) - np.median(ref)) / abs(
+            np.median(ref))
+        # a blend past 1e-4 is reported: generated blends can be chaotic
+        # under the fit (PERF.md), where a last-bit change grows
+        far = np.flatnonzero(rel > 1e-4).tolist()
+        summary[name].update(median_rel=float(med), max_rel=float(rel.max()),
+                             blends_beyond_1e_4=far)
+        log(f"fused config {name}: median final logL rel diff {med:.3g} "
+            f"(limit {FUSED_MEDIAN_RTOL}), max per blend {rel.max():.3g} "
+            f"(limit {FUSED_BLEND_RTOL}), blends beyond 1e-4: {far} "
+            "(chaotic under the fit: a last-bit change of the morphology "
+            "update grows there)")
+        if not (med <= FUSED_MEDIAN_RTOL and rel.max() <= FUSED_BLEND_RTOL):
+            raise AssertionError(f"{name} disagrees with the default fit")
+    for name, res in summary.items():
+        log(f"  {name}: {res['ms_per_iteration']:.3f} ms/iteration over "
+            f"{res['iterations_run']} iterations; launches {counts[name]}")
+    return counts, summary
 
 
 def main():
@@ -367,17 +707,40 @@ def main():
 
     single, setup, init_s = setup_blends(dev)
     kres = kernel_phases(dev, card, setup)
-    counts, summary = main_path(dev, card, single, setup, init_s)
+    host_counts, summary = main_path(dev, card, single, setup, init_s)
     log(f"summary: {json.dumps(summary)}")
     profile_fit(setup)
+    del single, setup
+
+    het = make_het()
+    kres.update(stream_kernel_phases(dev, card, het))
+    stream_counts, stream_summary = stream_path(
+        dev, card, het, init_s * 128 / N_BLENDS)
+    log(f"stream summary: {json.dumps(stream_summary)}")
+    cpu_rel = cpu_rerun(dev, het)
+    fused_counts, fused_summary = fused_configs(dev, het)
+    log(f"fused summary: {json.dumps(fused_summary)}")
+
+    # each kernel's launches from the run of the path that drives it:
+    # K1, K3 and K4 from one device-stream run, K5 and K6 from the fit of
+    # their configuration
+    launches = dict(stream_counts)
+    launches["prox_chain"] = fused_counts["packed_prox_chain"]["prox_chain"]
+    launches["fused_morph_update"] = \
+        fused_counts["fuse_morph"]["fused_morph_update"]
+    path = dict(prox_chain="fit, packed_prox_chain",
+                fused_morph_update="fit, fuse_morph")
     kernels = [
         dict(name=name, route="cuda", source=SOURCES[name],
-             replaces=REPLACES[name], launches=int(counts[name]),
+             replaces=REPLACES[name], launches=int(launches[name]),
              max_abs_err=res["max_abs_err"], ms=res["ms"],
              plain_ms=res["plain_ms"],
+             path=path.get(name, "device stream"),
+             launches_host_path=int(host_counts[name]),
              **{k: v for k, v in res.items()
                 if k not in ("max_abs_err", "ms", "plain_ms")})
         for name, res in kres.items()]
+    log(f"CPU rerun max rel logL diff {cpu_rel:.3g}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -18,6 +18,10 @@ Main path::
     config, data, state = parallel.pack_blends(blends, device="cuda")
     state, losses = parallel.fit_batch_device_converged(
         state, data, config, 100, check_every=25)
+    # or raw (B, C, H, W) stacks and catalogs, initialized on the device:
+    records, state, losses, aux = parallel.deblend_device_stream(
+        images, variance, psfs, centers, model_psf, box_size=59,
+        n_slots=16, chunk=128, compact=50, device="cuda")
 """
 from . import lite, parallel, testing  # noqa: F401
 from .bbox import Box  # noqa: F401

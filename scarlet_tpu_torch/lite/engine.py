@@ -12,7 +12,8 @@ Port of ``scarlet_tpu/lite/engine.py``.  Per iteration (``fit_step``):
 6. adaprox steps;
 7. the morphology prox chain: box mask, candidate-center pick,
    monotonicity (kernel ``monotonic_prox``), background threshold, center
-   floor, max-normalization;
+   floor, max-normalization (kernel ``prox_chain`` for the whole chain,
+   or ``fused_morph_update`` for step and chain, where the config asks);
 8. the per-blend convergence mask.
 
 A batch is a leading axis on every per-blend tensor of ``BlendData`` and
@@ -22,10 +23,13 @@ kernels run where the tensors are: on the card for CUDA tensors, as their
 plain PyTorch versions on the CPU.
 
 Components live in per-size buckets, each (…, K, hb, wb).  The JAX
-package's lane-packed layout (``packed_morphs``) is a TPU device, bit for
-bit equal to this layout there; here it is a no-op.  Options the port
-does not run yet raise ``NotImplementedError`` (see
-:func:`check_supported`).
+package's lane-packed layout (``packed_morphs``) is a TPU device; here
+the layout stays, but the config takes the same branch of the morphology
+update as the JAX ``fit_step`` (:func:`_morph_update`): the packed
+branch's per-slot threshold cutoff, its one-pass prox chain
+(``packed_prox_chain``, kernel ``prox_chain``) and the fused update
+(``fuse_morph``, kernel ``fused_morph_update``).  Options the port does
+not run yet raise ``NotImplementedError`` (see :func:`check_supported`).
 """
 from __future__ import annotations
 
@@ -50,6 +54,7 @@ __all__ = [
     "map_tree",
     "pin_float32",
     "check_supported",
+    "packed_morphs_ok",
     "make_scene",
     "render",
     "fit_step",
@@ -65,10 +70,12 @@ class LiteFitConfig:
     """Static fit configuration, field for field the JAX package's, so a
     config converts one to one (``dataclasses.asdict``).
 
-    ``use_pallas``, ``use_pallas_scene``, ``pallas_interpret``,
-    ``packed_morphs`` and ``conv_precision`` are carried for that
-    conversion and change nothing here: the tensors' device picks kernel
-    or plain version, and the layout is always (…, K, hb, wb).
+    ``use_pallas``, ``use_pallas_scene``, ``packed_morphs``,
+    ``packed_prox_chain`` and ``fuse_morph`` select the branch of the
+    morphology update as in the JAX package (:func:`packed_morphs_ok`);
+    the tensors' device picks kernel or plain version, and the layout is
+    always (…, K, hb, wb).  ``pallas_interpret`` and ``conv_precision``
+    are carried for the conversion and change nothing here.
     """
     scene_shape: tuple            # (C, H, W)
     box_shapes: tuple             # ((hb, wb), ...) per bucket
@@ -102,9 +109,9 @@ class LiteFitConfig:
     neighbor_weight: str = "angle"
     use_pallas: bool = False
     use_pallas_scene: bool = False
-    fuse_morph: bool = False      # not ported: must stay False
-    packed_morphs: bool = False   # no-op (see the module docstring)
-    packed_prox_chain: bool = False  # not ported: must stay False
+    fuse_morph: bool = False      # fused morphology update (K6)
+    packed_morphs: bool = False   # the packed branch (packed_morphs_ok)
+    packed_prox_chain: bool = False  # its one-pass prox chain (K5)
     conv_mode: str = "fft"        # only "fft" is ported
     conv_precision: str = "float32"
     pallas_interpret: bool = False
@@ -175,8 +182,6 @@ def check_supported(config):
         "band_axis": (config.band_axis is not None, "None"),
         "mono_tol_switch": (config.mono_tol_switch > 0, "0"),
         "mono_every": (config.mono_every > 1, "1"),
-        "packed_prox_chain": (config.packed_prox_chain, "False"),
-        "fuse_morph": (config.fuse_morph, "False"),
         "conv_mode": (config.conv_mode != "fft", "'fft'"),
     }
     for name, (bad, want) in off.items():
@@ -184,6 +189,27 @@ def check_supported(config):
             raise NotImplementedError(
                 f"LiteFitConfig.{name}={getattr(config, name)!r} is not "
                 f"ported yet (supported: {want})")
+
+
+def packed_morphs_ok(config):
+    """Whether the JAX package runs this config's fit on its packed
+    branch (scarlet_tpu/lite/engine.py:346-354): the per-slot threshold
+    cutoff, and the one-pass prox chain with ``packed_prox_chain``."""
+    if not (config.packed_morphs and config.n_buckets == 1
+            and config.use_pallas and config.use_pallas_scene
+            and config.optimizer == "adaprox"
+            and config.band_axis is None):
+        return False
+    hb, wb = config.box_shapes[0]
+    return config.bucket_counts[0] * wb <= 4096
+
+
+def _fused_ok(config):
+    """Whether the JAX ``fit_step`` takes the fused morphology update
+    (scarlet_tpu/lite/engine.py:939-943; box growth is not ported)."""
+    return (config.use_pallas and config.fuse_morph
+            and config.scheme == "amsgrad" and config.max_prox_iter <= 1
+            and config.band_axis is None)
 
 
 # ---------------------------------------------------------------------------
@@ -367,20 +393,13 @@ def _prox_morph_bucket(morphs, seds, data, config, b):
     (…, Kb, hb, wb) stack.  Ref: lite/models.py:224-244."""
     hb, wb = config.box_shapes[b]
     bc = (hb // 2, wb // 2)
-    r = config.fit_center_radius
 
     if data.box_masks is not None:
         # confine each morphology to its logical (reference) box
         morphs = morphs * data.box_masks[b]
 
     # table of the brightest pixel near each center (first maximum wins)
-    if r > 0:
-        windows = morphs[..., bc[0] - r:bc[0] + r + 1,
-                         bc[1] - r:bc[1] + r + 1]
-        idx = windows.reshape(*windows.shape[:-2], -1).argmax(dim=-1)
-    else:
-        idx = torch.zeros(morphs.shape[:-2], dtype=torch.int64,
-                          device=morphs.device)
+    idx = kernels.candidate_index(morphs, config.fit_center_radius)
     morphs = kernels.monotonic_prox(
         morphs, idx, data.mono_weights[b], data.mono_keep[b],
         config.mono_n_iters[b], config.min_gradient, tol=config.mono_tol)
@@ -397,6 +416,60 @@ def _prox_morph_bucket(morphs, seds, data, config, b):
     morphs[..., bc[0], bc[1]] = torch.clamp_min(morphs[..., bc[0], bc[1]],
                                                 config.floor)
     return morphs / morphs.amax(dim=(-2, -1), keepdim=True)
+
+
+def _cutoff(seds, data, config):
+    """The packed branch's background threshold as a per-slot pixel
+    cutoff ``min_c t_c / max(sed_c, floor)`` (..., K), 0 for the
+    positivity clamp (scarlet_tpu/lite/engine.py:716-721): the any-band
+    count of :func:`_prox_morph_bucket` in exact arithmetic, apart from
+    it by roundoff at boundary pixels."""
+    if config.bg_thresh is None:
+        return seds.new_zeros(seds.shape[:-1])
+    t_c = config.bg_thresh * data.bg_rms
+    return (t_c[..., None, :]
+            / torch.clamp_min(seds, config.floor)).amin(dim=-1)
+
+
+def _morph_update(morphs, grads, opt, seds, gate, it, data, config, b,
+                  hyper):
+    """One bucket's morphology update: adaprox step, prox chain with the
+    *new* SEDs ``seds`` (lite/models.py:246-252), slot gate ``gate``
+    (…, K).  The branch is the JAX ``fit_step``'s for the same config
+    (scarlet_tpu/lite/engine.py:842-1019).  Returns (morphs, moments)."""
+    n_iter = config.mono_n_iters[b]
+    tables = (data.mono_weights[b], data.mono_keep[b])
+    masks = None if data.box_masks is None else data.box_masks[b]
+    packed = packed_morphs_ok(config)
+    if not packed and _fused_ok(config):
+        damp = torch.where(it > 0, 1.0, 0.1).to(morphs.dtype)
+        return kernels.fused_morph_update(
+            morphs, grads, opt, gate, *tables, masks,
+            _cutoff(seds, data, config), damp * config.morph_step, n_iter,
+            config.min_gradient, config.fit_center_radius, config.b1,
+            config.b2, config.eps, config.floor)
+
+    stepped, mopt = adaprox_step(morphs, grads, it[..., None, None, None],
+                                 opt, config.morph_step, prox=None, **hyper)
+    gate3 = gate[..., None, None]
+    mopt = AdaproxState(*(torch.where(gate3, new, old)
+                          for new, old in zip(mopt, opt)))
+    if not packed:
+        proxed = _prox_morph_bucket(stepped, seds, data, config, b)
+        return torch.where(gate3, proxed, morphs), mopt
+
+    if masks is not None:
+        stepped = stepped * masks
+    idx = kernels.candidate_index(stepped, config.fit_center_radius)
+    thr = _cutoff(seds, data, config)
+    if config.packed_prox_chain:
+        return kernels.prox_chain(morphs, stepped, idx, *tables, thr, gate,
+                                  n_iter, config.min_gradient, config.floor,
+                                  tol=config.mono_tol), mopt
+    proxed = kernels.monotonic_prox(stepped, idx, *tables, n_iter,
+                                    config.min_gradient, tol=config.mono_tol)
+    return kernels.chain_epilogue(proxed, thr, gate, morphs,
+                                  config.floor), mopt
 
 
 # ---------------------------------------------------------------------------
@@ -455,18 +528,10 @@ def fit_step(state, data, config):
             prox=lambda x, s: torch.clamp_min(x, floor),
             active=gate[..., None], param_dims=(-1,), **hyper)
 
-        # morphology: constant step, then the prox chain with the *new*
-        # SED (lite/models.py:246-252)
-        stepped, mopt = adaprox_step(
-            morphs_b, g_morphs, it[..., None, None, None],
-            state.morph_opt[b], config.morph_step, prox=None, **hyper)
-        proxed = _prox_morph_bucket(stepped, sb, data, config, b)
-
-        gate3 = gate[..., None, None]
-        new_morphs.append(torch.where(gate3, proxed, morphs_b))
-        new_morph_opts.append(AdaproxState(*(
-            torch.where(gate3, new, old)
-            for new, old in zip(mopt, state.morph_opt[b]))))
+        mb, mopt = _morph_update(morphs_b, g_morphs, state.morph_opt[b],
+                                 sb, gate, it, data, config, b, hyper)
+        new_morphs.append(mb)
+        new_morph_opts.append(mopt)
         new_seds.append(sb)
         new_sed_opts.append(sopt)
 

@@ -485,6 +485,7 @@ class LiteBlend:
             )
         scene_pad = min(int(overhang) + 1, max(bucket_sizes))
 
+        accel = torch.device(device).type == "cuda"
         mono_n_iters = []
         for s in bucket_sizes:
             _, _, n_it = engine.monotonicity_tables((s, s), fc_radius,
@@ -502,6 +503,12 @@ class LiteBlend:
             e_rel=e_rel,
             min_iter=min_iter,
             fit_center_radius=fc_radius,
+            # the JAX package's accelerator branches on the card
+            # (scarlet_tpu/lite/models.py:676-689); the convolution stays
+            # "fft"
+            use_pallas=accel,
+            use_pallas_scene=accel,
+            packed_morphs=accel,
             scene_pad=scene_pad,
         )
 

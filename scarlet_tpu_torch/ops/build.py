@@ -1,8 +1,9 @@
 """Build and load the Hopper kernels of :mod:`scarlet_tpu_torch.ops.kernels`.
 
-The CUDA sources in ``csrc/`` are compiled on first use with ``nvcc`` into
-one shared library with a plain C interface and loaded with ``ctypes``
-(no PyTorch headers, so the build takes seconds).  The library is named
+The CUDA sources in ``csrc/`` are compiled on first use with ``nvcc``, one
+compiler process per source, all started together, and linked into one
+shared library with a plain C interface, loaded with ``ctypes`` (no
+PyTorch headers, so the build takes seconds).  The library is named
 by a hash of the sources and flags and lives in ``_build/`` beside this
 file, so a changed source rebuilds and a concurrent build never sees a
 half-written file.
@@ -28,7 +29,7 @@ _CSRC = _HERE / "csrc"
 _BUILD = _HERE / "_build"
 SOURCES = ("mono.cu", "scene.cu", "grad.cu")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
 
@@ -64,23 +65,30 @@ def build(verbose=False):
     if path.exists():
         return path, 0.0, ""
     _BUILD.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
-    os.close(fd)
-    cmd = [nvcc_path(), *_FLAGS, "-o", tmp,
-           *(str(_CSRC / name) for name in SOURCES)]
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
-    try:
+    with tempfile.TemporaryDirectory(dir=_BUILD) as tmpdir:
+        objs = [os.path.join(tmpdir, name + ".o") for name in SOURCES]
+        procs = [subprocess.Popen(
+            [nvcc, *_FLAGS, "-c", "-o", obj, str(_CSRC / name)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for name, obj in zip(SOURCES, objs)]
+        logs = [proc.communicate()[0] for proc in procs]
+        log = "".join(logs)
+        for name, proc, out in zip(SOURCES, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {name} "
+                                   f"({proc.returncode}):\n{out}")
+        lib = os.path.join(tmpdir, "lib.so")
+        cmd = [nvcc, "-shared", "-o", lib, *objs]
         proc = subprocess.run(cmd, capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}"
+                               f"{proc.stderr}")
+        os.replace(lib, path)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
     if verbose:
         print(log)
     return path, seconds, log
@@ -98,6 +106,10 @@ def load():
     lib.scarlet_mono_prox.argtypes = [p, p, p, p, p, i, i, i, i, i, ll, ll,
                                       ll, ll, i, f, f, p]
     lib.scarlet_mono_smem_bytes.argtypes = [i, i]
+    lib.scarlet_prox_chain.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i,
+                                       i, f, f, f, p]
+    lib.scarlet_fused_morph.argtypes = [p] * 11 + [i] * 6 + [f, i] + \
+        [f] * 6 + [p] * 5
     lib.scarlet_scene_assembly.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
                                            i, p]
     lib.scarlet_grad_gather.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
@@ -106,6 +118,7 @@ def load():
     lib.scarlet_error_string.argtypes = [i]
     lib.scarlet_error_string.restype = ctypes.c_char_p
     for name in ("scarlet_mono_prox", "scarlet_mono_smem_bytes",
+                 "scarlet_prox_chain", "scarlet_fused_morph",
                  "scarlet_scene_assembly", "scarlet_grad_gather",
                  "scarlet_grad_max_bands"):
         getattr(lib, name).restype = ctypes.c_int

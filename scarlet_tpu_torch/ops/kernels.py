@@ -1,14 +1,18 @@
-"""The three Hopper kernels of the lite fit loop and their plain PyTorch
+"""The Hopper kernels of the lite fit loop and their plain PyTorch
 versions.
 
-=====================  ==========================  =======================
-wrapper                CUDA source                 TPU kernel it replaces
-=====================  ==========================  =======================
-monotonic_prox         csrc/mono.cu                ``batched_monotonic_prox``
-monotonic_prox_packed  csrc/mono.cu (strided)      ``monotonic_prox_packed``
-scene_assembly         csrc/scene.cu               ``scene_assembly``
-grad_gather            csrc/grad.cu                ``grad_gather``
-=====================  ==========================  =======================
+======================  ===================  ================================
+wrapper                 CUDA source          TPU kernel it replaces
+======================  ===================  ================================
+monotonic_prox          csrc/mono.cu         ``batched_monotonic_prox`` (K1)
+monotonic_prox_packed   csrc/mono.cu         ``monotonic_prox_packed`` (K2)
+                        (strided)
+prox_chain              csrc/mono.cu         ``monotonic_prox_packed_chain``
+                                             (K5)
+fused_morph_update      csrc/mono.cu         ``fused_morph_update`` (K6)
+scene_assembly          csrc/scene.cu        ``scene_assembly`` (K3)
+grad_gather             csrc/grad.cu         ``grad_gather`` (K4)
+======================  ===================  ================================
 
 (TPU kernels: ``scarlet_tpu/ops/pallas_kernels.py``.)
 
@@ -29,7 +33,8 @@ these kernels.
 Layout: the port keeps morphologies as (..., K, hb, wb).  The JAX
 package's lane-packed (hb, K*wb) layout is a TPU device; here it exists
 only as :func:`monotonic_prox_packed`, which runs the same kernel through
-strides.
+strides.  The TPU's K5 writes its output onto its ``x_orig`` input
+buffer; :func:`prox_chain` writes a fresh tensor.
 """
 from __future__ import annotations
 
@@ -37,15 +42,21 @@ import torch
 
 from . import build
 from .prox import NEIGHBOR_OFFSETS, shift_zero
+from ..optim import AdaproxState
 
 __all__ = [
     "MONO_UNROLL",
     "monotonic_prox",
     "monotonic_prox_packed",
+    "candidate_index",
+    "prox_chain",
+    "fused_morph_update",
     "scene_assembly",
     "grad_gather",
     "monotonic_prox_plain",
     "monotonic_prox_packed_plain",
+    "prox_chain_plain",
+    "fused_morph_update_plain",
     "scene_assembly_plain",
     "grad_gather_plain",
     "launch_counts",
@@ -196,9 +207,9 @@ def monotonic_prox_packed(packed, idx, weights_table, keep_table, wb,
                         tol)
 
 
-def _mono_launch(name, x, idx, weights_table, keep_table, K, hb, wb, strides,
-                 n_iter, min_gradient, tol):
-    _require_cuda(name, x, idx, weights_table, keep_table)
+def _tables_lib(name, weights_table, keep_table, hb, wb):
+    """Check the monotonicity tables and the box's shared memory; returns
+    (library, ncand)."""
     _f32(name, weights_table, "weights_table")
     _f32(name, keep_table, "keep_table")
     ncand = weights_table.shape[0]
@@ -212,6 +223,13 @@ def _mono_launch(name, x, idx, weights_table, keep_table, K, hb, wb, strides,
     if smem > 232448:
         raise ValueError(f"{name}: box ({hb}, {wb}) needs {smem} B of "
                          "shared memory, more than 227 KB")
+    return lib, ncand
+
+
+def _mono_launch(name, x, idx, weights_table, keep_table, K, hb, wb, strides,
+                 n_iter, min_gradient, tol):
+    _require_cuda(name, x, idx, weights_table, keep_table)
+    lib, ncand = _tables_lib(name, weights_table, keep_table, hb, wb)
     idx32 = idx.to(torch.int32).contiguous()
     B = x.numel() // (K * hb * wb)
     out = torch.empty_like(x)
@@ -233,11 +251,200 @@ monotonic_prox.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# K5/K6: the morphology prox chain, alone and fused with the step
+# ---------------------------------------------------------------------------
+def candidate_index(morphs, radius):
+    """Table index of each morphology's candidate center: the first
+    maximum of its (2r+1)^2 center window, row-major (``argmax``)."""
+    if radius <= 0:
+        return torch.zeros(morphs.shape[:-2], dtype=torch.int64,
+                           device=morphs.device)
+    hb, wb = morphs.shape[-2:]
+    cy, cx = hb // 2, wb // 2
+    win = morphs[..., cy - radius:cy + radius + 1, cx - radius:cx + radius + 1]
+    return win.reshape(*win.shape[:-2], -1).argmax(dim=-1)
+
+
+def chain_epilogue(x, thr, gate, x_orig, floor):
+    """The prox chain after the projection: pixels below the per-slot
+    cutoff ``thr`` (..., K) go to 0, the center pixel is raised to at
+    least ``floor``, each morphology is divided by its max, and slots whose
+    ``gate`` (..., K) is off keep ``x_orig``."""
+    hb, wb = x.shape[-2:]
+    x = torch.where(x < thr[..., None, None], 0.0, x)
+    # fresh tensor from the where above: the in-place center write is local
+    x[..., hb // 2, wb // 2] = torch.clamp_min(x[..., hb // 2, wb // 2],
+                                               floor)
+    x = x / x.amax(dim=(-2, -1), keepdim=True)
+    return torch.where(gate[..., None, None], x, x_orig)
+
+
+def prox_chain_plain(x_orig, stepped, idx, weights_table, keep_table, thr,
+                     gate, n_iter, min_gradient=0.0, floor=1e-20, tol=0.0):
+    """Plain version of :func:`prox_chain` (engine.py:706-730 of the JAX
+    package, the packed prox chain, then the slot gate)."""
+    out = monotonic_prox_plain(stepped, idx, weights_table, keep_table,
+                               n_iter, min_gradient, tol)
+    return chain_epilogue(out, thr.to(out.dtype), gate.to(torch.bool),
+                          x_orig, floor)
+
+
+def prox_chain(x_orig, stepped, idx, weights_table, keep_table, thr, gate,
+               n_iter, min_gradient=0.0, floor=1e-20, tol=0.0):
+    """The morphology prox chain of a stack of slots in one pass:
+    :func:`monotonic_prox` of ``stepped`` (the stepped, box-masked
+    morphologies), then :func:`chain_epilogue` with ``x_orig`` (the
+    morphologies before the step) for gated-off slots.
+
+    x_orig, stepped (..., K, hb, wb) float32; idx (..., K) table index;
+    thr (..., K) float per-slot cutoff ``min_c t_c / sed_c`` (0: the
+    positivity clamp); gate (..., K) bool.  Returns a fresh tensor.
+    """
+    if _is_cpu(x_orig, stepped, idx, weights_table, keep_table, thr, gate):
+        return prox_chain_plain(x_orig, stepped, idx, weights_table,
+                                keep_table, thr, gate, n_iter, min_gradient,
+                                floor, tol)
+    name = "prox_chain"
+    _require_cuda(name, x_orig, stepped, idx, weights_table, keep_table, thr,
+                  gate)
+    hb, wb = stepped.shape[-2:]
+    lead = tuple(stepped.shape[:-2])
+    if (tuple(x_orig.shape) != tuple(stepped.shape)
+            or tuple(idx.shape) != lead or tuple(thr.shape) != lead
+            or tuple(gate.shape) != lead):
+        raise ValueError(f"{name}: shapes do not match: x_orig "
+                         f"{tuple(x_orig.shape)}, stepped "
+                         f"{tuple(stepped.shape)}, idx {tuple(idx.shape)}, "
+                         f"thr {tuple(thr.shape)}, gate {tuple(gate.shape)}")
+    _f32(name, x_orig, "x_orig")
+    _f32(name, stepped, "stepped")
+    lib, ncand = _tables_lib(name, weights_table, keep_table, hb, wb)
+    idx32 = idx.to(torch.int32).contiguous()
+    thr32 = thr.to(torch.float32).contiguous()
+    gate8 = gate.to(torch.bool).contiguous()
+    out = torch.empty_like(stepped)
+    N = stepped.numel() // (hb * wb) if hb * wb else 0
+    if N == 0:
+        return out
+    with torch.cuda.device(stepped.device):
+        err = lib.scarlet_prox_chain(
+            x_orig.data_ptr(), stepped.data_ptr(), out.data_ptr(),
+            idx32.data_ptr(), thr32.data_ptr(), gate8.data_ptr(),
+            weights_table.data_ptr(), keep_table.data_ptr(), ncand, N, hb,
+            wb, int(n_iter), 1.0 - float(min_gradient), float(floor),
+            float(tol), _stream(stepped))
+    _check(name, err)
+    prox_chain.launches += 1
+    return out
+
+
+prox_chain.launches = 0
+
+
+def fused_morph_update_plain(morphs, grads, opt, gate, weights_table,
+                             keep_table, box_masks, thr, damp_step, n_iter,
+                             min_gradient=0.0, fit_center_radius=1, b1=0.9,
+                             b2=0.999, eps=1e-8, floor=1e-20):
+    """Plain version of :func:`fused_morph_update`: the engine's amsgrad
+    step (``optim.adaprox_step``, same association), the box mask, the
+    candidate pick, :func:`monotonic_prox_plain` at tol 0 and
+    :func:`chain_epilogue`."""
+    m2 = (1 - b1) * grads + b1 * opt.m
+    v2 = (1 - b2) * (grads * grads) + b2 * opt.v
+    vh2 = torch.maximum(opt.vhat, v2)
+    ds = damp_step.to(morphs.dtype)[..., None, None, None]
+    x1 = morphs - ds * m2 / (torch.sqrt(vh2) + eps)
+    if box_masks is not None:
+        x1 = x1 * box_masks
+    idx = candidate_index(x1, fit_center_radius)
+    out = monotonic_prox_plain(x1, idx, weights_table, keep_table, n_iter,
+                               min_gradient, 0.0)
+    gate = gate.to(torch.bool)
+    x_new = chain_epilogue(out, thr.to(out.dtype), gate, morphs, floor)
+    g3 = gate[..., None, None]
+    return x_new, AdaproxState(m=torch.where(g3, m2, opt.m),
+                               v=torch.where(g3, v2, opt.v),
+                               vhat=torch.where(g3, vh2, opt.vhat))
+
+
+def fused_morph_update(morphs, grads, opt, gate, weights_table, keep_table,
+                       box_masks, thr, damp_step, n_iter, min_gradient=0.0,
+                       fit_center_radius=1, b1=0.9, b2=0.999, eps=1e-8,
+                       floor=1e-20):
+    """The whole amsgrad morphology update of a stack of slots in one
+    pass: moments, the step ``x - ds m' / (sqrt(vhat') + eps)``, the box
+    mask, the candidate pick, the monotonicity projection to its exact
+    fixed point (the configured ``mono_tol`` does not apply, as in the TPU
+    kernel) and :func:`chain_epilogue`; x and the moments keep their
+    inputs where ``gate`` is off.
+
+    morphs, grads, opt.{m, v, vhat}, box_masks (or None) (..., K, hb, wb)
+    float32; gate (..., K) bool; thr (..., K) float; damp_step (...) the
+    morphology step of each blend (0.1 x at its first iteration).
+    Returns (morphs', AdaproxState).
+    """
+    tensors = (morphs, grads, *opt, gate, weights_table, keep_table, thr,
+               damp_step) + (() if box_masks is None else (box_masks,))
+    if _is_cpu(*tensors):
+        return fused_morph_update_plain(
+            morphs, grads, opt, gate, weights_table, keep_table, box_masks,
+            thr, damp_step, n_iter, min_gradient, fit_center_radius, b1, b2,
+            eps, floor)
+    name = "fused_morph_update"
+    _require_cuda(name, *tensors)
+    hb, wb = morphs.shape[-2:]
+    lead = tuple(morphs.shape[:-3])
+    K = morphs.shape[-3]
+    planes = [(grads, "grads"), (opt.m, "m"), (opt.v, "v"),
+              (opt.vhat, "vhat")]
+    if box_masks is not None:
+        planes.append((box_masks, "box_masks"))
+    for t, what in [(morphs, "morphs")] + planes:
+        if tuple(t.shape) != tuple(morphs.shape):
+            raise ValueError(f"{name}: {what} {tuple(t.shape)} does not "
+                             f"match morphs {tuple(morphs.shape)}")
+        _f32(name, t, what)
+    if (tuple(gate.shape) != lead + (K,) or tuple(thr.shape) != lead + (K,)
+            or tuple(damp_step.shape) != lead):
+        raise ValueError(f"{name}: gate {tuple(gate.shape)}, thr "
+                         f"{tuple(thr.shape)}, damp_step "
+                         f"{tuple(damp_step.shape)} do not fit morphs "
+                         f"{tuple(morphs.shape)}")
+    r = int(fit_center_radius)
+    lib, ncand = _tables_lib(name, weights_table, keep_table, hb, wb)
+    if ncand != (2 * r + 1) ** 2 or not 0 <= r <= min(hb, wb) // 2:
+        raise ValueError(f"{name}: {ncand} tables for radius {r}")
+    thr32 = thr.to(torch.float32).contiguous()
+    gate8 = gate.to(torch.bool).contiguous()
+    ds = damp_step.to(torch.float32).contiguous()
+    outs = [torch.empty_like(morphs) for _ in range(4)]
+    B = ds.numel()
+    if B * K == 0:
+        return outs[0], AdaproxState(*outs[1:])
+    bm = 0 if box_masks is None else box_masks.data_ptr()
+    with torch.cuda.device(morphs.device):
+        err = lib.scarlet_fused_morph(
+            morphs.data_ptr(), grads.data_ptr(), opt.m.data_ptr(),
+            opt.v.data_ptr(), opt.vhat.data_ptr(), bm, thr32.data_ptr(),
+            gate8.data_ptr(), ds.data_ptr(), weights_table.data_ptr(),
+            keep_table.data_ptr(), ncand, B, K, hb, wb, int(n_iter),
+            1.0 - float(min_gradient), r, 1.0 - b1, b1, 1.0 - b2, b2,
+            eps, floor, *(o.data_ptr() for o in outs), _stream(morphs))
+    _check(name, err)
+    fused_morph_update.launches += 1
+    return outs[0], AdaproxState(*outs[1:])
+
+
+fused_morph_update.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # K3: scene assembly
 # ---------------------------------------------------------------------------
 def _check_pad(origins, box, hw, pad):
-    """The plain versions index a scene padded by ``pad``: every box must
-    fit inside it (a negative slice start would wrap around silently)."""
+    """The plain scene assembly adds into a scene padded by ``pad``: every
+    box must fit inside it (a negative index would wrap around
+    silently)."""
     hb, wb = box
     H, W = hw
     oy, ox = origins[..., 0], origins[..., 1]
@@ -269,7 +476,11 @@ def scene_assembly_plain(seds, morphs, origins, comp_active, scene_shape,
     seds = seds.reshape(-1, K, C)
     morphs = morphs.reshape(-1, K, hb, wb)
     origins = origins.reshape(-1, K, 2)
-    on = comp_active.reshape(-1, K).to(seds.dtype)
+    active = comp_active.reshape(-1, K).to(torch.bool)
+    on = active.to(seds.dtype)
+    # an inactive box adds nothing: park it in the padding's corner, so
+    # that only active boxes must fit the padded scene
+    origins = torch.where(active[..., None], origins, -pad)
     _check_pad(origins, (hb, wb), (H, W), pad)
     B = seds.shape[0]
     # channels last, so one advanced index picks a (B, hb, wb, C) window
@@ -342,7 +553,8 @@ def grad_gather_plain(gpad, seds, morphs, origins, pad):
     """Plain version of :func:`grad_gather` (engine.py:786-794 of the JAX
     package): per component, the window ``g`` of the padded gradient,
     ``g_sed = sum_hw g * morph`` and ``g_morph = sum_c sed_c * g_c``
-    (summed in c order)."""
+    (summed in c order).  Window pixels outside the padded gradient read
+    0, as in the kernel."""
     C, Hp, Wp = gpad.shape[-3:]
     K = seds.shape[-2]
     hb, wb = morphs.shape[-2:]
@@ -351,12 +563,13 @@ def grad_gather_plain(gpad, seds, morphs, origins, pad):
     seds = seds.reshape(-1, K, C)
     morphs = morphs.reshape(-1, K, hb, wb)
     origins = origins.reshape(-1, K, 2)
-    _check_pad(origins, (hb, wb), (Hp - 2 * pad, Wp - 2 * pad), pad)
     bi = torch.arange(gpad.shape[0], device=gpad.device)[:, None, None]
     g_seds, g_morphs = [], []
     for k in range(K):
         rows, cols = _windows(origins[:, k], pad, hb, wb)
-        g = gpad[bi, rows, cols].permute(0, 3, 1, 2)      # (B, C, hb, wb)
+        inside = (rows >= 0) & (rows < Hp) & (cols >= 0) & (cols < Wp)
+        g = gpad[bi, rows.clamp(0, Hp - 1), cols.clamp(0, Wp - 1)]
+        g = torch.where(inside[..., None], g, 0.0).permute(0, 3, 1, 2)
         g_seds.append((g * morphs[:, k, None]).sum(dim=(-2, -1)))
         sed = seds[:, k, :, None, None]
         gm = sed[:, 0] * g[:, 0]
@@ -417,7 +630,8 @@ def grad_gather(gpad, seds, morphs, origins, pad):
 grad_gather.launches = 0
 
 
-_COUNTED = (monotonic_prox, scene_assembly, grad_gather)
+_COUNTED = (monotonic_prox, prox_chain, fused_morph_update, scene_assembly,
+            grad_gather)
 
 
 def launch_counts():

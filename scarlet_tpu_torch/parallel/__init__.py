@@ -1,4 +1,5 @@
-"""Batched fitting of many blends on one device."""
+"""Batched fitting of many blends on one device, and the device stream
+(init, fit and records of raw pixel stacks)."""
 from .batch import (  # noqa: F401
     pack_batch,
     pack_blends,
@@ -7,4 +8,11 @@ from .batch import (  # noqa: F401
     select_blends,
     fit_batch,
     fit_batch_device_converged,
+    fit_batch_device_dispatch,
+    fit_batch_device_collect,
+)
+from .stream import (  # noqa: F401
+    stream_setup,
+    stream_records,
+    deblend_device_stream,
 )

@@ -28,6 +28,8 @@ __all__ = [
     "select_blends",
     "fit_batch",
     "fit_batch_device_converged",
+    "fit_batch_device_dispatch",
+    "fit_batch_device_collect",
 ]
 
 # BlendData fields shared (unbatched) across a batch
@@ -196,3 +198,26 @@ def fit_batch_device_converged(state, data, config, max_iter,
     if not losses:
         return state, state.last_loss.new_zeros((0,) + state.active.shape)
     return state, torch.cat(losses)
+
+
+def fit_batch_device_dispatch(state, data, config, max_iter,
+                              check_every=10):
+    """Start :func:`fit_batch_device_converged` on a copy of ``state`` and
+    return a handle for :func:`fit_batch_device_collect`.
+
+    The JAX package dispatches its whole fit as one asynchronous device
+    program.  Here the fit reads ``state.active.any()`` on the host once
+    per segment, so this call returns once the last segment has been
+    enqueued: the caller's next work overlaps at most the kernels still in
+    flight (the last segment when the cap ends the fit).
+    """
+    state = engine.map_tree(lambda x: x.clone(), state)
+    return fit_batch_device_converged(state, data, config, max_iter,
+                                      check_every)
+
+
+def fit_batch_device_collect(handle, max_iter):
+    """The (final_state, losses (n_run, B)) of a
+    :func:`fit_batch_device_dispatch` handle, ``n_run <= max_iter``."""
+    out, losses = handle
+    return out, losses[:max_iter]

@@ -1,0 +1,912 @@
+"""Device-side batched initialization, fit and measurement of a stream of
+blends: raw pixel stacks -> packed engine state -> records, on one device.
+
+Port of ``scarlet_tpu/parallel/stream.py``:
+
+    raw (B, C, H, W) stacks -> stream_setup -> (config, BlendData,
+    BlendState, aux) -> fit_batch_device_converged -> stream_records
+
+The initialization is the host recipe of ``lite.init_all_sources_main``
+(chi^2 coadd detection, SDSS symmetrization, exact weighted-monotonic
+projection, threshold trim, SNR-gated bulge/disk split with joint
+least-squares SEDs, PSF fallback) written over the (B, K) axes of a
+chunk of blends and their catalog rows as tensor axes, with no per-blend
+host work.  The projection runs through kernel ``monotonic_prox`` (K1)
+with one centered table, exact (tol 0).
+
+Options of the JAX stream that the port does not run yet raise
+``NotImplementedError``: the wavelet recipe, the monotonic-mask seeds
+(``use_mask``), device detection (``centers=None``), ``redetect``,
+quantized uploads (``upload_dtype``), the upload bandwidth probe
+(``upload="auto"``) and box growth.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..lite import engine
+from ..ops import fft as fft_ops
+from ..ops import kernels
+from ..ops import prox as prox_ops
+from ..optim import AdaproxState
+from .batch import (_SHARED_FIELDS, fit_batch_device_collect,
+                    fit_batch_device_converged, fit_batch_device_dispatch)
+
+__all__ = ["stream_setup", "stream_records", "deblend_device_stream"]
+
+TINY = 1e-20
+
+
+def _centered_mono_table(S):
+    """Single-candidate monotonicity table for an S x S box with the peak
+    at its center (init-time projection): ``(w (1, 8, S, S), keep
+    (1, S, S), depth)``, float32 numpy, memoized."""
+    from ..cache import Cache
+
+    key = int(S)
+    try:
+        return Cache.check("stream_mono_center", key)
+    except KeyError:
+        pass
+    c = (S // 2, S // 2)
+    w = prox_ops.monotonic_weights((S, S), "angle", c).astype(np.float32)
+    depth = prox_ops.monotonic_depth(w, (S, S), c)
+    keep = np.zeros((S, S), np.float32)
+    keep[c] = 1.0
+    out = (w[None], keep[None], int(depth))
+    Cache.set("stream_mono_center", key, out)
+    return out
+
+
+def _mono_project(x, w8, keep, depth):
+    """Weighted-monotonic projection of (B, K, S, S) images about their
+    centers to the exact fixed point: kernel ``monotonic_prox`` with the
+    one centered table at tol 0, equal bit for bit to ``depth`` plain
+    Jacobi passes (stream.py:103-117 of the JAX package)."""
+    idx = torch.zeros(x.shape[:-2], dtype=torch.int32, device=x.device)
+    return kernels.monotonic_prox(x.contiguous(), idx, w8, keep, depth, 0.0,
+                                  tol=0.0)
+
+
+def _sanitize_stacks(images, variance):
+    """Zero non-finite pixels; give non-finite or negative variance the
+    per-band mean of the finite variance.  Returns (images, variance,
+    bad).  Bitwise inert on clean inputs."""
+    bad = ~(torch.isfinite(images) & torch.isfinite(variance)) \
+        | (variance < 0)
+    images = torch.where(bad, 0.0, images)
+    vcnt = torch.clamp_min((~bad).sum(dim=(-2, -1)), 1).to(variance.dtype)
+    vfill = (torch.where(bad, 0.0, variance).sum(dim=(-2, -1))
+             / vcnt)[..., None, None]
+    variance = torch.where(bad, vfill, variance)
+    return images, variance, bad
+
+
+def _quantized_boxsize(size, cap, min_size=21, increment=10):
+    """``initialization.get_minimal_boxsize`` on tensors: the smallest
+    ``min_size + k * increment >= size``, capped at the physical box."""
+    over = torch.clamp_min(size - min_size, 0)
+    k = (over + increment - 1) // increment
+    return torch.clamp_max(min_size + k * increment, cap)
+
+
+def _windows(x, cy, cx, h, w):
+    """The (h, w) windows of ``x`` (B, ..., Hx, Wx) with top-left corners
+    (cy, cx) (B, K): (B, K, ..., h, w).  Corners must keep the window
+    inside ``x``."""
+    B = x.shape[0]
+    dev = x.device
+    xl = x.movedim((-2, -1), (1, 2))                   # (B, Hx, Wx, ...)
+    rows = cy[..., None, None] + torch.arange(h, device=dev)[:, None]
+    cols = cx[..., None, None] + torch.arange(w, device=dev)[None, :]
+    bi = torch.arange(B, device=dev)[:, None, None, None]
+    out = xl[bi, rows, cols]                           # (B, K, h, w, ...)
+    return out.movedim((2, 3), (-2, -1))
+
+
+def _corner(c, dim, size):
+    """A window corner as the JAX program's dynamic slices and gathers
+    take it: a negative index counts from the end, then the window is
+    clamped inside the axis.  Only rows that are switched off (out of the
+    frame) ever need it."""
+    return torch.where(c < 0, c + dim, c).clamp(0, dim - size)
+
+
+def _ratio_sed(num, den):
+    """Peak-ratio SED; unusable bands (den <= 0, non-finite) seed 0."""
+    r = torch.clamp_min(num / den, 0.0)
+    return torch.where((den > 0) & torch.isfinite(r), r, 0.0)
+
+
+def _convolve_shared(image, kernel_rfft, fft_shape):
+    """Convolve (…, 1, H, W) images, identical across bands, with per-band
+    kernel transforms (…, C, fh, fw//2+1): one forward transform per
+    image, broadcast over the bands (the same values as transforming each
+    band's copy)."""
+    kimage = fft_ops.transform(image, fft_shape, (-2, -1))
+    shape = tuple(image.shape[:-3]) + (kernel_rfft.shape[-3],) \
+        + tuple(image.shape[-2:])
+    return fft_ops.inverse_transform(kimage * kernel_rfft, fft_shape, shape,
+                                     (-2, -1))
+
+
+def _init_batch(images, variance, psfs, centers, center_on, model_psf,
+                scene_valid, w8, keep_c, *, S, n_slots, fft_shape,
+                match_shape, psf_fft_shape, mono_iter, min_snr, thresh,
+                percentile):
+    """The main-recipe initialization (stream.py:171-541 of the JAX
+    package, ``recipe="main"``) of a chunk of B blends with K catalog rows
+    each.  Returns (data_leaves, state_leaves, aux) with slot-packed
+    tensors at the shared (S, n_slots) layout."""
+    B, C, H, W = images.shape
+    K = centers.shape[1]
+    hS = S // 2
+    dtype = images.dtype
+    dev = images.device
+    bi = torch.arange(B, device=dev)[:, None]
+
+    # --- observation-level quantities ------------------------------------
+    n_valid = torch.clamp_min(scene_valid.sum(dim=(-2, -1)), 1.0)   # (B,)
+    noise_rms = ((torch.sqrt(variance) * scene_valid[:, None]).sum(
+        dim=(-2, -1)) / n_valid[:, None])                           # (B, C)
+    detect = ((images / (noise_rms ** 2)[..., None, None]).sum(dim=1)
+              * scene_valid)                                       # (B,H,W)
+
+    # difference kernel (fft.match_psf semantics: the k-space ratio at the
+    # PSF-matching shape, the kernel image at the PSF shape) and its rFFTs
+    # at the fit shape
+    kf = (fft_ops.transform(psfs, match_shape, (-2, -1))
+          / fft_ops.transform(model_psf, match_shape, (-2, -1)))
+    kimage = fft_ops.inverse_transform(kf, match_shape, tuple(psfs.shape),
+                                       (-2, -1))
+    kernel_rfft = fft_ops.transform(kimage, fft_shape, (-2, -1))
+    grad_kernel_rfft = fft_ops.transform(torch.flip(kimage, (-2, -1)),
+                                         fft_shape, (-2, -1))
+
+    # detection image convolved to each band's seeing (peak SEDs)
+    convolved = _convolve_shared(detect[:, None], kernel_rfft, fft_shape)
+
+    # PSF SED: the model PSF convolved per band, its center pixel
+    mh, mw = model_psf.shape[-2:]
+    psf_krfft = fft_ops.transform(kimage, psf_fft_shape, (-2, -1))
+    conv_psf = _convolve_shared(model_psf[None].expand(B, 1, mh, mw),
+                                psf_krfft, psf_fft_shape)
+    psf_sed = conv_psf[..., mh // 2, mw // 2]                       # (B, C)
+
+    # PSF morphology seed, centered in the S x S box (center-cropped when
+    # the PSF is larger)
+    ch, cw = min(mh, S), min(mw, S)
+    mp_crop = model_psf[0, (mh - ch) // 2:(mh - ch) // 2 + ch,
+                        (mw - cw) // 2:(mw - cw) // 2 + cw]
+    oy, ox = (S - ch) // 2, (S - cw) // 2
+    psf_morph = images.new_zeros((S, S))
+    psf_morph[oy:oy + ch, ox:ox + cw] = mp_crop / torch.clamp_min(
+        mp_crop.max(), TINY)
+    psf_box_mask = images.new_zeros((S, S))
+    psf_box_mask[oy:oy + ch, ox:ox + cw] = 1.0
+
+    # --- padded views for box extraction ----------------------------------
+    ph, pw = psfs.shape[-2:]
+    py, px = ph // 2, pw // 2
+    dpad = F.pad(detect, (hS, hS, hS, hS))
+    vpad = F.pad(scene_valid, (hS, hS, hS, hS))
+    ipad = F.pad(images, (hS, hS, hS, hS))
+    ipad_p = F.pad(images, (px, px, py, py))
+    vpad_p = F.pad(variance, (px, px, py, py))
+
+    cys = centers[..., 0].long()
+    cxs = centers[..., 1].long()
+    # box corners in the hS-padded views, and the centers' own pixels
+    cyc, cxc = _corner(cys, H + 2 * hS, S), _corner(cxs, W + 2 * hS, S)
+    cy1, cx1 = _corner(cys, H, 1), _corner(cxs, W, 1)
+    thresh_val = noise_rms.mean(dim=-1) * thresh                    # (B,)
+    flux_thresh = torch.tensor(percentile / 100.0, dtype=dtype, device=dev)
+    ridx = torch.arange(S, device=dev)
+    yy, xx = ridx[:, None], ridx[None, :]
+
+    # PSF-weighted peak S/N (lite/measure.py calculate_snr)
+    cyp = _corner(cys, H + 2 * py, ph)
+    cxp = _corner(cxs, W + 2 * px, pw)
+    img_c = _windows(ipad_p, cyp, cxp, ph, pw)
+    var_c = _windows(vpad_p, cyp, cxp, ph, pw)
+    p4 = psfs[:, None]                                   # (B, 1, C, ph, pw)
+    snr = ((img_c * p4).sum(dim=(-3, -2, -1))
+           / torch.sqrt(torch.clamp_min(
+               (p4 * var_c * p4).sum(dim=(-3, -2, -1)), TINY)))    # (B, K)
+    split_snr = torch.floor(snr) / min_snr >= 2
+
+    # centered S x S detection cutouts; SDSS symmetrization only where a
+    # pixel and its mirror are both inside the image
+    d = _windows(dpad, cyc, cxc, S, S)                          # (B,K,S,S)
+    valid = _windows(vpad, cyc, cxc, S, S) > 0.5
+    both = valid & torch.flip(valid, (-2, -1))
+    d = torch.where(both, torch.minimum(d, torch.flip(d, (-2, -1))), d)
+
+    # exact weighted-monotonic projection, then the threshold trim
+    # (initialization.trim_morphology): sub-threshold pixels to 0, the
+    # centered quantized logical box
+    m = _mono_project(d, w8, keep_c, mono_iter)
+    m = torch.where(m > thresh_val[:, None, None, None], m, 0.0)
+    on = m > 0
+    row_on = on.any(dim=-1)                                     # (B, K, S)
+    col_on = on.any(dim=-2)
+    y0 = torch.where(row_on, ridx, S).amin(dim=-1)
+    y1 = torch.where(row_on, ridx, -1).amax(dim=-1)
+    x0 = torch.where(col_on, ridx, S).amin(dim=-1)
+    x1 = torch.where(col_on, ridx, -1).amax(dim=-1)
+    contains = (y0 <= hS) & (hS <= y1) & (x0 <= hS) & (hS <= x1)
+    # trim_morphology's size, with the stop-side +1 of the Box bounds
+    size = 2 * torch.maximum(torch.maximum(hS - y0, y1 + 1 - hS),
+                             torch.maximum(hS - x0, x1 + 1 - hS))
+    half = (_quantized_boxsize(size, S) // 2)[..., None, None]
+    box_mask = (((yy - hS).abs() <= half)
+                & ((xx - hS).abs() <= half)).to(dtype)
+    m = m * box_mask
+    morph_max = m.amax(dim=(-2, -1))                                # (B, K)
+    fallback = ~contains | (morph_max <= 0)
+
+    # peak SED from the image / convolved-detection ratio
+    img_pk = images[bi, :, cy1, cx1]                            # (B, K, C)
+    sed = _ratio_sed(img_pk, convolved[bi, :, cy1, cx1]) \
+        * morph_max[..., None]
+    morph = m / torch.clamp_min(morph_max, TINY)[..., None, None]
+
+    # PSF fallback
+    sed_fb = _ratio_sed(img_pk, psf_sed[:, None])
+    fb3 = fallback[..., None, None]
+    morph = torch.where(fb3, psf_morph, morph)
+    sed = torch.where(fallback[..., None], sed_fb, sed)
+    box_mask = torch.where(fb3, psf_box_mask, box_mask)
+
+    # bulge/disk split candidates (percentile/100 flux threshold)
+    disk = torch.minimum(morph, flux_thresh)
+    bulge = torch.clamp_min(morph - flux_thresh, 0.0)
+    bmax = bulge.amax(dim=(-2, -1))
+    dmax = disk.amax(dim=(-2, -1))
+    split = split_snr & ~fallback & (bmax > 0) & (dmax > 0)
+    bulge = bulge / torch.clamp_min(bmax, TINY)[..., None, None]
+    disk = disk / torch.clamp_min(dmax, TINY)[..., None, None]
+
+    # --- joint bulge/disk SEDs: per-band 2x2 normal equations -------------
+    # each morph placed at its center in a padded scene, convolved per
+    # band, and cut back out (stream.py:286-314)
+    pair = torch.stack([bulge, disk], 2)                     # (B,K,2,S,S)
+    scene = images.new_zeros((B, K, 2, H + 2 * hS, W + 2 * hS))
+    rows = cyc[..., None, None] + ridx[:, None]                 # (B,K,S,1)
+    cols = cxc[..., None, None] + ridx[None, :]                 # (B,K,1,S)
+    b5 = torch.arange(B, device=dev)[:, None, None, None]
+    k5 = torch.arange(K, device=dev)[None, :, None, None]
+    scene = scene.movedim(2, -1)
+    scene[b5, k5, rows, cols] = pair.movedim(2, -1)
+    scene = scene.movedim(-1, 2)[..., hS:hS + H, hS:hS + W]
+    conv = _convolve_shared(scene[..., None, :, :],
+                            kernel_rfft[:, None, None], fft_shape)
+    conv = F.pad(conv, (hS, hS, hS, hS))             # (B, K, 2, C, Hp, Wp)
+    cwin = _windows(conv.reshape(B * K, 2 * C, *conv.shape[-2:]),
+                    cyc.reshape(B * K, 1), cxc.reshape(B * K, 1), S, S)
+    cwin = cwin.reshape(B, K, 2, C, S, S)
+    bm = box_mask[:, :, None]                                # (B,K,1,S,S)
+    A1 = cwin[:, :, 0] * bm
+    A2 = cwin[:, :, 1] * bm
+    y = _windows(ipad, cyc, cxc, S, S) * bm                   # (B,K,C,S,S)
+    g11 = (A1 * A1).sum(dim=(-2, -1))
+    g22 = (A2 * A2).sum(dim=(-2, -1))
+    g12 = (A1 * A2).sum(dim=(-2, -1))
+    r1 = (A1 * y).sum(dim=(-2, -1))
+    r2 = (A2 * y).sum(dim=(-2, -1))
+    # relative ridge: the solve stays finite when bulge == disk
+    lam = 1e-6 * torch.maximum(g11, g22) + TINY
+    g11 = g11 + lam
+    g22 = g22 + lam
+    det = torch.clamp_min(g11 * g22 - g12 * g12, TINY)
+    bulge_sed = torch.clamp_min((g22 * r1 - g12 * r2) / det, 0.0)
+    disk_sed = torch.clamp_min((g11 * r2 - g12 * r1) / det, 0.0)
+
+    s3 = split[..., None, None]
+    prim_morph = torch.where(s3, bulge, morph)
+    prim_sed = torch.where(split[..., None], bulge_sed, sed)
+    prim_on = center_on
+    disk_on = center_on & split
+
+    # --- slot packing: (bulge | single, disk) interleaved, compacted -------
+    origins_k = torch.stack([cys - hS, cxs - hS], dim=-1).to(torch.int32)
+    seds2 = torch.stack([prim_sed, disk_sed], 2).reshape(B, 2 * K, C)
+    morphs2 = torch.stack([prim_morph, disk], 2).reshape(B, 2 * K, S, S)
+    bmask2 = torch.stack([box_mask, box_mask], 2).reshape(B, 2 * K, S, S)
+    origins2 = torch.stack([origins_k, origins_k], 2).reshape(B, 2 * K, 2)
+    active2 = torch.stack([prim_on, disk_on], 2).reshape(B, 2 * K)
+    source2 = torch.arange(K, device=dev).repeat_interleave(2).expand(B,
+                                                                     2 * K)
+
+    order = torch.argsort((~active2).to(torch.int8), dim=1,
+                          stable=True)[:, :n_slots]
+    on_s = active2[bi, order]
+    # inactive slots' seds and morphs zeroed with where, never a multiply
+    # (a non-finite value times 0 stays non-finite)
+    seds_s = torch.where(on_s[..., None], seds2[bi, order], 0.0)
+    morphs_s = torch.where(on_s[..., None, None], morphs2[bi, order], 0.0)
+    data_leaves = dict(
+        kernel_rfft=kernel_rfft, grad_kernel_rfft=grad_kernel_rfft,
+        bg_rms=noise_rms, sed_step_min=noise_rms / 10.0,
+        box_masks=bmask2[bi, order])
+    state_leaves = dict(seds=seds_s, morphs=morphs_s,
+                        origins=origins2[bi, order], comp_active=on_s)
+    n_active = active2.sum(dim=1, dtype=torch.int32)
+    aux = dict(n_active=n_active, overflow=n_active > n_slots,
+               slot_source=torch.where(on_s, source2[bi, order], -1),
+               snr=snr, split=split, psf_fallback=fallback)
+    return data_leaves, state_leaves, aux
+
+
+def _as_tensor(x, device, dtype=None):
+    if x is None:
+        return None
+    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(x))
+    return t.to(device=device, dtype=dtype)
+
+
+def stream_setup(images, variance, psfs, centers, model_psf, weights=None,
+                 center_active=None, scene_valid=None, *, box_size, n_slots,
+                 min_snr=50, thresh=0.5, percentile=25, bg_thresh=None,
+                 e_rel=1e-4, min_iter=1, fft_shape=None, device=None,
+                 use_mask=False, recipe="main", box_grow=None, mono_tol=None,
+                 morph_step=None, min_gradient=0.0):
+    """Batched device-side initialization of a chunk of blends.
+
+    images, variance (B, C, H, W) and psfs (B, C, ph, pw): numpy arrays
+    or tensors; centers (B, K, 2) integer (y, x) catalog rows (float rows
+    are rounded), padded rows marked off in ``center_active`` (B, K).
+    Rows outside the frame or on ``scene_valid == 0`` pixels are switched
+    off.  model_psf (1, mh, mw).  ``weights`` default to
+    ``scene_valid / max(variance, 1e-12)``; non-finite pixels are zeroed
+    out of images and weights.  ``box_size`` (odd) and ``n_slots`` set
+    the shared layout.  ``device``: where the program runs (default: the
+    images' device, the CPU for numpy inputs).
+
+    The config follows the JAX package's by device: on CUDA the
+    accelerator branches (``use_pallas``, ``use_pallas_scene``,
+    ``packed_morphs``) and ``mono_tol = 1e-3``; on the CPU none of them
+    and ``mono_tol = 0``; ``conv_mode`` stays "fft" on both.
+
+    Returns (config, data, state, aux) for ``fit_batch_device_converged``,
+    with aux the per-blend diagnostics ``n_active``, ``overflow``,
+    ``slot_source``, ``snr``, ``split``, ``psf_fallback``.
+    """
+    if recipe != "main":
+        if recipe != "wavelets":
+            raise ValueError(f"unknown recipe {recipe!r}")
+        raise NotImplementedError("recipe='wavelets' is not ported yet")
+    if use_mask:
+        raise NotImplementedError("use_mask=True is not ported yet")
+    if centers is None:
+        raise NotImplementedError(
+            "centers=None (device detection) is not ported yet")
+    if box_grow is not None:
+        raise NotImplementedError("box_grow is not ported yet")
+    S = int(box_size)
+    if S % 2 == 0:
+        raise ValueError(f"box_size must be odd, got {S}")
+    if device is None:
+        device = images.device if isinstance(images, torch.Tensor) else "cpu"
+    device = torch.device(device)
+    engine.pin_float32(device)
+    cuda = device.type == "cuda"
+
+    images = _as_tensor(images, device, torch.float32)
+    variance = _as_tensor(variance, device, torch.float32)
+    psfs = _as_tensor(psfs, device, torch.float32)
+    model_psf = _as_tensor(model_psf, device, torch.float32)
+    B, C, H, W = images.shape
+    has_valid = scene_valid is not None
+    scene_valid = (images.new_ones((B, H, W)) if not has_valid
+                   else _as_tensor(scene_valid, device, torch.float32))
+
+    if fft_shape is None:
+        fft_shape = fft_ops.minimal_same_fft_shape(
+            (C, H, W), tuple(psfs.shape[1:]), axes=(1, 2))
+    match_shape = tuple(fft_ops.good_fft_shape(
+        tuple(psfs.shape[1:]), tuple(model_psf.shape), padding=3,
+        axes=(-2, -1)))
+    psf_fft_shape = tuple(fft_ops.good_fft_shape(
+        tuple(model_psf.shape), tuple(psfs.shape[1:]), padding=3,
+        axes=(-2, -1)))
+
+    w8, keep_c, depth = _centered_mono_table(S)
+    mono_w, mono_keep, fit_depth = engine.monotonicity_tables(
+        (S, S), 1, "angle")
+
+    # sanitize: a NaN pixel poisons the fit even at weight 0, so bad
+    # pixels are zeroed, weighted 0 and given the band's mean variance
+    images, variance, bad = _sanitize_stacks(images, variance)
+    if weights is None:
+        weights = (scene_valid[:, None] * torch.where(bad, 0.0, 1.0)
+                   / torch.clamp_min(variance, 1e-12))
+    else:
+        weights = _as_tensor(weights, device, torch.float32)
+        weights = torch.where(bad | ~torch.isfinite(weights), 0.0, weights)
+
+    centers = _as_tensor(centers, device)
+    if centers.is_floating_point():
+        centers = torch.round(centers)
+    centers = centers.to(torch.int32)
+    center_active = (torch.ones(centers.shape[:2], dtype=torch.bool,
+                                device=device) if center_active is None
+                     else _as_tensor(center_active, device, torch.bool))
+    # out-of-frame rows and rows on padding are switched off, like the
+    # host recipe's skip list
+    cy, cx = centers[..., 0].long(), centers[..., 1].long()
+    in_bounds = (cy >= 0) & (cy < H) & (cx >= 0) & (cx < W)
+    bi = torch.arange(B, device=device)[:, None]
+    on_valid = scene_valid[bi, cy.clamp(0, H - 1), cx.clamp(0, W - 1)] > 0
+    center_active = center_active & in_bounds & on_valid
+
+    def dev_t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    data_l, state_l, aux = _init_batch(
+        images, variance, psfs, centers, center_active, model_psf,
+        scene_valid, dev_t(w8), dev_t(keep_c), S=S, n_slots=int(n_slots),
+        fft_shape=tuple(fft_shape), match_shape=match_shape,
+        psf_fft_shape=psf_fft_shape, mono_iter=depth, min_snr=float(min_snr),
+        thresh=float(thresh), percentile=float(percentile))
+
+    data = engine.BlendData(
+        images=images, weights=weights,
+        kernel_rfft=data_l["kernel_rfft"],
+        grad_kernel_rfft=data_l["grad_kernel_rfft"],
+        bg_rms=data_l["bg_rms"], sed_step_min=data_l["sed_step_min"],
+        mono_weights=(dev_t(mono_w.astype(np.float32)),),
+        mono_keep=(dev_t(mono_keep.astype(np.float32)),),
+        box_masks=(data_l["box_masks"],),
+        scene_mask=scene_valid if has_valid else None)
+    zero_sed = torch.zeros_like(state_l["seds"])
+    zero_mor = torch.zeros_like(state_l["morphs"])
+    state = engine.BlendState(
+        seds=(state_l["seds"],), morphs=(state_l["morphs"],),
+        origins=(state_l["origins"],),
+        comp_active=(state_l["comp_active"],),
+        sed_opt=(AdaproxState(zero_sed, zero_sed, zero_sed),),
+        morph_opt=(AdaproxState(zero_mor, zero_mor, zero_mor),),
+        active=torch.ones(B, dtype=torch.bool, device=device),
+        it=torch.zeros(B, dtype=torch.int32, device=device),
+        last_loss=torch.full((B,), float("inf"), device=device))
+
+    config = engine.LiteFitConfig(
+        scene_shape=(C, H, W), box_shapes=((S, S),),
+        bucket_counts=(int(n_slots),), fft_shape=tuple(fft_shape),
+        mono_n_iters=(int(fit_depth),), bg_thresh=bg_thresh,
+        e_rel=float(e_rel), min_iter=int(min_iter), fit_center_radius=1,
+        # the JAX stream's accelerator default: the projection exits at
+        # max|delta| < 1e-3 (peak units); 0 = the exact fixed point
+        mono_tol=(1e-3 if cuda else 0.0) if mono_tol is None
+        else float(mono_tol),
+        morph_step=1e-2 if morph_step is None else float(morph_step),
+        min_gradient=float(min_gradient),
+        use_pallas=cuda, use_pallas_scene=cuda, packed_morphs=cuda,
+        scene_pad=S // 2 + 2)
+    return config, data, state, aux
+
+
+# ---------------------------------------------------------------------------
+# Records
+# ---------------------------------------------------------------------------
+def _segment_sum(values, src, n):
+    """Sum (B, n_slots, ...) ``values`` into (B, n, ...) by slot source
+    ``src`` (B, n_slots); rows with ``src >= n`` are dropped.  An explicit
+    one-hot sum in float32: a source has at most two slots, so the sum is
+    the same in any order."""
+    onehot = (src[..., None] == torch.arange(n, device=src.device)).to(
+        values.dtype)                                    # (B, n_slots, n)
+    v = values.reshape(*values.shape[:2], 1, -1)
+    out = (onehot[..., None] * v).sum(dim=1)             # (B, n, F)
+    return out.reshape(values.shape[:1] + (n,) + values.shape[2:])
+
+
+def _stream_records_device(state, aux):
+    """Per-source model fluxes (B, K, C), intensity-weighted centroids
+    (B, K, 2) in scene coordinates and flux-normalized central second
+    moments (sigma_yy, sigma_xx, sigma_xy) (B, K, 3) of the channel-summed
+    model (stream.py:864-949 of the JAX package).  Explicit float32 sums,
+    no matrix products."""
+    seds = state.seds[0]                    # (B, n_slots, C)
+    morphs = state.morphs[0]                # (B, n_slots, hb, wb)
+    on = state.comp_active[0]
+    origins = state.origins[0].to(morphs.dtype)
+    K = aux["snr"].shape[1]
+    src = torch.where(on, aux["slot_source"].long(), K)
+    msum = morphs.sum(dim=(-2, -1))
+    flux = seds * msum[..., None] * on[..., None]
+    per_source = _segment_sum(flux, src, K)
+
+    iy = torch.arange(morphs.shape[-2], dtype=morphs.dtype,
+                      device=morphs.device)
+    ix = torch.arange(morphs.shape[-1], dtype=morphs.dtype,
+                      device=morphs.device)
+    m1y = (morphs * iy[:, None]).sum(dim=(-2, -1))
+    m1x = (morphs * ix).sum(dim=(-2, -1))
+    m2y = (morphs * (iy * iy)[:, None]).sum(dim=(-2, -1))
+    m2x = (morphs * (ix * ix)).sum(dim=(-2, -1))
+    mxy = (morphs * iy[:, None] * ix).sum(dim=(-2, -1))
+    denom = torch.where(msum != 0, msum, 1.0)
+    cy = m1y / denom + origins[..., 0]
+    cx = m1x / denom + origins[..., 1]
+    wslot = flux.sum(dim=-1)                               # (B, n_slots)
+    wsum = _segment_sum(wslot, src, K)                     # (B, K)
+    wsafe = torch.where(wsum != 0, wsum, 1.0)
+    cen_y = _segment_sum(wslot * cy, src, K) / wsafe
+    cen_x = _segment_sum(wslot * cx, src, K) / wsafe
+    # a source with no active slot has no centroid: NaN, not (0, 0)
+    centroid = torch.where(wsum[..., None] != 0,
+                           torch.stack([cen_y, cen_x], dim=-1), float("nan"))
+
+    # central moments: each slot centralized about its source's centroid
+    # before squaring (|origin - centroid| is O(box), not O(scene))
+    sedsum = torch.where(msum != 0, wslot / denom, 0.0)
+    src_c = src.clamp_max(K - 1)
+    ceny_s = torch.gather(cen_y, 1, src_c)
+    cenx_s = torch.gather(cen_x, 1, src_c)
+    ceny_s = torch.where(torch.isfinite(ceny_s), ceny_s, 0.0)
+    cenx_s = torch.where(torch.isfinite(cenx_s), cenx_s, 0.0)
+    dy0 = origins[..., 0] - ceny_s
+    dx0 = origins[..., 1] - cenx_s
+    cy2 = m2y + 2 * dy0 * m1y + dy0 * dy0 * msum
+    cx2 = m2x + 2 * dx0 * m1x + dx0 * dx0 * msum
+    cxy = mxy + dy0 * m1x + dx0 * m1y + dy0 * dx0 * msum
+    moments = torch.stack([_segment_sum(sedsum * c, src, K) / wsafe
+                           for c in (cy2, cx2, cxy)], dim=-1)
+    moments = torch.where(wsum[..., None] != 0, moments, float("nan"))
+    return per_source, centroid, moments
+
+
+def _stream_weighted_flux(state, data, aux, config):
+    """Observed-flux redistribution (lite/measure.py weight_sources
+    semantics): each source's share of the observed flux is its convolved
+    model over the total convolved model, capped at 1.  Per-band totals
+    (B, K, C): one render per source, batched over the blends."""
+    K = aux["snr"].shape[1]
+    total = torch.clamp_min(engine.render(state, data, config), 0.0)
+    imgs = data.images * (data.weights > 0)
+    on = state.comp_active[0]
+    src = aux["slot_source"]
+    out = []
+    for s in range(K):
+        st = state._replace(comp_active=(on & (src == s),))
+        conv_s = torch.clamp_min(engine.render(st, data, config), 0.0)
+        ratio = torch.where(total > 0,
+                            conv_s / torch.where(total > 0, total, 1.0), 0.0)
+        out.append((torch.clamp_max(ratio, 1.0) * imgs).sum(dim=(-2, -1)))
+    return torch.stack(out, dim=1)
+
+
+def _to_host(tensors):
+    """Device -> host copies of all ``tensors``, started together, then
+    one synchronization: numpy arrays."""
+    host = [t.to("cpu", non_blocking=True) for t in tensors]
+    if any(t.device.type == "cuda" for t in tensors):
+        torch.cuda.synchronize()
+    return [h.numpy() for h in host]
+
+
+def stream_records(state, losses, aux, data=None, config=None,
+                   reweight=False):
+    """Per-blend measurement records (host dicts) of a fitted stream
+    batch; the reductions run where the state is.  ``reweight=True``
+    (needs ``data`` and ``config``) reports the observed-flux
+    redistribution of ``lite.measure.weight_sources`` instead of the raw
+    model fluxes."""
+    per_source, centroids, moments = _stream_records_device(state, aux)
+    if reweight:
+        if data is None or config is None:
+            raise ValueError("reweight=True needs data and config")
+        per_source = _stream_weighted_flux(state, data, aux, config)
+    (per_source, centroids, moments, its, last, comp_on, snr, overflowed,
+     losses) = _to_host([per_source, centroids, moments, state.it,
+                         state.last_loss, state.comp_active[0], aux["snr"],
+                         aux["overflow"], losses])
+    n_act = comp_on.sum(axis=1)
+    overflowed = overflowed.reshape(-1)
+    records = []
+    for b in range(per_source.shape[0]):
+        records.append({
+            "iterations": int(its[b]),
+            "logL": float(last[b]),
+            "init logL": float(losses[0, b]) if losses.size else float("nan"),
+            "n_components": int(n_act[b]),
+            # init wanted more components than the slot layout holds
+            "overflow": bool(overflowed[b]),
+            "flux": per_source[b],
+            "centroid": centroids[b],
+            "moments": moments[b],
+            "snr": snr[b],
+        })
+    return records
+
+
+# ---------------------------------------------------------------------------
+# The one-call stream
+# ---------------------------------------------------------------------------
+def _default_device(images, device):
+    if device is not None:
+        return torch.device(device)
+    if isinstance(images, torch.Tensor):
+        return images.device
+    return torch.device("cpu")
+
+
+def deblend_device_stream(images, variance, psfs, centers, model_psf,
+                          weights=None, center_active=None, scene_valid=None,
+                          *, box_size, n_slots, max_iter=100, check_every=25,
+                          min_snr=50, e_rel=1e-4, reweight=False, chunk=None,
+                          compact=None, upload_dtype=None, upload="bulk",
+                          redetect=0, retry_overflow=False, device=None,
+                          **kw):
+    """One-call production path: device init, device fit and records for
+    a stream of blends (stream.py:1035-1258 of the JAX package).
+
+    ``chunk`` splits the stream into sub-batches, each initialized and fit
+    in turn.  ``upload`` moves host (numpy) stacks to a CUDA ``device``:
+    "bulk" copies each whole stack once, from pinned memory, before the
+    first chunk; "overlap" copies chunk i+1's slices on a side stream
+    while chunk i fits, ordered by events.  Tensor inputs and single-chunk
+    calls ignore it.  ``compact`` (an iteration count or a list of them)
+    runs every chunk to the first point, then only the still-active blends
+    of all chunks as one residual batch (padded to 32 rows) to each next
+    point and ``max_iter``.  ``retry_overflow`` re-initializes and refits
+    the blends whose init wanted more than ``n_slots`` components at a
+    larger slot count (in steps of 4) and splices their records back.
+    Other keywords go to :func:`stream_setup`.
+
+    Returns (records, state, losses, aux); with ``chunk`` (and no
+    ``compact``) state/losses/aux are per-chunk lists, with ``compact``
+    they are merged; an overflow retry appends its own entry.
+    """
+    if redetect:
+        raise NotImplementedError("redetect is not ported yet")
+    if upload_dtype is not None:
+        raise NotImplementedError("upload_dtype is not ported yet")
+    if upload == "auto":
+        raise NotImplementedError(
+            "upload='auto' (the bandwidth probe) is not ported")
+    if upload not in ("bulk", "overlap"):
+        raise ValueError(f"unknown upload mode {upload!r}")
+    if centers is None:
+        raise NotImplementedError(
+            "centers=None (device detection) is not ported yet")
+    device = _default_device(images, device)
+
+    B = len(images)
+    if chunk is None or chunk >= B:
+        spans = [slice(0, B)]
+    else:
+        spans = [slice(i, min(i + chunk, B)) for i in range(0, B, chunk)]
+    host = not isinstance(images, torch.Tensor)
+    mode = upload if host and len(spans) > 1 and device.type == "cuda" \
+        else "bulk"
+
+    stacks = dict(images=images, variance=variance, psfs=psfs,
+                  weights=weights, scene_valid=scene_valid)
+    if mode == "bulk":
+        stacks = {k: _upload(v, device) for k, v in stacks.items()}
+    else:
+        stacks = {k: None if v is None
+                  else torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
+                  for k, v in stacks.items()}
+        copy_stream = torch.cuda.Stream(device)
+
+    def chunk_args(sl):
+        if mode == "bulk":
+            return {k: None if v is None else v[sl]
+                    for k, v in stacks.items()}, None
+        with torch.cuda.stream(copy_stream):
+            out = {k: None if v is None else v[sl].to(device,
+                                                      non_blocking=True)
+                   for k, v in stacks.items()}
+            done = torch.cuda.Event()
+            done.record(copy_stream)
+        return out, done
+
+    def sub(x, sl):
+        return None if x is None else x[sl]
+
+    if compact is None:
+        points = ()
+    elif np.isscalar(compact):
+        points = (min(int(compact), max_iter),)
+    else:
+        points = tuple(sorted({min(int(c), max_iter) for c in compact}))
+    if any(c <= 0 for c in points):
+        raise ValueError(f"compact points must be positive, got {compact}")
+    phase1 = points[0] if points else max_iter
+
+    handles = []
+    pre = chunk_args(spans[0])
+    for i, sl in enumerate(spans):
+        args, ready = pre
+        if ready is not None:
+            cur = torch.cuda.current_stream(device)
+            cur.wait_event(ready)
+            for t in args.values():
+                if t is not None:
+                    t.record_stream(cur)
+        config, data, state, aux = stream_setup(
+            args["images"], args["variance"], args["psfs"],
+            sub(centers, sl), model_psf, weights=args["weights"],
+            center_active=sub(center_active, sl),
+            scene_valid=args["scene_valid"], box_size=box_size,
+            n_slots=n_slots, min_snr=min_snr, e_rel=e_rel, device=device,
+            **kw)
+        if i + 1 < len(spans):
+            pre = chunk_args(spans[i + 1])
+        handle = fit_batch_device_dispatch(state, data, config, phase1,
+                                           check_every=check_every)
+        handles.append((handle, data, config, aux))
+
+    if points and phase1 < max_iter:
+        result = _collect_compacted(handles, points, max_iter, check_every,
+                                    reweight)
+    else:
+        records, outs, losses_l, auxs = [], [], [], []
+        for handle, data, config, aux in handles:
+            out, losses = fit_batch_device_collect(handle, max_iter)
+            records.extend(stream_records(out, losses, aux, data=data,
+                                          config=config, reweight=reweight))
+            outs.append(out)
+            losses_l.append(losses)
+            auxs.append(aux)
+        if len(spans) == 1:
+            result = records, outs[0], losses_l[0], auxs[0]
+        else:
+            result = records, outs, losses_l, auxs
+
+    if retry_overflow:
+        result = _retry_overflow(
+            result, images, variance, psfs, centers, model_psf, weights,
+            center_active, scene_valid, box_size=box_size, n_slots=n_slots,
+            max_iter=max_iter, check_every=check_every, min_snr=min_snr,
+            e_rel=e_rel, reweight=reweight, device=device, kw=kw)
+    return result
+
+
+def _upload(x, device):
+    """One host -> device copy of a numpy stack, from pinned memory on a
+    CUDA device; tensors and None pass through."""
+    if x is None or isinstance(x, torch.Tensor):
+        return x
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def _retry_overflow(result, images, variance, psfs, centers, model_psf,
+                    weights, center_active, scene_valid, *, box_size,
+                    n_slots, max_iter, check_every, min_snr, e_rel,
+                    reweight, device, kw):
+    """Re-run the slot-overflowed blends at a larger slot count
+    (stream.py:1261-1330 of the JAX package): the subset, padded to a
+    16-row bucket with all-inactive catalog rows, at a slot count
+    quantized upward in steps of 4; its records replace the overflowed
+    ones in stream order."""
+    records, state, losses, aux = result
+    auxs = aux if isinstance(aux, list) else [aux]
+    host = _to_host([t for a in auxs for t in (a["n_active"],
+                                                a["overflow"])])
+    n_active, overflow = np.concatenate(host[0::2]), np.concatenate(host[1::2])
+    idx = np.nonzero(overflow)[0]
+    if idx.size == 0:
+        return result
+
+    need = int(n_active[idx].max())
+    n_slots2 = n_slots + -(-(need - n_slots) // 4) * 4
+    to_np = lambda x: x.cpu().numpy() if isinstance(  # noqa: E731
+        x, torch.Tensor) else np.asarray(x)
+    sub_c = to_np(centers)[idx]
+    sub_a = (np.ones(sub_c.shape[:2], bool) if center_active is None
+             else to_np(center_active)[idx])
+
+    # pad to a 16-row bucket by repeating row 0 with no active catalog row
+    n_pad = -(-idx.size // 16) * 16
+    idx_pad = np.concatenate(
+        [idx, np.full(n_pad - idx.size, idx[0], idx.dtype)])
+    sub_c = np.concatenate(
+        [sub_c, np.repeat(sub_c[:1], n_pad - idx.size, axis=0)])
+    sub_a = np.concatenate(
+        [sub_a, np.zeros((n_pad - idx.size,) + sub_a.shape[1:], bool)])
+
+    def take(x):
+        if x is None:
+            return None
+        if isinstance(x, torch.Tensor):
+            return x[torch.from_numpy(idx_pad).to(x.device)]
+        return np.asarray(x)[idx_pad]
+
+    sub_records, sub_state, sub_losses, sub_aux = deblend_device_stream(
+        take(images), take(variance), take(psfs), sub_c, model_psf,
+        weights=take(weights), center_active=sub_a,
+        scene_valid=take(scene_valid), box_size=box_size, n_slots=n_slots2,
+        max_iter=max_iter, check_every=check_every, min_snr=min_snr,
+        e_rel=e_rel, reweight=reweight, device=device, **kw)
+
+    for pos, rec in zip(idx, sub_records):
+        # "overflow" keeps meaning "overflowed the configured n_slots"
+        rec["overflow"] = True
+        rec["overflow_retried"] = True
+        records[pos] = rec
+
+    sub_aux = dict(sub_aux, retry_indices=idx, retry_n_slots=n_slots2,
+                   centers=sub_c, center_active=sub_a)
+    states = state if isinstance(state, list) else [state]
+    losses_l = losses if isinstance(losses, list) else [losses]
+    return (records, states + [sub_state], losses_l + [sub_losses],
+            auxs + [sub_aux])
+
+
+def _concat_trees(trees):
+    return engine.map_tree(lambda *xs: torch.cat(xs, 0), *trees)
+
+
+def _concat_data(datas):
+    """Concatenate batched BlendData; the shared (config-determined)
+    monotonicity tables come from the first chunk."""
+    stacked = _concat_trees([
+        d._replace(**{name: None for name in _SHARED_FIELDS})
+        for d in datas])
+    return stacked._replace(**{name: getattr(datas[0], name)
+                               for name in _SHARED_FIELDS})
+
+
+def _collect_compacted(handles, points, max_iter, check_every, reweight):
+    """Convergence compaction (stream.py:1494-1555 of the JAX package):
+    after ``points[0]`` iterations, the still-active blends of all chunks
+    continue as one residual batch (padded to 32 rows), re-compacted at
+    each further point until ``max_iter``.  The losses cover the first
+    phase."""
+    outs, datas, auxs, losses_l = [], [], [], []
+    config = handles[0][2]
+    for handle, data, cfg, aux in handles:
+        out, losses = fit_batch_device_collect(handle, points[0])
+        outs.append(out)
+        datas.append(data)
+        auxs.append(aux)
+        losses_l.append(losses)
+
+    state = _concat_trees(outs)
+    data = _concat_data(datas)
+    aux = {k: torch.cat([a[k] for a in auxs]) for k in auxs[0]}
+    n_rows = max(l.shape[0] for l in losses_l)
+    losses = torch.cat([F.pad(l, (0, 0, 0, n_rows - l.shape[0]))
+                        for l in losses_l], dim=1)
+
+    batched = data._replace(**{n: None for n in _SHARED_FIELDS})
+    for lo, hi in zip(points, list(points[1:]) + [max_iter]):
+        if hi <= lo:
+            continue
+        idx = torch.nonzero(state.active).reshape(-1)
+        if not idx.numel():
+            break
+        n = idx.numel()
+        n_res = -(-n // 32) * 32
+        idx_pad = torch.cat([idx, idx[:1].expand(n_res - n)])
+        take = lambda x: x[idx_pad]  # noqa: E731
+        res_state = engine.map_tree(take, state)
+        res_data = engine.map_tree(take, batched)._replace(
+            **{k: getattr(data, k) for k in _SHARED_FIELDS})
+        # padding rows are duplicates of a real blend: frozen
+        pad_off = torch.arange(n_res, device=idx.device) < n
+        res_state = res_state._replace(active=res_state.active & pad_off)
+        res_out, _ = fit_batch_device_converged(res_state, res_data, config,
+                                                hi - lo, check_every)
+
+        def put(x, r):
+            x = x.clone()
+            x[idx] = r[:n]
+            return x
+
+        state = engine.map_tree(put, state, res_out)
+
+    records = stream_records(state, losses, aux, data=data, config=config,
+                             reweight=reweight)
+    return records, state, losses, aux

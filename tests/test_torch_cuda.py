@@ -68,6 +68,62 @@ def test_monotonic_prox_matches_plain(cuda, tol):
                        got)
 
 
+def _chain_inputs(cuda, B=3, K=16, seed=2):
+    """Stepped morphs, moments and per-slot rows for K5/K6: some gates
+    off, nonzero thresholds, an argmax tie, box masks cutting columns,
+    blend 0 at its first iteration."""
+    rng = np.random.default_rng(seed)
+    m, _ = _morphs(B, K, seed=seed)
+    shape = (B, K, BOX, BOX)
+    g = torch.from_numpy((0.1 * rng.normal(size=shape)).astype(np.float32))
+    mom = [torch.from_numpy((0.05 * rng.normal(size=shape)).astype(
+        np.float32))] + [torch.from_numpy((0.01 * rng.uniform(
+            size=shape)).astype(np.float32)) for _ in range(2)]
+    bm = torch.ones(shape)
+    bm[:, 1::3, :, :6] = 0.0
+    gate = torch.from_numpy(rng.uniform(size=(B, K)) > 0.25)
+    thr = torch.from_numpy(np.where(rng.uniform(size=(B, K)) > 0.5,
+                                    rng.uniform(0.01, 0.2, (B, K)),
+                                    0.0).astype(np.float32))
+    it = torch.arange(B, dtype=torch.int32) * 3
+    ds = torch.where(it > 0, 1.0, 0.1) * 1e-2
+    return [x.to(cuda) for x in (m, g, *mom, bm, gate, thr, ds)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tol", [0.0, 1e-3])
+def test_prox_chain_matches_plain(cuda, tol):
+    w, keep, n_iter = (x.to(cuda) if torch.is_tensor(x) else x
+                       for x in _tables())
+    m, g, _, _, _, bm, gate, thr, _ = _chain_inputs(cuda)
+    stepped = (m + g) * bm
+    idx = kn.candidate_index(stepped, 1)
+    before = kn.prox_chain.launches
+    got = kn.prox_chain(m, stepped, idx, w, keep, thr, gate, n_iter, tol=tol)
+    assert kn.prox_chain.launches == before + 1
+    assert torch.equal(got, kn.prox_chain_plain(m, stepped, idx, w, keep,
+                                                thr, gate, n_iter, tol=tol))
+    assert torch.equal(got[~gate], m[~gate])
+
+
+@pytest.mark.cuda
+def test_fused_morph_update_matches_plain(cuda):
+    w, keep, n_iter = (x.to(cuda) if torch.is_tensor(x) else x
+                       for x in _tables())
+    m, g, m1, v, vh, bm, gate, thr, ds = _chain_inputs(cuda)
+    opt = engine.AdaproxState(m1, v, vh)
+    before = kn.fused_morph_update.launches
+    for masks in (bm, None):
+        x, o = kn.fused_morph_update(m, g, opt, gate, w, keep, masks, thr,
+                                     ds, n_iter)
+        rx, ro = kn.fused_morph_update_plain(m, g, opt, gate, w, keep, masks,
+                                             thr, ds, n_iter)
+        assert torch.equal(x, rx)
+        for a, b in zip(o, ro):
+            assert torch.equal(a, b)
+    assert kn.fused_morph_update.launches == before + 2
+
+
 def _bucket(B, K, C=5, H=58, W=48, hb=BOX, pad=30, seed=1):
     rng = np.random.default_rng(seed)
     seds = rng.uniform(0.1, 2, (B, K, C)).astype(np.float32)
@@ -136,7 +192,11 @@ def test_fit_on_card_matches_cpu(cuda):
     cpu, card = blend(), blend()
     kn.reset_launch_counts()
     card.fit(30, e_rel=0.0, device=cuda)
-    assert all(n > 0 for n in kn.launch_counts().values())
+    counts = kn.launch_counts()
+    # the default configuration's kernels (K5 and K6 run only in the
+    # packed_prox_chain and fuse_morph configurations)
+    assert all(counts[name] > 0 for name in
+               ("monotonic_prox", "scene_assembly", "grad_gather"))
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
     cpu.fit(30, e_rel=0.0)

@@ -121,8 +121,7 @@ def graft_psfs():
 
 @pytest.mark.parametrize("field,value", [
     ("optimizer", "fista"), ("box_grow", 0.1), ("band_axis", "bands"),
-    ("mono_tol_switch", 5), ("mono_every", 2), ("packed_prox_chain", True),
-    ("fuse_morph", True), ("conv_mode", "dft")])
+    ("mono_tol_switch", 5), ("mono_every", 2), ("conv_mode", "dft")])
 def test_unported_options_raise(field, value):
     config, data, state = graft._demo_setup()
     cfg, d, s = _port(config, data, state)
