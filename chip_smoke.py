@@ -26,7 +26,18 @@ Run from the repository root, with one CUDA card:
    the CPU (same discrete init decisions, same final logL); and fits
    chunk 0 three ways (default, ``packed_prox_chain`` = K5,
    ``fuse_morph`` = K6), which must agree.
-5. Prints one JSON line with the kernels, the card's name and power
+5. T1, the attribution microkernels: holds each of the seven variants of
+   ``mono_pass_variant`` (``ops/csrc/attrib.cu``) against its plain
+   version at 8 passes on the tool's input (128 x (59, 590)), then runs
+   ``scarlet_tpu_torch.tools.mono_pass_attrib`` (its path), checks that
+   ``full`` equals K1 bit for bit, prints its JSON line and estimates the
+   passes each K1 launch of the profiled fit runs.
+6. Device detection: the het stream with ``centers=None`` (warm-up, then
+   three runs from numpy and three device-resident), its overhead over
+   the catalog stream, the host syncs per detection call, the card's
+   catalogs against the CPU's for 32 blends, and one ``redetect=1`` run
+   on the first 128 blends.
+7. Prints one JSON line with the kernels, the card's name and power
    limit, then, last, the device line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without a CUDA device, or outside
@@ -63,12 +74,24 @@ MAX_WORSE = 0.02    # share of stream blends that may end below their init
 # packed_prox_chain and fuse_morph configurations)
 PATH_KERNELS = ("monotonic_prox", "scene_assembly", "grad_gather")
 
+# T1 variants that may differ from their plain versions, as a share of
+# the plain result's largest value: alu8's fused multiply-add rounds once
+# where the plain version rounds twice (the multiply by 0.5 is exact, so
+# they agree barring subnormals).  The other six, bf16 included (its plain
+# version rounds each operation once to bf16, as the bf16x2 instructions
+# do), bit for bit.
+T1_BOUNDS = {"alu8": 1e-6}
+# het blends whose catalogs the card and the CPU detect
+DET_CPU_BLENDS = 32
+REDETECT_BLENDS = 128
+
 REPLACES = {
     "monotonic_prox": "scarlet_tpu/ops/pallas_kernels.py:204",
     "prox_chain": "scarlet_tpu/ops/pallas_kernels.py:399",
     "fused_morph_update": "scarlet_tpu/ops/pallas_kernels.py:612",
     "scene_assembly": "scarlet_tpu/ops/pallas_kernels.py:694",
     "grad_gather": "scarlet_tpu/ops/pallas_kernels.py:772",
+    "mono_pass_variant": "tools/mono_pass_attrib.py:193",
 }
 SOURCES = {
     "monotonic_prox": "scarlet_tpu_torch/ops/csrc/mono.cu",
@@ -76,6 +99,7 @@ SOURCES = {
     "fused_morph_update": "scarlet_tpu_torch/ops/csrc/mono.cu",
     "scene_assembly": "scarlet_tpu_torch/ops/csrc/scene.cu",
     "grad_gather": "scarlet_tpu_torch/ops/csrc/grad.cu",
+    "mono_pass_variant": "scarlet_tpu_torch/ops/csrc/attrib.cu",
 }
 
 
@@ -369,6 +393,10 @@ def profile_fit(setup, n_iter=20):
     for name, (tot, n) in top:
         log(f"  {tot / n_iter / 1e3:9.4f} ms/iter {n / n_iter:6.1f} "
             f"calls/iter  {name[:90]}")
+    # K1's device time per launch
+    k1 = [(tot, n) for name, (tot, n) in by_name.items()
+          if "mono_kernel" in name]
+    return sum(t for t, _ in k1) / max(sum(n for _, n in k1), 1) / 1e3
 
 
 def make_het():
@@ -565,6 +593,8 @@ def stream_path(dev, card, het, host_init_s):
         stream_setup_s_per_chunk=float(np.median(setup_times)),
         host_init_s_per_128=host_init_s,
         median_iterations=float(np.median(its)),
+        mean_components=float(np.mean([r["n_components"] for r in records])),
+        iterations_sum=int(its.sum()),
         overflow=int(sum(r["overflow"] for r in records)),
         retried=int(sum(bool(r.get("overflow_retried")) for r in records)),
         profiled_wall_s=prof_s,
@@ -676,6 +706,259 @@ def fused_configs(dev, het):
     return counts, summary
 
 
+def attrib_phase(dev, card, k1_fit_ms, k1_morphs, k1_phase_ms):
+    """T1: each variant against its plain version at 8 passes on the
+    tool's input, then the attribution tool's run, whose launches count.
+    Returns (kernel entry, launches, report)."""
+    import torch
+    from scarlet_tpu_torch.ops import kernels as kn
+    from scarlet_tpu_torch.tools import mono_pass_attrib as tool
+
+    wsel, keepsel, _, _ = (torch.from_numpy(a).to(dev)
+                           for a in tool.slot_tables())
+    packed = torch.from_numpy(tool.packed_input()).to(dev)
+    errs = {}
+    for mix in kn.MONO_PASS_MIXES:
+        got = kn.mono_pass_variant(packed, wsel, keepsel, mix, 8)
+        ref = kn.mono_pass_variant_plain(packed, wsel, keepsel, mix, 8)
+        errs[mix] = float((got - ref).abs().max())
+        limit = T1_BOUNDS.get(mix, 0.0) * float(ref.abs().max())
+        log(f"kernel mono_pass_variant[{mix}]: max_abs_err {errs[mix]:.3g} "
+            f"(limit {limit:.3g})")
+        if errs[mix] > limit:
+            raise AssertionError(f"mono_pass_variant[{mix}] differs from "
+                                 f"its plain version by {errs[mix]}")
+    full = lambda f: f(packed, wsel, keepsel, "full", 8)  # noqa: E731
+    res = dict(
+        max_abs_err=max(errs.values()),
+        limit="0; alu8 1e-6 of max |plain| (fused multiply-add)",
+        errors_by_variant=errs,
+        ms=time_ms(lambda: full(kn.mono_pass_variant), 10),
+        plain_ms=time_ms(lambda: full(kn.mono_pass_variant_plain), 3),
+        shape=f"variant full, 8 passes, B={tool.B} x ({tool.S},"
+              f"{tool.K * tool.S})")
+    log(f"kernel mono_pass_variant: kernel {res['ms']:.4f} ms, plain "
+        f"{res['plain_ms']:.4f} ms [{res['shape']}] on {card}")
+
+    kn.reset_launch_counts()
+    report = tool.attribute(dev, reps=9, log=log)
+    launches = kn.launch_counts()["mono_pass_variant"]
+    print(json.dumps(report), flush=True)
+    if report["full_vs_production_max_diff"] != 0.0:
+        raise AssertionError("variant full differs from K1: "
+                             f"{report['full_vs_production_max_diff']}")
+    # passes per K1 launch: the launch's time per morphology less the
+    # variant's overhead, over full's cost per pass and morphology
+    slope = report["variants"]["full"]
+    tau = slope["us_per_pass_per_blend"] / tool.K
+    ovh = slope["overhead_us_per_blend"] / tool.K
+    passes = {name: (ms * 1e3 / k1_morphs - ovh) / tau
+              for name, ms in (("fit", k1_fit_ms), ("kernel_phase",
+                                                    k1_phase_ms))}
+    report["k1_passes_per_launch"] = dict(passes, morphologies=k1_morphs,
+                                          k1_fit_ms=k1_fit_ms,
+                                          k1_kernel_phase_ms=k1_phase_ms)
+    log(f"K1 passes per launch, from full's {tau:.5f} us per pass and "
+        f"{ovh:.4f} us overhead per morphology: {passes['fit']:.1f} in the "
+        f"profiled fit ({k1_fit_ms:.4f} ms per launch), "
+        f"{passes['kernel_phase']:.1f} in the kernel phase "
+        f"({k1_phase_ms:.4f} ms), {k1_morphs} morphologies per launch, "
+        f"on {card}")
+    return res, launches, report
+
+
+def _catalogs(aux, keys=("centers", "center_active", "detected_peaks")):
+    """The stream's catalogs (not the retry entry's), on the host."""
+    import torch
+
+    auxs = [a for a in (aux if isinstance(aux, list) else [aux])
+            if "retry_indices" not in a]
+    return {k: torch.cat([torch.as_tensor(a[k]) for a in auxs]).cpu()
+            for k in keys}
+
+
+def detection_path(dev, card, het, catalog_dev_s):
+    """The het stream with device detection (``centers=None``), from
+    numpy and device-resident, against the catalog stream's
+    device-resident median; the card's catalogs against the CPU's; one
+    ``redetect=1`` run.  Returns (launch counts of one run, summary)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from scarlet_tpu_torch.ops import kernels as kn
+    from scarlet_tpu_torch.parallel import detection, stream
+
+    mp = model_psf()
+
+    def run(images, variance, psfs, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = stream.deblend_device_stream(images, variance, psfs, None, mp,
+                                           device=dev, **dict(HET, **kw))
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    host_in = (het["images"], het["variance"], het["psfs"])
+    _, warm_s = run(*host_in)
+    kn.reset_launch_counts()
+    detection.label_components_device.host_syncs = 0
+    detection.detect_peaks_device.calls = 0
+    res, t = run(*host_in)
+    counts = kn.launch_counts()
+    syncs = detection.label_components_device.host_syncs
+    calls = detection.detect_peaks_device.calls
+    host_times = [t] + [run(*host_in)[1] for _ in range(2)]
+    dev_in = tuple(torch.from_numpy(x).to(dev) for x in host_in)
+    dev_times = [run(*dev_in)[1] for _ in range(3)]
+
+    records, _, _, aux = res
+    for i, r in enumerate(records):
+        if not (np.isfinite(r["logL"]) and np.isfinite(r["init logL"])
+                and np.all(np.isfinite(r["flux"]))):
+            raise AssertionError(f"detection record {i} is not finite")
+    worse = [i for i, r in enumerate(records)
+             if not r["logL"] > r["init logL"]]
+    log(f"detection stream blends whose final logL is not above their "
+        f"initial one: {worse}")
+    if len(worse) > MAX_WORSE * len(records):
+        raise AssertionError(f"logL did not improve for {len(worse)} of "
+                             f"{len(records)} detection-stream blends")
+    for name in PATH_KERNELS:
+        if counts[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 "detection path")
+    cat = _catalogs(aux)
+    if cat["centers"].shape[0] != N_HET:
+        raise AssertionError(f"{cat['centers'].shape[0]} catalogs for "
+                             f"{N_HET} blends")
+
+    # the same blends' catalogs on the CPU (plain torch), blend by blend;
+    # a difference counts against the card unless a 1e-7 perturbation
+    # of the images moves the CPU's own catalog there
+    n = DET_CPU_BLENDS
+    images = torch.from_numpy(het["images"][:n])
+    variance = torch.from_numpy(het["variance"][:n])
+    cpu = detection.detect_peaks_device(images, variance,
+                                        max_peaks=HET["n_slots"])
+    card_cat = [cat[k][:n] for k in ("centers", "center_active",
+                                     "detected_peaks")]
+    differ = [b for b in range(n)
+              if not all(torch.equal(a[b], c[b])
+                         for a, c in zip(card_cat, cpu))]
+    if differ:
+        rng = np.random.default_rng(0)
+        pert = torch.from_numpy((het["images"][:n].astype(np.float64) * (
+            1 + 1e-7 * rng.standard_normal(images.shape))).astype(
+                np.float32))
+        cpu_p = detection.detect_peaks_device(pert, variance,
+                                              max_peaks=HET["n_slots"])
+        stable = [b for b in differ
+                  if all(torch.equal(a[b], c[b]) for a, c in zip(cpu, cpu_p))]
+        log(f"card and CPU catalogs differ on blends {differ}; CPU catalog "
+            f"unmoved by a 1e-7 perturbation on {stable}")
+        for b in differ:
+            log(f"  blend {b}: card {card_cat[0][b][card_cat[1][b]].tolist()}"
+                f" ({int(card_cat[2][b])} found), CPU "
+                f"{cpu[0][b][cpu[1][b]].tolist()} ({int(cpu[2][b])} found)")
+        if stable:
+            raise AssertionError(f"card and CPU catalogs differ on the "
+                                 f"well-conditioned blends {stable}")
+    log(f"card vs CPU catalogs of het blends 0..{n - 1}: "
+        f"{n - len(differ)} of {n} equal (rows, order, active, n_found)")
+
+    # where the time goes, per chunk of 128 (device-resident, synchronized):
+    # detection alone, and stream_setup with and without it; the device's
+    # busy share of a profiled run; the fitted components and iterations
+    sl = slice(0, HET["chunk"])
+
+    def timed(fn, reps=3):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return float(np.median(times))
+
+    chunk_in = [x[sl] for x in dev_in]
+    detect_s = timed(lambda: detection.detect_peaks_device(
+        chunk_in[0], chunk_in[1], max_peaks=HET["n_slots"]))
+    setup_kw = dict(box_size=HET["box_size"], n_slots=HET["n_slots"],
+                    device=dev)
+    setup_det_s = timed(lambda: stream.stream_setup(*chunk_in, None, mp,
+                                                    **setup_kw))
+    setup_cat_s = timed(lambda: stream.stream_setup(
+        *chunk_in, het["centers"][sl], mp, center_active=het["active"][sl],
+        **setup_kw))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, prof_s = run(*dev_in)
+    _, busy_us, _ = device_busy(prof)
+
+    # one redetect pass on the first blends, from numpy
+    m = REDETECT_BLENDS
+    t0 = time.perf_counter()
+    rres = stream.deblend_device_stream(
+        *(x[:m] for x in host_in), None, mp, device=dev, redetect=1, **HET)
+    torch.cuda.synchronize()
+    redetect_s = time.perf_counter() - t0
+    rcat = _catalogs(rres[3], ("centers", "center_active"))
+    if not all(np.isfinite(r["logL"]) for r in rres[0]):
+        raise AssertionError("a redetect record is not finite")
+    rows0 = int(cat["center_active"][:m].sum())
+    rows1 = int(rcat["center_active"].sum())
+    if rows1 < rows0:
+        raise AssertionError(f"redetect shrank the catalog: {rows0} -> "
+                             f"{rows1} rows")
+
+    its = np.array([r["iterations"] for r in records])
+    det_dev = float(np.median(dev_times))
+    summary = dict(
+        detection_blends_per_min=N_HET / float(np.median(host_times)) * 60.0,
+        wall_s=sorted(host_times), warmup_s=warm_s,
+        device_resident_blends_per_min=N_HET / det_dev * 60.0,
+        device_resident_wall_s=sorted(dev_times),
+        catalog_device_resident_s=catalog_dev_s,
+        detection_overhead_pct=100.0 * (det_dev - catalog_dev_s)
+        / catalog_dev_s,
+        median_iterations=float(np.median(its)),
+        mean_detected_peaks=float(cat["detected_peaks"].float().mean()),
+        mean_catalog_rows=float(cat["center_active"].sum(1).float().mean()),
+        detect_calls=calls, label_host_syncs=syncs,
+        host_syncs_per_detect_call=syncs / max(calls, 1),
+        overflow=int(sum(r["overflow"] for r in records)),
+        retried=int(sum(bool(r.get("overflow_retried")) for r in records)),
+        cpu_catalog_blends=n, cpu_catalog_equal=n - len(differ),
+        cpu_catalog_differ=differ,
+        redetect_blends=m, redetect_wall_s=redetect_s,
+        redetect_rows_before=rows0, redetect_rows_after=rows1,
+        detect_s_per_chunk=detect_s, setup_detect_s_per_chunk=setup_det_s,
+        setup_catalog_s_per_chunk=setup_cat_s,
+        mean_components=float(np.mean([r["n_components"] for r in records])),
+        iterations_sum=int(its.sum()), profiled_wall_s=prof_s,
+        profiled_device_busy_share=busy_us / 1e6 / prof_s)
+    log(f"detection stream of {N_HET} het blends on {dev}: "
+        f"{summary['detection_blends_per_min']:.1f} blends/min from numpy "
+        f"(walls {[round(x, 3) for x in sorted(host_times)]} s, warm-up "
+        f"{warm_s:.2f} s), {summary['device_resident_blends_per_min']:.1f} "
+        f"device-resident; overhead over the catalog stream "
+        f"{summary['detection_overhead_pct']:.2f}% (device-resident medians "
+        f"{det_dev:.4f} vs {catalog_dev_s:.4f} s); median iterations "
+        f"{summary['median_iterations']}; {summary['mean_detected_peaks']:.2f}"
+        f" peaks detected per blend ({summary['mean_catalog_rows']:.2f} "
+        f"catalog rows); {syncs} label host syncs in {calls} detection "
+        f"calls; redetect=1 on {m} blends {redetect_s:.3f} s, catalog "
+        f"{rows0} -> {rows1} rows; per chunk of {HET['chunk']}: detection "
+        f"{detect_s:.4f} s, stream_setup {setup_det_s:.4f} s with it and "
+        f"{setup_cat_s:.4f} s with the catalog; "
+        f"{summary['mean_components']:.2f} components per blend, "
+        f"{summary['iterations_sum']} iterations in all; device busy "
+        f"{100 * summary['profiled_device_busy_share']:.1f}% of a profiled "
+        f"run ({prof_s:.3f} s), on {card}")
+    log(f"detection kernel launches (one run): {counts}")
+    return counts, summary
+
+
 def main():
     import torch
 
@@ -709,7 +992,8 @@ def main():
     kres = kernel_phases(dev, card, setup)
     host_counts, summary = main_path(dev, card, single, setup, init_s)
     log(f"summary: {json.dumps(summary)}")
-    profile_fit(setup)
+    k1_fit_ms = profile_fit(setup)
+    k1_morphs = int(setup[2].comp_active[0].numel())
     del single, setup
 
     het = make_het()
@@ -720,6 +1004,12 @@ def main():
     cpu_rel = cpu_rerun(dev, het)
     fused_counts, fused_summary = fused_configs(dev, het)
     log(f"fused summary: {json.dumps(fused_summary)}")
+    kres["mono_pass_variant"], t1_launches, _ = attrib_phase(
+        dev, card, k1_fit_ms, k1_morphs, kres["monotonic_prox"]["ms"])
+    _, det_summary = detection_path(
+        dev, card, het, float(np.median(
+            stream_summary["device_resident_wall_s"])))
+    log(f"detection summary: {json.dumps(det_summary)}")
 
     # each kernel's launches from the run of the path that drives it:
     # K1, K3 and K4 from one device-stream run, K5 and K6 from the fit of
@@ -728,8 +1018,10 @@ def main():
     launches["prox_chain"] = fused_counts["packed_prox_chain"]["prox_chain"]
     launches["fused_morph_update"] = \
         fused_counts["fuse_morph"]["fused_morph_update"]
+    launches["mono_pass_variant"] = t1_launches
     path = dict(prox_chain="fit, packed_prox_chain",
-                fused_morph_update="fit, fuse_morph")
+                fused_morph_update="fit, fuse_morph",
+                mono_pass_variant="tools.mono_pass_attrib")
     kernels = [
         dict(name=name, route="cuda", source=SOURCES[name],
              replaces=REPLACES[name], launches=int(launches[name]),

@@ -27,7 +27,7 @@ __all__ = ["SOURCES", "nvcc_path", "library_path", "build", "load"]
 _HERE = pathlib.Path(__file__).parent
 _CSRC = _HERE / "csrc"
 _BUILD = _HERE / "_build"
-SOURCES = ("mono.cu", "scene.cu", "grad.cu")
+SOURCES = ("mono.cu", "scene.cu", "grad.cu", "attrib.cu")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -115,12 +115,16 @@ def load():
     lib.scarlet_grad_gather.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
                                         i, i, p]
     lib.scarlet_grad_max_bands.argtypes = []
+    lib.scarlet_mono_pass_variant.argtypes = [p, p, p, p, i, i, i, i, i, i,
+                                              f, p]
+    lib.scarlet_mono_pass_variant_smem_bytes.argtypes = [i, i, i]
     lib.scarlet_error_string.argtypes = [i]
     lib.scarlet_error_string.restype = ctypes.c_char_p
     for name in ("scarlet_mono_prox", "scarlet_mono_smem_bytes",
                  "scarlet_prox_chain", "scarlet_fused_morph",
                  "scarlet_scene_assembly", "scarlet_grad_gather",
-                 "scarlet_grad_max_bands"):
+                 "scarlet_grad_max_bands", "scarlet_mono_pass_variant",
+                 "scarlet_mono_pass_variant_smem_bytes"):
         getattr(lib, name).restype = ctypes.c_int
     _lib = lib
     return lib

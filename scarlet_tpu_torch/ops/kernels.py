@@ -12,9 +12,11 @@ prox_chain              csrc/mono.cu         ``monotonic_prox_packed_chain``
 fused_morph_update      csrc/mono.cu         ``fused_morph_update`` (K6)
 scene_assembly          csrc/scene.cu        ``scene_assembly`` (K3)
 grad_gather             csrc/grad.cu         ``grad_gather`` (K4)
+mono_pass_variant       csrc/attrib.cu       ``tools/mono_pass_attrib.py``
+                                             ``make_kernel`` (T1)
 ======================  ===================  ================================
 
-(TPU kernels: ``scarlet_tpu/ops/pallas_kernels.py``.)
+(TPU kernels K1-K6: ``scarlet_tpu/ops/pallas_kernels.py``.)
 
 Each wrapper takes a leading batch axis (any number of leading dims) and:
 
@@ -53,12 +55,15 @@ __all__ = [
     "fused_morph_update",
     "scene_assembly",
     "grad_gather",
+    "MONO_PASS_MIXES",
+    "mono_pass_variant",
     "monotonic_prox_plain",
     "monotonic_prox_packed_plain",
     "prox_chain_plain",
     "fused_morph_update_plain",
     "scene_assembly_plain",
     "grad_gather_plain",
+    "mono_pass_variant_plain",
     "launch_counts",
     "reset_launch_counts",
 ]
@@ -439,6 +444,119 @@ fused_morph_update.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# T1: microkernel variants of the monotonicity pass (cost attribution)
+# ---------------------------------------------------------------------------
+# instruction mixes, in the kernel's numbering (csrc/attrib.cu, Mix)
+MONO_PASS_MIXES = ("full", "noreduce", "unroll8", "norolls", "rollsonly",
+                   "alu8", "bf16")
+
+
+def _variant_passes(mix, n_passes):
+    """The pass count a variant runs for ``n_passes``: whole blocks of its
+    unroll (8 for ``unroll8``, else 4)."""
+    if mix not in MONO_PASS_MIXES:
+        raise ValueError(f"unknown mix {mix!r}; one of {MONO_PASS_MIXES}")
+    unroll = 8 if mix == "unroll8" else MONO_UNROLL
+    return -(-int(n_passes) // unroll) * unroll
+
+
+def _round_bf16(x):
+    """float64 -> the nearest bfloat16 value (ties to even), as float64:
+    one rounding of the exact value, as Hopper's bf16x2 instructions round
+    (PyTorch's bf16 operations round a float32 result, a double rounding
+    in rare sums).  Normal range only."""
+    bits = x.view(torch.int64)
+    bits = (bits + ((1 << 44) - 1) + ((bits >> 45) & 1)) & -(1 << 45)
+    return bits.view(torch.float64)
+
+
+def _slots(t, wb):
+    """(..., hb, K*wb) lane-packed -> (..., K, hb, wb) view."""
+    return t.reshape(*t.shape[:-1], t.shape[-1] // wb, wb).movedim(-2, -3)
+
+
+def mono_pass_variant_plain(packed, wsel, keepsel, mix, n_passes):
+    """Plain version of :func:`mono_pass_variant`: the same passes as
+    tensor operations on each (hb, hb) slot, zero outside the slot.
+    ``bf16`` computes each product and sum in float64 (exact for bf16
+    operands) and rounds it once to bf16."""
+    hb = packed.shape[-2]
+    n = _variant_passes(mix, n_passes)
+    x0 = _slots(packed, hb)                       # (B, K, hb, hb)
+    w = _slots(wsel, hb).transpose(0, 1)          # (K, 8, hb, hb)
+    keep = _slots(keepsel, hb) > 0.5              # (K, hb, hb)
+    if mix == "bf16":
+        x0, w = _round_bf16(x0.double()), _round_bf16(w.double())
+    x = x0
+    for _ in range(n):
+        if mix == "rollsonly":
+            x = (shift_zero(x, -1, 0) + shift_zero(x, 1, 0)
+                 + shift_zero(x, 0, -1) + shift_zero(x, 0, 1)) * 0.25
+        elif mix == "alu8":
+            for d in range(8):
+                x = x * 0.5 + w[:, d]
+        elif mix == "norolls":
+            ref = torch.zeros_like(x)
+            for d in range(8):
+                ref = ref + w[:, d] * x
+            x = torch.where(keep, x0, torch.minimum(x0, ref))
+        elif mix == "bf16":
+            ref = torch.zeros_like(x)
+            for d in range(8):
+                ref = _round_bf16(ref + _round_bf16(w[:, d] * x))
+            x = torch.where(keep, x0, torch.minimum(x0, ref))
+        else:
+            x = _mono_pass(x, x0, w, keep, 1.0)
+    return x.to(packed.dtype).movedim(-3, -2).reshape(packed.shape)
+
+
+def mono_pass_variant(packed, wsel, keepsel, mix, n_passes):
+    """One instruction mix of the monotonicity pass, run for a forced pass
+    count: the microkernels of the TPU tool ``tools/mono_pass_attrib.py``
+    on Hopper (csrc/attrib.cu).
+
+    packed (B, hb, K*hb) float32, slot k in columns [k*hb, (k+1)*hb)
+    (square boxes); wsel (8, hb, K*hb) and keepsel (hb, K*hb): each
+    slot's weight and keep tables, unshifted; mix: one of
+    :data:`MONO_PASS_MIXES`; n_passes: rounded up to whole blocks of the
+    mix's unroll.  The convergence test of the reducing mixes never
+    exits.  Returns a fresh (B, hb, K*hb) tensor.
+    """
+    if _is_cpu(packed, wsel, keepsel):
+        return mono_pass_variant_plain(packed, wsel, keepsel, mix, n_passes)
+    name = "mono_pass_variant"
+    _require_cuda(name, packed, wsel, keepsel)
+    n = _variant_passes(mix, n_passes)
+    B, hb, gw = packed.shape
+    if gw % hb or tuple(wsel.shape) != (8, hb, gw) \
+            or tuple(keepsel.shape) != (hb, gw):
+        raise ValueError(f"{name}: packed {tuple(packed.shape)}, wsel "
+                         f"{tuple(wsel.shape)}, keepsel "
+                         f"{tuple(keepsel.shape)} do not fit square slots "
+                         f"of {hb}")
+    for t, what in ((packed, "packed"), (wsel, "wsel"), (keepsel, "keepsel")):
+        _f32(name, t, what)
+    lib = build.load()
+    mix_id = MONO_PASS_MIXES.index(mix)
+    if lib.scarlet_mono_pass_variant_smem_bytes(mix_id, hb, hb) > 232448:
+        raise ValueError(f"{name}: box {hb} does not fit shared memory")
+    out = torch.empty_like(packed)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(packed.device):
+        err = lib.scarlet_mono_pass_variant(
+            packed.data_ptr(), out.data_ptr(), wsel.data_ptr(),
+            keepsel.data_ptr(), B, gw // hb, hb, hb, mix_id, n, -1.0,
+            _stream(packed))
+    _check(name, err)
+    mono_pass_variant.launches += 1
+    return out
+
+
+mono_pass_variant.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # K3: scene assembly
 # ---------------------------------------------------------------------------
 def _check_pad(origins, box, hw, pad):
@@ -631,7 +749,7 @@ grad_gather.launches = 0
 
 
 _COUNTED = (monotonic_prox, prox_chain, fused_morph_update, scene_assembly,
-            grad_gather)
+            grad_gather, mono_pass_variant)
 
 
 def launch_counts():

@@ -14,11 +14,15 @@ chunk of blends and their catalog rows as tensor axes, with no per-blend
 host work.  The projection runs through kernel ``monotonic_prox`` (K1)
 with one centered table, exact (tol 0).
 
+With ``centers=None`` the catalogs are detected on the stream's device
+(``parallel.detection.detect_peaks_device``) from the sanitized stacks, and
+``redetect=N`` adds N passes of detection on the fit's residuals, each
+followed by a cold refit with the grown catalog.
+
 Options of the JAX stream that the port does not run yet raise
 ``NotImplementedError``: the wavelet recipe, the monotonic-mask seeds
-(``use_mask``), device detection (``centers=None``), ``redetect``,
-quantized uploads (``upload_dtype``), the upload bandwidth probe
-(``upload="auto"``) and box growth.
+(``use_mask``), quantized uploads (``upload_dtype``), the upload bandwidth
+probe (``upload="auto"``) and box growth.
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ from ..ops import prox as prox_ops
 from ..optim import AdaproxState
 from .batch import (_SHARED_FIELDS, fit_batch_device_collect,
                     fit_batch_device_converged, fit_batch_device_dispatch)
+from .detection import detect_peaks_device
 
 __all__ = ["stream_setup", "stream_records", "deblend_device_stream"]
 
@@ -352,7 +357,8 @@ def stream_setup(images, variance, psfs, centers, model_psf, weights=None,
                  center_active=None, scene_valid=None, *, box_size, n_slots,
                  min_snr=50, thresh=0.5, percentile=25, bg_thresh=None,
                  e_rel=1e-4, min_iter=1, fft_shape=None, device=None,
-                 use_mask=False, recipe="main", box_grow=None, mono_tol=None,
+                 use_mask=False, recipe="main", max_peaks=None,
+                 detect_scales=3, box_grow=None, mono_tol=None,
                  morph_step=None, min_gradient=0.0):
     """Batched device-side initialization of a chunk of blends.
 
@@ -360,7 +366,12 @@ def stream_setup(images, variance, psfs, centers, model_psf, weights=None,
     or tensors; centers (B, K, 2) integer (y, x) catalog rows (float rows
     are rounded), padded rows marked off in ``center_active`` (B, K).
     Rows outside the frame or on ``scene_valid == 0`` pixels are switched
-    off.  model_psf (1, mh, mw).  ``weights`` default to
+    off.  ``centers=None`` detects the catalogs on the device from the
+    sanitized stacks (:func:`detect_peaks_device`): ``max_peaks`` rows
+    per blend (default ``n_slots``), ``detect_scales`` starlet scales;
+    aux then also holds ``detected_peaks`` (the peaks found before the
+    cut to ``max_peaks``), ``centers`` and ``center_active``.
+    model_psf (1, mh, mw).  ``weights`` default to
     ``scene_valid / max(variance, 1e-12)``; non-finite pixels are zeroed
     out of images and weights.  ``box_size`` (odd) and ``n_slots`` set
     the shared layout.  ``device``: where the program runs (default: the
@@ -373,7 +384,8 @@ def stream_setup(images, variance, psfs, centers, model_psf, weights=None,
 
     Returns (config, data, state, aux) for ``fit_batch_device_converged``,
     with aux the per-blend diagnostics ``n_active``, ``overflow``,
-    ``slot_source``, ``snr``, ``split``, ``psf_fallback``.
+    ``slot_source``, ``snr``, ``split``, ``psf_fallback`` (and the
+    detected catalog with ``centers=None``).
     """
     if recipe != "main":
         if recipe != "wavelets":
@@ -381,11 +393,13 @@ def stream_setup(images, variance, psfs, centers, model_psf, weights=None,
         raise NotImplementedError("recipe='wavelets' is not ported yet")
     if use_mask:
         raise NotImplementedError("use_mask=True is not ported yet")
-    if centers is None:
-        raise NotImplementedError(
-            "centers=None (device detection) is not ported yet")
     if box_grow is not None:
         raise NotImplementedError("box_grow is not ported yet")
+    detect = centers is None
+    if detect and center_active is not None:
+        raise ValueError(
+            "center_active only applies to a provided catalog; with "
+            "centers=None the detector defines the active rows")
     S = int(box_size)
     if S % 2 == 0:
         raise ValueError(f"box_size must be odd, got {S}")
@@ -428,13 +442,20 @@ def stream_setup(images, variance, psfs, centers, model_psf, weights=None,
         weights = _as_tensor(weights, device, torch.float32)
         weights = torch.where(bad | ~torch.isfinite(weights), 0.0, weights)
 
-    centers = _as_tensor(centers, device)
-    if centers.is_floating_point():
-        centers = torch.round(centers)
-    centers = centers.to(torch.int32)
-    center_active = (torch.ones(centers.shape[:2], dtype=torch.bool,
-                                device=device) if center_active is None
-                     else _as_tensor(center_active, device, torch.bool))
+    detected_peaks = None
+    if detect:
+        centers, center_active, detected_peaks = detect_peaks_device(
+            images, variance, scene_valid if has_valid else None,
+            max_peaks=int(n_slots if max_peaks is None else max_peaks),
+            scales=int(detect_scales))
+    else:
+        centers = _as_tensor(centers, device)
+        if centers.is_floating_point():
+            centers = torch.round(centers)
+        centers = centers.to(torch.int32)
+        center_active = (torch.ones(centers.shape[:2], dtype=torch.bool,
+                                    device=device) if center_active is None
+                         else _as_tensor(center_active, device, torch.bool))
     # out-of-frame rows and rows on padding are switched off, like the
     # host recipe's skip list
     cy, cx = centers[..., 0].long(), centers[..., 1].long()
@@ -452,6 +473,9 @@ def stream_setup(images, variance, psfs, centers, model_psf, weights=None,
         fft_shape=tuple(fft_shape), match_shape=match_shape,
         psf_fft_shape=psf_fft_shape, mono_iter=depth, min_snr=float(min_snr),
         thresh=float(thresh), percentile=float(percentile))
+    if detect:
+        aux = dict(aux, detected_peaks=detected_peaks, centers=centers,
+                   center_active=center_active)
 
     data = engine.BlendData(
         images=images, weights=weights,
@@ -641,8 +665,8 @@ def deblend_device_stream(images, variance, psfs, centers, model_psf,
                           *, box_size, n_slots, max_iter=100, check_every=25,
                           min_snr=50, e_rel=1e-4, reweight=False, chunk=None,
                           compact=None, upload_dtype=None, upload="bulk",
-                          redetect=0, retry_overflow=False, device=None,
-                          **kw):
+                          redetect=0, redetect_radius=3.0,
+                          retry_overflow=False, device=None, **kw):
     """One-call production path: device init, device fit and records for
     a stream of blends (stream.py:1035-1258 of the JAX package).
 
@@ -657,14 +681,20 @@ def deblend_device_stream(images, variance, psfs, centers, model_psf,
     point and ``max_iter``.  ``retry_overflow`` re-initializes and refits
     the blends whose init wanted more than ``n_slots`` components at a
     larger slot count (in steps of 4) and splices their records back.
+    ``centers=None`` detects each chunk's catalog on the device
+    (``max_peaks=`` and ``detect_scales=`` go to :func:`stream_setup`).
+    ``redetect=N`` runs N more passes (stream.py:1365-1471 of the JAX
+    package): the fitted models are rendered and subtracted, peaks are
+    detected on the residuals, those farther than ``redetect_radius`` px
+    from every catalog row join the catalog (up to ``max_peaks`` rows),
+    and the stream re-initializes and refits cold with it; the final
+    aux entries carry the grown catalog as ``centers``/``center_active``.
     Other keywords go to :func:`stream_setup`.
 
     Returns (records, state, losses, aux); with ``chunk`` (and no
     ``compact``) state/losses/aux are per-chunk lists, with ``compact``
     they are merged; an overflow retry appends its own entry.
     """
-    if redetect:
-        raise NotImplementedError("redetect is not ported yet")
     if upload_dtype is not None:
         raise NotImplementedError("upload_dtype is not ported yet")
     if upload == "auto":
@@ -672,10 +702,15 @@ def deblend_device_stream(images, variance, psfs, centers, model_psf,
             "upload='auto' (the bandwidth probe) is not ported")
     if upload not in ("bulk", "overlap"):
         raise ValueError(f"unknown upload mode {upload!r}")
-    if centers is None:
-        raise NotImplementedError(
-            "centers=None (device detection) is not ported yet")
     device = _default_device(images, device)
+    if redetect:
+        return _deblend_redetect(
+            images, variance, psfs, centers, model_psf, weights,
+            center_active, scene_valid, box_size=box_size, n_slots=n_slots,
+            max_iter=max_iter, check_every=check_every, min_snr=min_snr,
+            e_rel=e_rel, reweight=reweight, chunk=chunk, compact=compact,
+            redetect=int(redetect), redetect_radius=float(redetect_radius),
+            retry_overflow=retry_overflow, device=device, kw=kw)
 
     B = len(images)
     if chunk is None or chunk >= B:
@@ -801,11 +836,16 @@ def _retry_overflow(result, images, variance, psfs, centers, model_psf,
 
     need = int(n_active[idx].max())
     n_slots2 = n_slots + -(-(need - n_slots) // 4) * 4
-    to_np = lambda x: x.cpu().numpy() if isinstance(  # noqa: E731
-        x, torch.Tensor) else np.asarray(x)
-    sub_c = to_np(centers)[idx]
-    sub_a = (np.ones(sub_c.shape[:2], bool) if center_active is None
-             else to_np(center_active)[idx])
+    # the subset's catalog: the detected one when detection ran
+    if centers is None:
+        cat = _to_host([a[k] for k in ("centers", "center_active")
+                        for a in auxs])
+        sub_c = np.concatenate(cat[:len(auxs)])[idx]
+        sub_a = np.concatenate(cat[len(auxs):])[idx]
+    else:
+        sub_c = _to_numpy(centers)[idx]
+        sub_a = (np.ones(sub_c.shape[:2], bool) if center_active is None
+                 else _to_numpy(center_active)[idx])
 
     # pad to a 16-row bucket by repeating row 0 with no active catalog row
     n_pad = -(-idx.size // 16) * 16
@@ -842,6 +882,130 @@ def _retry_overflow(result, images, variance, psfs, centers, model_psf,
     losses_l = losses if isinstance(losses, list) else [losses]
     return (records, states + [sub_state], losses_l + [sub_losses],
             auxs + [sub_aux])
+
+
+def _to_numpy(x):
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _union_catalogs(centers, active, det_c, det_a, radius, cap):
+    """Per-blend union of a catalog with new detections (numpy, as in
+    stream.py:1333-1362 of the JAX package): the catalog's active rows
+    keep their order, new peaks (brightest first) join if farther than
+    ``radius`` from every kept row, up to ``cap`` rows."""
+    centers = _to_numpy(centers)
+    active = (np.ones(centers.shape[:2], bool) if active is None
+              else _to_numpy(active))
+    B = centers.shape[0]
+    merged = []
+    for b in range(B):
+        rows = [tuple(map(int, c)) for c in centers[b][active[b]]]
+        for p in det_c[b][det_a[b]]:
+            p = tuple(map(int, p))
+            if len(rows) >= cap:
+                break
+            if all((p[0] - q[0]) ** 2 + (p[1] - q[1]) ** 2 > radius ** 2
+                   for q in rows):
+                rows.append(p)
+        merged.append(rows)
+    K = max(1, max(len(r) for r in merged))
+    out_c = np.zeros((B, K, 2), np.int32)
+    out_a = np.zeros((B, K), bool)
+    for b, rows in enumerate(merged):
+        if rows:
+            out_c[b, :len(rows)] = rows
+            out_a[b, :len(rows)] = True
+    return out_c, out_a
+
+
+def _deblend_redetect(images, variance, psfs, centers, model_psf, weights,
+                      center_active, scene_valid, *, box_size, n_slots,
+                      max_iter, check_every, min_snr, e_rel, reweight, chunk,
+                      compact, redetect, redetect_radius, retry_overflow,
+                      device, kw):
+    """detect -> fit -> detect on the residuals -> refit, for
+    ``deblend_device_stream(redetect=N)`` (stream.py:1365-1471 of the JAX
+    package).  The stacks are uploaded once and sanitized once on the
+    device (stream_setup's re-sanitizing is then inert), so the residuals
+    stay finite and every pass reads the same device copy; only the
+    catalogs come back to the host, for :func:`_union_catalogs`."""
+    images, variance, psfs, weights, scene_valid = (
+        None if x is None else _upload(x, device).to(device)
+        for x in (images, variance, psfs, weights, scene_valid))
+    images, variance, _ = _sanitize_stacks(images.to(torch.float32),
+                                           variance.to(torch.float32))
+    cap = int(kw.get("max_peaks") or n_slots)
+    scales = int(kw.get("detect_scales", 3))
+    B = images.shape[0]
+    spans = ([slice(0, B)] if chunk is None or chunk >= B
+             else [slice(i, min(i + chunk, B)) for i in range(0, B, chunk)])
+
+    def sub(x, sl):
+        return None if x is None else x[sl]
+
+    cur_c, cur_a = centers, center_active
+    for pass_i in range(redetect + 1):
+        out = deblend_device_stream(
+            images, variance, psfs, cur_c, model_psf, weights=weights,
+            center_active=cur_a, scene_valid=scene_valid, box_size=box_size,
+            n_slots=n_slots, max_iter=max_iter, check_every=check_every,
+            min_snr=min_snr, e_rel=e_rel, reweight=reweight, chunk=chunk,
+            compact=compact, device=device,
+            # the overflow retry applies once, on the final catalog
+            retry_overflow=retry_overflow and pass_i == redetect, **kw)
+        records, state, losses, aux = out
+        if pass_i == redetect:
+            if cur_c is None:
+                return out
+            # the final aux entries carry the grown catalog
+            cur_c = _to_numpy(cur_c)
+            cur_a = (np.ones(cur_c.shape[:2], bool) if cur_a is None
+                     else _to_numpy(cur_a))
+            if not isinstance(aux, list):
+                return records, state, losses, dict(
+                    aux, centers=cur_c, center_active=cur_a)
+            o, new_aux = 0, []
+            for a in aux:
+                if "retry_indices" in a:
+                    # the retry entry indexes into the stream order (its
+                    # rows past the indices are padding)
+                    ri = a["retry_indices"]
+                    new_aux.append(dict(a, centers=cur_c[ri],
+                                        center_active=cur_a[ri]))
+                    continue
+                n = a["n_active"].shape[0]
+                new_aux.append(dict(a, centers=cur_c[o:o + n],
+                                    center_active=cur_a[o:o + n]))
+                o += n
+            return records, state, losses, new_aux
+        auxs = aux if isinstance(aux, list) else [aux]
+        if cur_c is None:
+            cat = _to_host([a[k] for k in ("centers", "center_active")
+                            for a in auxs])
+            cur_c = np.concatenate(cat[:len(auxs)])
+            cur_a = np.concatenate(cat[len(auxs):])
+        # detection on the residuals, per chunk: a throwaway setup of the
+        # chunk renders its fitted state, as the JAX package does
+        states = (state if isinstance(state, list)
+                  else [engine.map_tree(lambda x, sl=sl: x[sl], state)
+                        for sl in spans])
+        found = []
+        for sl, st in zip(spans, states):
+            cfg_r, data_r, _, _ = stream_setup(
+                images[sl], variance[sl], psfs[sl], sub(cur_c, sl),
+                model_psf, weights=sub(weights, sl),
+                center_active=sub(cur_a, sl),
+                scene_valid=sub(scene_valid, sl), box_size=box_size,
+                n_slots=n_slots, min_snr=min_snr, e_rel=e_rel,
+                device=device, **kw)
+            resid = images[sl] - engine.render(st, data_r, cfg_r)
+            found.append(detect_peaks_device(
+                resid, variance[sl], sub(scene_valid, sl), max_peaks=cap,
+                scales=scales)[:2])
+        det = _to_host([f[i] for i in (0, 1) for f in found])
+        cur_c, cur_a = _union_catalogs(
+            cur_c, cur_a, np.concatenate(det[:len(found)]),
+            np.concatenate(det[len(found):]), redetect_radius, cap)
 
 
 def _concat_trees(trees):

@@ -202,3 +202,63 @@ def test_fit_on_card_matches_cpu(cuda):
     cpu.fit(30, e_rel=0.0)
     assert len(card.loss) == len(cpu.loss) == 30
     np.testing.assert_allclose(card.loss, cpu.loss, rtol=1e-4)
+
+
+# the T1 variant that may differ from its plain version, as a share of the
+# plain result's largest value: alu8's fused multiply-add rounds once where
+# the plain version rounds twice (the multiply by 0.5 is exact, so they
+# agree barring subnormals).  bf16's plain version rounds each operation
+# once to bf16, as the bf16x2 instructions do: bit for bit
+T1_BOUNDS = {"alu8": 1e-6}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mix", kn.MONO_PASS_MIXES)
+def test_mono_pass_variant_matches_plain(cuda, mix):
+    from scarlet_tpu_torch.tools import mono_pass_attrib as tool
+
+    wsel, keepsel, _, _ = (torch.from_numpy(a).to(cuda)
+                           for a in tool.slot_tables())
+    packed = torch.from_numpy(tool.packed_input()).to(cuda)
+    before = kn.mono_pass_variant.launches
+    got = kn.mono_pass_variant(packed, wsel, keepsel, mix, 8)
+    assert kn.mono_pass_variant.launches == before + 1
+    ref = kn.mono_pass_variant_plain(packed, wsel, keepsel, mix, 8)
+    err = float((got - ref).abs().max())
+    assert err <= T1_BOUNDS.get(mix, 0.0) * float(ref.abs().max()), err
+
+
+@pytest.mark.cuda
+def test_mono_pass_full_equals_production(cuda):
+    """``full`` at 16 forced passes equals K1 at n_iter=16, tol=0 bit for
+    bit: K1 stops only after a block that changed nothing."""
+    from scarlet_tpu_torch.tools import mono_pass_attrib as tool
+
+    wsel, keepsel, wtab, keep = (torch.from_numpy(a).to(cuda)
+                                 for a in tool.slot_tables())
+    packed = torch.from_numpy(tool.packed_input(4)).to(cuda)
+    idx = torch.zeros((4, tool.K), dtype=torch.int32, device=cuda)
+    ref = kn.monotonic_prox_packed(packed, idx, wtab, keep, tool.S, 16,
+                                   tol=0.0)
+    assert torch.equal(kn.mono_pass_variant(packed, wsel, keepsel, "full",
+                                            16), ref)
+
+
+@pytest.mark.cuda
+def test_detection_on_card_matches_cpu(cuda):
+    """detect_peaks_device on the card and on the CPU, 4 generated blends:
+    the same catalogs (the support's sums accumulate in float64, so both
+    devices take the same threshold decisions)."""
+    from scarlet_tpu_torch.parallel import detect_peaks_device
+
+    rng = np.random.default_rng(3)
+    blends = [generate_blend(rng) for _ in range(4)]
+    images = torch.from_numpy(np.stack([b["images"] for b in blends]))
+    variance = torch.from_numpy(np.stack([b["variance"] for b in blends]))
+    cpu = detect_peaks_device(images, variance, max_peaks=24)
+    card = detect_peaks_device(images.to(cuda), variance.to(cuda),
+                               max_peaks=24)
+    for a, b in zip(card, cpu):
+        assert a.device.type == "cuda"
+        assert torch.equal(a.cpu(), b)
+    assert bool(cpu[1].any(dim=1).all())

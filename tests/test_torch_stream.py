@@ -257,16 +257,15 @@ def test_dispatch_collect_equals_converged(het):
 
 
 @pytest.mark.parametrize("option", [
-    dict(recipe="wavelets"), dict(use_mask=True), dict(centers=None),
-    dict(redetect=1), dict(upload_dtype="bfloat16"), dict(upload="auto"),
+    dict(recipe="wavelets"), dict(use_mask=True),
+    dict(upload_dtype="bfloat16"), dict(upload="auto"),
     dict(box_grow=0.1)], ids=lambda o: next(iter(o)))
 def test_unported_stream_options_raise(het, option):
+    """Device detection (``centers=None``) and ``redetect`` are ported:
+    tests/test_torch_detection.py."""
     kw = dict(center_active=het["active"][:1], box_size=BOX, n_slots=12,
               max_iter=2)
-    centers = option.pop("centers", het["centers"][:1])
-    if centers is None:
-        kw.pop("center_active")
     with pytest.raises(NotImplementedError):
         tstream.deblend_device_stream(
             het["images"][:1], het["variance"][:1], het["psfs"][:1],
-            centers, MODEL_PSF, **kw, **option)
+            het["centers"][:1], MODEL_PSF, **kw, **option)
