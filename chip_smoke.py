@@ -6,7 +6,9 @@ Run from the repository root, with one CUDA card:
     python3 chip_smoke.py
 
 1. Builds the CUDA kernels of ``scarlet_tpu_torch/ops/csrc`` with nvcc
-   (one compiler process per source, all at once).
+   (one compiler process per source, all at once), prints each kernel's
+   registers and spills, and the projection kernels' resident blocks per
+   SM at box 59.
 2. Holds K1-K4 against their plain PyTorch versions on the card at the
    host path's shapes (128 blends x 16 components, box 59, 5 bands,
    58 x 48 scenes, with negative origins and an argmax tie), and times
@@ -15,7 +17,8 @@ Run from the repository root, with one CUDA card:
    initialization, one ``LiteBlend.fit`` on the card, then ``pack_blends``
    and ``fit_batch_device_converged`` for all 128; checks the results,
    that its kernels were launched, and that 4 blends refitted on the CPU
-   (plain versions) end at the same logL.  Profiles 20 iterations.
+   (plain versions) end at the same logL.  Profiles 20 iterations and
+   counts the passes of their K1 launches.
 4. The device stream: 256 generated heterogeneous blends (the JAX
    bench's het cell: ``default_rng(42)``, box 59, 16 slots, cap 100,
    check every 25, chunks of 128, compaction at 50, overflow retry, bulk
@@ -30,8 +33,10 @@ Run from the repository root, with one CUDA card:
    ``mono_pass_variant`` (``ops/csrc/attrib.cu``) against its plain
    version at 8 passes on the tool's input (128 x (59, 590)), then runs
    ``scarlet_tpu_torch.tools.mono_pass_attrib`` (its path), checks that
-   ``full`` equals K1 bit for bit, prints its JSON line and estimates the
-   passes each K1 launch of the profiled fit runs.
+   ``full`` equals K1 bit for bit and prints its JSON line; then fits K1's
+   own cost per pass on the same input (``K1_COUNTS``) beside ``full``'s
+   and estimates from it the passes each K1 launch of the profiled fit
+   runs, beside the exact count.
 6. Device detection: the het stream with ``centers=None`` (warm-up, then
    three runs from numpy and three device-resident), its overhead over
    the catalog stream, the host syncs per detection call, the card's
@@ -54,6 +59,13 @@ import time
 import numpy as np
 
 SEED = 7
+# the H100's published peaks (NVIDIA's data sheet, SXM part): HBM3 bytes
+# per second and float32 operations per second outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# K1's own cost per pass, fitted over these forced pass counts on T1's
+# input (no morphology there exits before 48 passes)
+K1_COUNTS = (8, 16, 24, 32)
 N_BLENDS = 128
 MAX_ITER, CHECK_EVERY, E_REL = 100, 25, 1e-4
 N_CPU = 4
@@ -115,6 +127,60 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
+def bound(nbytes, nops):
+    """The least time the card could take for work that moves ``nbytes``
+    (each input read once, each output written once) and does ``nops``
+    float32 operations: the larger of the two over the H100's published
+    peaks."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / F32_OPS_PER_S
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_bytes=int(nbytes), bound_ops=int(nops))
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def mono_passes_run(morphs, idx, wt, kt, n_iter, tol, running=None,
+                    scale=1.0):
+    """The passes each morphology of (..., K, hb, wb) runs under the
+    projection's exit rule (blocks of 4, the last two compared), from
+    the plain passes: an integer tensor (..., K).  ``running`` (..., K)
+    bool: morphologies that run at all (the others run 0)."""
+    import torch
+    from scarlet_tpu_torch.ops import kernels as kn
+
+    w, keep = wt[idx.long()], kt[idx.long()] > 0.5
+    x = morphs
+    run = torch.ones(morphs.shape[:-2], dtype=torch.bool,
+                     device=morphs.device) if running is None \
+        else running.clone()
+    passes = torch.zeros(morphs.shape[:-2], dtype=torch.int64,
+                         device=morphs.device)
+    t = 0
+    while t < n_iter and bool(run.any()):
+        for _ in range(kn.MONO_UNROLL - 1):
+            x = kn._mono_pass(x, morphs, w, keep, scale)
+        new = kn._mono_pass(x, morphs, w, keep, scale)
+        changed = ((new - x).abs().amax(dim=(-2, -1)) > tol) if tol > 0 \
+            else (new != x).any(dim=-1).any(dim=-1)
+        passes += kn.MONO_UNROLL * run
+        run &= changed
+        x = new
+        t += kn.MONO_UNROLL
+    return passes
+
+
+def mono_ops(passes, idx, wt):
+    """Float32 operations of the projection's passes: per pass and pixel,
+    a multiply and an add for each nonzero tap of the selected table and
+    the min against x0 (the scale multiply is off at min_gradient 0)."""
+    per_pixel = 2 * (wt != 0).sum(dim=1) + 1              # (ncand, hb, wb)
+    per_morph = per_pixel.sum(dim=(-2, -1))[idx.long()]   # (..., K)
+    return float((passes * per_morph).sum())
+
+
 def time_ms(fn, reps):
     """Median milliseconds of ``fn`` over ``reps`` runs (CUDA events),
     after one warm-up run."""
@@ -171,7 +237,11 @@ def kernel_phases(dev, card, setup):
     err_p = float((got_p - ref_p).abs().max())
     unpacked = got_p.reshape(B, box, K, box).transpose(-3, -2)
     err_layout = float((unpacked - got).abs().max())
+    passes = mono_passes_run(morphs, idx, wt, kt, n_iter, 0.0)
     out["monotonic_prox"] = dict(
+        **bound(2 * nbytes(morphs) + nbytes(idx, wt, kt),
+                mono_ops(passes, idx, wt)),
+        mean_passes=float(passes.double().mean()),
         max_abs_err=max(err, err_p, err_layout), limit=0.0,
         ms=time_ms(lambda: kn.monotonic_prox(morphs, idx, wt, kt, n_iter),
                    10),
@@ -189,6 +259,9 @@ def kernel_phases(dev, card, setup):
     got = kn.scene_assembly(seds, m, origins, on, (C, H, W), P)
     ref = kn.scene_assembly_plain(seds, m, origins, on, (C, H, W), P)
     out["scene_assembly"] = dict(
+        # a multiply and an add per band and pixel of each active box
+        **bound(nbytes(seds, m, origins, on, got),
+                2.0 * float(on.sum()) * C * box * box),
         max_abs_err=float((got - ref).abs().max()), limit=0.0,
         ms=time_ms(lambda: kn.scene_assembly(seds, m, origins, on,
                                              (C, H, W), P), 20),
@@ -208,6 +281,9 @@ def kernel_phases(dev, card, setup):
         raise AssertionError(f"grad_gather g_sed off by {sed_err:.3g} of "
                              f"sum |g*morph| (limit {GRAD_SED_RTOL})")
     out["grad_gather"] = dict(
+        # g_sed and g_morph: a multiply and an add per band and pixel each
+        **bound(nbytes(gpad, seds, m, origins, gs, gm),
+                4.0 * B * K * C * box * box),
         max_abs_err=max(float((gm - rm).abs().max()),
                         float((gs - rs).abs().max())),
         limit=f"g_morph 0; g_sed {GRAD_SED_RTOL} x sum|g*morph|",
@@ -236,7 +312,7 @@ def build_blend(lite, d):
     model_psf = lite.integrated_circular_gaussian(sigma=0.8)[None].astype(
         np.float32)
     obs = lite.LiteObservation(d["images"], d["variance"], weights,
-                               d["psfs"], model_psf=model_psf)
+                               d["psfs"], model_psf=model_psf, device="cpu")
     centers = [(int(np.round(r["y"])), int(np.round(r["x"])))
                for r in d["catalog"]]
     sources = lite.init_all_sources_main(obs, centers, min_snr=50)
@@ -399,6 +475,40 @@ def profile_fit(setup, n_iter=20):
     return sum(t for t, _ in k1) / max(sum(n for _, n in k1), 1) / 1e3
 
 
+def fit_k1_work(setup, n_iter=20):
+    """What the K1 launches of the profiled iterations do, from their own
+    inputs (the same iterations, rerun with each launch's input handed to
+    the plain exit rule): mean passes per morphology, and the bound of
+    the mean launch (``bound``)."""
+    import torch
+    from scarlet_tpu_torch.lite import engine
+    from scarlet_tpu_torch.ops import kernels as kn
+
+    config, data, state = setup
+    orig = kn.monotonic_prox
+    runs = []
+
+    def counted(morphs, idx, wt, kt, n, min_gradient=0.0, tol=0.0):
+        passes = mono_passes_run(morphs, idx, wt, kt, n, tol,
+                                 scale=1.0 - min_gradient)
+        runs.append((float(passes.double().mean()),
+                     2 * nbytes(morphs) + nbytes(idx, wt, kt),
+                     mono_ops(passes, idx, wt)))
+        return orig(morphs, idx, wt, kt, n, min_gradient, tol)
+
+    # the wrapper is the module's monotonic_prox while it runs, so the
+    # kernel's launch counter is its own: these launches count nowhere
+    counted.launches = 0
+    kn.monotonic_prox = counted
+    try:
+        engine.fit_scan(state, data, config, n_iter)
+        torch.cuda.synchronize()
+    finally:
+        kn.monotonic_prox = orig
+    passes, nb, ops = (float(np.mean(c)) for c in zip(*runs))
+    return dict(mean_passes=passes, launches=len(runs), **bound(nb, ops))
+
+
 def make_het():
     """bench.py's ``make_heterogeneous``: N_HET generated blends packed to
     one catalog layout (numpy)."""
@@ -482,7 +592,14 @@ def stream_kernel_phases(dev, card, het):
     err = max(float((chain(kn.prox_chain, tol)
                      - chain(kn.prox_chain_plain, tol)).abs().max())
               for tol in (0.0, config.mono_tol))
+    # the timed call runs at mono_tol; gated-off slots run no pass.  Per
+    # gated-on pixel the epilogue adds a compare, the max and a divide
+    passes = mono_passes_run(stepped, idx, wt, kt, n_iter, config.mono_tol,
+                             running=gate)
     out["prox_chain"] = dict(
+        **bound(2 * nbytes(morphs) + nbytes(stepped, idx, thr, gate, wt, kt),
+                mono_ops(passes, idx, wt) + 3.0 * float(gate.sum()) * hb * wb),
+        mean_passes=float(passes[gate].double().mean()),
         max_abs_err=err, limit=0.0,
         ms=time_ms(lambda: chain(kn.prox_chain, config.mono_tol), 10),
         plain_ms=time_ms(lambda: chain(kn.prox_chain_plain,
@@ -495,7 +612,18 @@ def stream_kernel_phases(dev, card, het):
     (x, o), (rx, ro) = fused(kn.fused_morph_update), fused(
         kn.fused_morph_update_plain)
     errs = [float((a - b).abs().max()) for a, b in zip((x, *o), (rx, *ro))]
+    # the step as the plain version takes it, for the pass count at tol 0;
+    # per gated-on pixel the prologue is 14 operations, the epilogue 3
+    x1 = (morphs - ds[:, None, None, None] * ro.m
+          / (torch.sqrt(ro.vhat) + config.eps)) * masks
+    fidx = kn.candidate_index(x1, 1)
+    passes = mono_passes_run(x1, fidx, wt, kt, n_iter, 0.0, running=gate)
     out["fused_morph_update"] = dict(
+        **bound(nbytes(morphs, grads, *opt, masks, gate, thr, ds, wt, kt)
+                + 4 * nbytes(morphs),
+                mono_ops(passes, fidx, wt)
+                + 17.0 * float(gate.sum()) * hb * wb),
+        mean_passes=float(passes[gate].double().mean()),
         max_abs_err=max(errs), limit=0.0,
         errors_x_m_v_vhat=errs,
         ms=time_ms(lambda: fused(kn.fused_morph_update), 10),
@@ -706,17 +834,21 @@ def fused_configs(dev, het):
     return counts, summary
 
 
-def attrib_phase(dev, card, k1_fit_ms, k1_morphs, k1_phase_ms):
+def attrib_phase(dev, card, k1_fit_ms, k1_morphs, k1_phase_ms, exact):
     """T1: each variant against its plain version at 8 passes on the
-    tool's input, then the attribution tool's run, whose launches count.
-    Returns (kernel entry, launches, report)."""
+    tool's input, then the attribution tool's run, whose launches count;
+    then K1's own cost per pass beside ``full``'s, and the passes per K1
+    launch it implies beside the ``exact`` counts ({"fit": ...,
+    "kernel_phase": ...} mean passes per morphology).  Returns (kernel
+    entry, launches, report)."""
     import torch
     from scarlet_tpu_torch.ops import kernels as kn
     from scarlet_tpu_torch.tools import mono_pass_attrib as tool
 
-    wsel, keepsel, _, _ = (torch.from_numpy(a).to(dev)
-                           for a in tool.slot_tables())
+    wsel, keepsel, wtab, keep = (torch.from_numpy(a).to(dev)
+                                 for a in tool.slot_tables())
     packed = torch.from_numpy(tool.packed_input()).to(dev)
+    idx0 = torch.zeros((tool.B, tool.K), dtype=torch.int32, device=dev)
     errs = {}
     for mix in kn.MONO_PASS_MIXES:
         got = kn.mono_pass_variant(packed, wsel, keepsel, mix, 8)
@@ -729,7 +861,11 @@ def attrib_phase(dev, card, k1_fit_ms, k1_morphs, k1_phase_ms):
             raise AssertionError(f"mono_pass_variant[{mix}] differs from "
                                  f"its plain version by {errs[mix]}")
     full = lambda f: f(packed, wsel, keepsel, "full", 8)  # noqa: E731
+    # 8 passes of every slot; the work of the nonzero taps of candidate 0
     res = dict(
+        **bound(2 * nbytes(packed) + nbytes(wsel, keepsel),
+                mono_ops(torch.full((tool.B, tool.K), 8, device=dev), idx0,
+                         wtab)),
         max_abs_err=max(errs.values()),
         limit="0; alu8 1e-6 of max |plain| (fused multiply-add)",
         errors_by_variant=errs,
@@ -747,23 +883,61 @@ def attrib_phase(dev, card, k1_fit_ms, k1_morphs, k1_phase_ms):
     if report["full_vs_production_max_diff"] != 0.0:
         raise AssertionError("variant full differs from K1: "
                              f"{report['full_vs_production_max_diff']}")
-    # passes per K1 launch: the launch's time per morphology less the
-    # variant's overhead, over full's cost per pass and morphology
-    slope = report["variants"]["full"]
-    tau = slope["us_per_pass_per_blend"] / tool.K
-    ovh = slope["overhead_us_per_blend"] / tool.K
+    # K1's own cost per pass, on the same input and card: forced pass
+    # counts (no morphology of this input exits before them), a least-
+    # squares line as the tool fits its variants
+    k1 = lambda n: kn.monotonic_prox_packed(  # noqa: E731
+        packed, idx0, wtab, keep, tool.S, n, tol=0.0)
+    ran = mono_passes_run(packed.reshape(tool.B, tool.S, tool.K, tool.S)
+                          .movedim(-2, -3), idx0, wtab, keep,
+                          max(K1_COUNTS), 0.0)
+    if not bool((ran == max(K1_COUNTS)).all()):
+        raise AssertionError("a morphology of T1's input exits before "
+                             f"{max(K1_COUNTS)} passes")
+    k1_full_err = float((k1(32) - kn.mono_pass_variant(
+        packed, wsel, keepsel, "full", 32)).abs().max())
+    if k1_full_err != 0.0:
+        raise AssertionError(f"K1 at 32 passes differs from full by "
+                             f"{k1_full_err}")
+    xs = np.array(K1_COUNTS, float)
+    A = np.vstack([xs, np.ones_like(xs)]).T
+    ms = [time_ms(lambda: k1(n), 9) for n in K1_COUNTS]
+    ys = np.array(ms) * 1e-3
+    (tau_b, ovh_b), *_ = np.linalg.lstsq(A, ys, rcond=None)
+    r2 = 1 - np.sum((A @ [tau_b, ovh_b] - ys) ** 2) / max(
+        np.sum((ys - ys.mean()) ** 2), 1e-30)
+    full_slope = report["variants"]["full"]["us_per_pass_per_blend"]
+    k1_slope = dict(us_per_pass_per_blend=float(tau_b / tool.B * 1e6),
+                    overhead_us_per_blend=float(ovh_b / tool.B * 1e6),
+                    r2=float(r2), ms_at_counts=dict(zip(map(str, K1_COUNTS),
+                                                        ms)))
+    k1_slope["over_full"] = k1_slope["us_per_pass_per_blend"] / full_slope
+    report["k1"] = k1_slope
+    log(f"K1 (monotonic_prox_packed) {k1_slope['us_per_pass_per_blend']:.5f}"
+        f" us/pass/blend, overhead {k1_slope['overhead_us_per_blend']:.4f} "
+        f"us/blend, r2 {r2:.6f}, ms at {K1_COUNTS}: "
+        f"{[round(m, 4) for m in ms]}; full (the block design's pass) "
+        f"{full_slope:.5f} us/pass/blend in the same run: K1 / full = "
+        f"{k1_slope['over_full']:.4f}; K1 at 32 passes equals full "
+        f"(max diff {k1_full_err}); on {card}")
+
+    # passes per K1 launch: the launch's time per morphology less K1's
+    # overhead, over K1's cost per pass and morphology
+    tau = k1_slope["us_per_pass_per_blend"] / tool.K
+    ovh = k1_slope["overhead_us_per_blend"] / tool.K
     passes = {name: (ms * 1e3 / k1_morphs - ovh) / tau
               for name, ms in (("fit", k1_fit_ms), ("kernel_phase",
                                                     k1_phase_ms))}
     report["k1_passes_per_launch"] = dict(passes, morphologies=k1_morphs,
                                           k1_fit_ms=k1_fit_ms,
-                                          k1_kernel_phase_ms=k1_phase_ms)
-    log(f"K1 passes per launch, from full's {tau:.5f} us per pass and "
+                                          k1_kernel_phase_ms=k1_phase_ms,
+                                          exact=exact)
+    log(f"K1 passes per launch, from K1's {tau:.5f} us per pass and "
         f"{ovh:.4f} us overhead per morphology: {passes['fit']:.1f} in the "
-        f"profiled fit ({k1_fit_ms:.4f} ms per launch), "
-        f"{passes['kernel_phase']:.1f} in the kernel phase "
-        f"({k1_phase_ms:.4f} ms), {k1_morphs} morphologies per launch, "
-        f"on {card}")
+        f"profiled fit ({k1_fit_ms:.4f} ms per launch; exact "
+        f"{exact['fit']:.2f}), {passes['kernel_phase']:.1f} in the kernel "
+        f"phase ({k1_phase_ms:.4f} ms; exact {exact['kernel_phase']:.2f}), "
+        f"{k1_morphs} morphologies per launch, on {card}")
     return res, launches, report
 
 
@@ -984,9 +1158,17 @@ def main():
     path, secs, report = build.build()
     log(f"kernels built in {secs:.2f} s: {path.name}")
     for line in report.splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if any(k in line for k in ("registers", "Compiling entry", "spill")):
             log("  " + line.strip())
     build.load()
+    # the projection kernels as the path launches them (box 59)
+    from scarlet_tpu_torch.ops import kernels as kn
+    for name, info in kn.mono_kernel_info(59, 59).items():
+        log(f"{name} at box 59: T={info['T']} P={info['P']}, "
+            f"{info['threads']} threads, {info['registers']} registers, "
+            f"{info['spill_bytes']} B local (spill) per thread, "
+            f"{info['smem_bytes']} B shared, {info['blocks_per_sm']} "
+            f"blocks resident per SM")
 
     single, setup, init_s = setup_blends(dev)
     kres = kernel_phases(dev, card, setup)
@@ -994,6 +1176,14 @@ def main():
     log(f"summary: {json.dumps(summary)}")
     k1_fit_ms = profile_fit(setup)
     k1_morphs = int(setup[2].comp_active[0].numel())
+    k1_fit = fit_k1_work(setup)
+    log(f"K1 in the profiled fit: {k1_fit_ms:.4f} ms per launch, "
+        f"{k1_fit['mean_passes']:.2f} passes per morphology (exact, over "
+        f"{k1_fit['launches']} launches), bound {k1_fit['bound_ms']:.4f} ms "
+        f"by {k1_fit['bound_by']} ({k1_fit['bound_bytes']} B, "
+        f"{k1_fit['bound_ops']} operations): "
+        f"{100.0 * k1_fit['bound_ms'] / k1_fit_ms:.1f}% of the bound's "
+        f"speed, on {card}")
     del single, setup
 
     het = make_het()
@@ -1005,7 +1195,9 @@ def main():
     fused_counts, fused_summary = fused_configs(dev, het)
     log(f"fused summary: {json.dumps(fused_summary)}")
     kres["mono_pass_variant"], t1_launches, _ = attrib_phase(
-        dev, card, k1_fit_ms, k1_morphs, kres["monotonic_prox"]["ms"])
+        dev, card, k1_fit_ms, k1_morphs, kres["monotonic_prox"]["ms"],
+        dict(fit=k1_fit["mean_passes"],
+             kernel_phase=kres["monotonic_prox"]["mean_passes"]))
     _, det_summary = detection_path(
         dev, card, het, float(np.median(
             stream_summary["device_resident_wall_s"])))
@@ -1022,15 +1214,15 @@ def main():
     path = dict(prox_chain="fit, packed_prox_chain",
                 fused_morph_update="fit, fuse_morph",
                 mono_pass_variant="tools.mono_pass_attrib")
+    # no one PyTorch call computes any of them (PERF.md): library_ms null
+    main_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     kernels = [
         dict(name=name, route="cuda", source=SOURCES[name],
              replaces=REPLACES[name], launches=int(launches[name]),
-             max_abs_err=res["max_abs_err"], ms=res["ms"],
-             plain_ms=res["plain_ms"],
+             **{k: res[k] for k in main_keys}, library_ms=None,
              path=path.get(name, "device stream"),
              launches_host_path=int(host_counts[name]),
-             **{k: v for k, v in res.items()
-                if k not in ("max_abs_err", "ms", "plain_ms")})
+             **{k: v for k, v in res.items() if k not in main_keys})
         for name, res in kres.items()]
     log(f"CPU rerun max rel logL diff {cpu_rel:.3g}")
     print(json.dumps({"kernels": kernels}))

@@ -19,6 +19,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from .device import default_device
 from .lite import engine
 from .optim import AdaproxState
 
@@ -62,8 +63,8 @@ def _opt(opts, device):
 
 def from_jax(config, data, state, device=None):
     """Convert the JAX package's (config dict, BlendData, BlendState) to
-    the port's, on ``device`` (default: CPU)."""
-    device = torch.device("cpu" if device is None else device)
+    the port's, on ``device`` (default: the CUDA card)."""
+    device = default_device(device)
     engine.pin_float32(device)
     cfg = engine.LiteFitConfig(**dict(config))
     if _get(data, "fista_step") is not None:

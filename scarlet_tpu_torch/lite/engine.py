@@ -40,6 +40,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..device import default_device
 from ..ops import fft as fft_ops
 from ..ops import kernels
 from ..ops import prox as prox_ops
@@ -62,6 +63,7 @@ __all__ = [
     "make_blend_data",
     "make_blend_state",
     "monotonicity_tables",
+    "shared_tensors",
 ]
 
 
@@ -253,12 +255,30 @@ def monotonicity_tables(box_shape, fit_center_radius=1,
     return out
 
 
+def shared_tensors(name, key, arrays, device):
+    """``arrays`` (host numpy) on ``device``, uploaded once per (name,
+    key, device) and shared by every caller: for read-only tables such as
+    the monotonicity tables, whose compact taps the projection kernel then
+    builds once (``ops.kernels``), not once per blend or chunk."""
+    from ..cache import Cache
+
+    k = (key, str(torch.device(device)))
+    try:
+        return Cache.check(name, k)
+    except KeyError:
+        pass
+    out = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                for a in arrays)
+    Cache.set(name, k, out)
+    return out
+
+
 def _tensor(x, device, dtype=None):
-    """``x`` (array-like or tensor) as a tensor on ``device`` (None: CPU)."""
+    """``x`` (array-like or tensor) as a tensor on ``device``."""
     t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x))
     if dtype is not None:
         t = t.to(dtype)
-    return t.to("cpu" if device is None else device)
+    return t.to(device)
 
 
 def pin_float32(device):
@@ -273,11 +293,12 @@ def pin_float32(device):
 
 def make_blend_data(images, weights, diff_kernel, bg_rms, config,
                     sed_step_min=None, device=None):
-    """Build one blend's BlendData on ``device`` (default: CPU).  Kernel
-    transforms are computed on the host, so every device starts from the
-    same bits."""
-    if device is not None:
-        pin_float32(device)
+    """Build one blend's BlendData on ``device`` (default: the device of
+    ``images`` if it is a tensor, else the CUDA card).  Kernel transforms
+    are computed on the host, so every device starts from the same
+    bits."""
+    device = default_device(device, images)
+    pin_float32(device)
     images = _tensor(images, "cpu")
     dtype = images.dtype
     if diff_kernel is not None:
@@ -293,10 +314,14 @@ def make_blend_data(images, weights, diff_kernel, bg_rms, config,
     np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
     mono_w, mono_keep = [], []
     for shape in config.box_shapes:
-        w, keep, _ = monotonicity_tables(
-            shape, config.fit_center_radius, config.neighbor_weight)
-        mono_w.append(_tensor(w.astype(np_dtype), device))
-        mono_keep.append(_tensor(keep.astype(np_dtype), device))
+        key = (tuple(shape), config.fit_center_radius,
+               config.neighbor_weight)
+        w, keep, _ = monotonicity_tables(*key)
+        w, keep = shared_tensors(f"monotonicity_tables_{np_dtype}", key,
+                                 (w.astype(np_dtype), keep.astype(np_dtype)),
+                                 device)
+        mono_w.append(w)
+        mono_keep.append(keep)
 
     bg_rms = _tensor(bg_rms, "cpu", dtype)
     if sed_step_min is None:
@@ -316,11 +341,14 @@ def make_blend_data(images, weights, diff_kernel, bg_rms, config,
 def make_blend_state(seds, morphs, origins, comp_active=None,
                      sed_opt=None, morph_opt=None, device=None):
     """One blend's BlendState from per-bucket lists of arrays (or single
-    arrays for one bucket), on ``device`` (default: CPU)."""
+    arrays for one bucket), on ``device`` (default: the device of the
+    first SEDs if they are a tensor, else the CUDA card)."""
     def as_buckets(x):
         if isinstance(x, (list, tuple)) and not isinstance(x, AdaproxState):
             return tuple(x)
         return (x,)
+
+    device = default_device(device, as_buckets(seds)[0])
 
     seds = tuple(_tensor(s, device) for s in as_buckets(seds))
     morphs = tuple(_tensor(m, device) for m in as_buckets(morphs))

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from ..bbox import Box, overlapped_slices
+from ..device import default_device
 from ..ops import fft as fft_ops
 from ..initialization import get_minimal_boxsize
 from .parameters import LiteParameter, AdaproxParameter
@@ -200,18 +201,21 @@ class LiteObservation:
     """Multiband images with their variance, weights and PSFs, and the
     difference kernel to the model PSF.  Ref: scarlet/lite/models.py:333-476.
 
-    Tensors live on ``device`` (default: CPU); the initialization reads
-    them on the host.  Only the ``"fft"`` convolution mode is ported.
+    Tensors live on ``device`` (default: the CUDA card, or the device of
+    ``images`` if it is a tensor; ``"cpu"`` for the host); the
+    initialization reads them on the host.  Only the ``"fft"``
+    convolution mode is ported.
     """
 
     def __init__(self, images, variance, weights, psfs, model_psf=None,
                  noise_rms=None, bbox=None, padding=3,
                  convolution_mode="fft", device=None):
+        device = default_device(device, images)
+
         def tensor(x, dtype=None):
             t = x if isinstance(x, torch.Tensor) else \
                 torch.as_tensor(np.asarray(x))
-            return t.to(device="cpu" if device is None else device,
-                        dtype=dtype)
+            return t.to(device=device, dtype=dtype)
 
         self.images = tensor(images)
         self.variance = tensor(variance)

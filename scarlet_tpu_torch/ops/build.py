@@ -103,13 +103,15 @@ def load():
     lib = ctypes.CDLL(str(path))
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
         ctypes.c_float
-    lib.scarlet_mono_prox.argtypes = [p, p, p, p, p, i, i, i, i, i, ll, ll,
-                                      ll, ll, i, f, f, p]
-    lib.scarlet_mono_smem_bytes.argtypes = [i, i]
-    lib.scarlet_prox_chain.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i,
-                                       i, f, f, f, p]
-    lib.scarlet_fused_morph.argtypes = [p] * 11 + [i] * 6 + [f, i] + \
-        [f] * 6 + [p] * 5
+    # the projection kernels end with (T, P, ny, transposed, threads) of
+    # kernels.mono_geometry and the stream
+    geom = [i] * 5 + [p]
+    lib.scarlet_mono_prox.argtypes = [p] * 6 + [i] * 5 + [ll] * 4 + \
+        [i, f, f] + geom
+    lib.scarlet_prox_chain.argtypes = [p] * 9 + [i] * 5 + [f] * 3 + geom
+    lib.scarlet_fused_morph.argtypes = [p] * 12 + [i] * 6 + [f, i] + \
+        [f] * 6 + [p] * 4 + geom
+    lib.scarlet_mono_kernel_info.argtypes = [i] * 5 + [p]
     lib.scarlet_scene_assembly.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
                                            i, p]
     lib.scarlet_grad_gather.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
@@ -120,7 +122,7 @@ def load():
     lib.scarlet_mono_pass_variant_smem_bytes.argtypes = [i, i, i]
     lib.scarlet_error_string.argtypes = [i]
     lib.scarlet_error_string.restype = ctypes.c_char_p
-    for name in ("scarlet_mono_prox", "scarlet_mono_smem_bytes",
+    for name in ("scarlet_mono_prox", "scarlet_mono_kernel_info",
                  "scarlet_prox_chain", "scarlet_fused_morph",
                  "scarlet_scene_assembly", "scarlet_grad_gather",
                  "scarlet_grad_max_bands", "scarlet_mono_pass_variant",

@@ -40,6 +40,10 @@ buffer; :func:`prox_chain` writes a fresh tensor.
 """
 from __future__ import annotations
 
+import weakref
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from . import build
@@ -58,6 +62,12 @@ __all__ = [
     "MONO_PASS_MIXES",
     "mono_pass_variant",
     "monotonic_prox_plain",
+    "MonoTaps",
+    "mono_taps",
+    "monotonic_prox_taps_plain",
+    "MonoGeometry",
+    "mono_geometry",
+    "mono_kernel_info",
     "monotonic_prox_packed_plain",
     "prox_chain_plain",
     "fused_morph_update_plain",
@@ -117,28 +127,20 @@ def _mono_pass(x, x0, w, keep, scale):
     return torch.where(keep, x0, torch.minimum(x0, ref * scale))
 
 
-def monotonic_prox_plain(morphs, idx, weights_table, keep_table, n_iter,
-                         min_gradient=0.0, tol=0.0):
-    """Plain version of :func:`monotonic_prox` (engine.py:635-647 of the
-    JAX package, with the kernel's exit rule): Jacobi passes in blocks of
-    ``MONO_UNROLL``; a morphology stops after the block whose last pass
-    changed nothing (``tol == 0``) or moved no pixel by more than ``tol``,
-    or once ``n_iter`` passes have run.  At ``tol == 0`` this is the exact
-    fixed point, equal to ``n_iter`` plain passes."""
-    idx = idx.long()
-    w = weights_table[idx]                   # (..., K, 8, hb, wb)
-    keep = keep_table[idx] > 0.5             # (..., K, hb, wb)
-    scale = 1.0 - min_gradient
-    x0 = morphs
-    x = x0
+def _mono_blocks(morphs, n_iter, tol, one_pass):
+    """The kernel's exit rule around ``one_pass(x)``: Jacobi passes in
+    blocks of ``MONO_UNROLL``; a morphology stops after the block whose
+    last pass changed nothing (``tol == 0``) or moved no pixel by more
+    than ``tol``, or once ``n_iter`` passes have run."""
+    x = morphs
     running = torch.ones(morphs.shape[:-2], dtype=torch.bool,
                          device=morphs.device)
     t = 0
     while t < n_iter and bool(running.any()):
         start = x
         for _ in range(MONO_UNROLL - 1):
-            x = _mono_pass(x, x0, w, keep, scale)
-        new = _mono_pass(x, x0, w, keep, scale)
+            x = one_pass(x)
+        new = one_pass(x)
         if tol > 0.0:
             changed = (new - x).abs().amax(dim=(-2, -1)) > tol
         else:
@@ -147,6 +149,166 @@ def monotonic_prox_plain(morphs, idx, weights_table, keep_table, n_iter,
         running = running & changed
         t += MONO_UNROLL
     return x
+
+
+def monotonic_prox_plain(morphs, idx, weights_table, keep_table, n_iter,
+                         min_gradient=0.0, tol=0.0):
+    """Plain version of :func:`monotonic_prox` (engine.py:635-647 of the
+    JAX package, with the kernel's exit rule, :func:`_mono_blocks`).  At
+    ``tol == 0`` this is the exact fixed point, equal to ``n_iter`` plain
+    passes.
+
+    Every pass sums all 8 weighted neighbours, zero weights included.  The
+    kernel sums only the nonzero taps (:func:`mono_taps`), which gives the
+    same bits for finite morphologies; where a neighbour with weight 0 is
+    inf or NaN, ``0 * inf`` makes this version's pixel NaN and the
+    kernel's stays finite (:func:`monotonic_prox_taps_plain` is the
+    kernel's arithmetic)."""
+    idx = idx.long()
+    w = weights_table[idx]                   # (..., K, 8, hb, wb)
+    keep = keep_table[idx] > 0.5             # (..., K, hb, wb)
+    scale = 1.0 - min_gradient
+    return _mono_blocks(morphs, n_iter, tol,
+                        lambda x: _mono_pass(x, morphs, w, keep, scale))
+
+
+class MonoTaps(NamedTuple):
+    """The nonzero taps of a monotonicity table (:func:`mono_taps`)."""
+    weights: np.ndarray   # (ncand, hb, wb, T) float32, d order, 0-padded
+    codes: np.ndarray     # (ncand, hb, wb) int32: count | d_t << 4 + 3t
+    centers: np.ndarray   # (ncand,) int32: flat index of the keep pixel
+    T: int
+
+
+def mono_taps(weights_table, keep_table, T=None):
+    """The compact form of monotonicity tables that the kernel reads: per
+    candidate and pixel, the nonzero weights in ``d`` order (up to ``T``,
+    zero-padded) and one int32 with their count (bits 0-3) and directions
+    (3 bits each from bit 4); per candidate, the flat index of its one
+    keep pixel.
+
+    weights_table (ncand, 8, hb, wb), keep_table (ncand, hb, wb), numpy.
+    ``T``: 4 or 8 (default: 4 where every pixel has at most 4 nonzero
+    taps, as the "angle", "flat" and "nearest" tables do).  Raises
+    ValueError for a pixel with more than ``T`` taps, or a candidate
+    without exactly one keep pixel."""
+    w = np.asarray(weights_table, np.float32)
+    keep = np.asarray(keep_table) > 0.5
+    ncand, _, hb, wb = w.shape
+    nz = w != 0
+    count = nz.sum(axis=1)
+    most = int(count.max()) if count.size else 0
+    if T is None:
+        T = 4 if most <= 4 else 8
+    if T not in (4, 8):
+        raise ValueError(f"mono_taps: T must be 4 or 8, got {T}")
+    if most > T:
+        raise ValueError(f"mono_taps: a pixel has {most} nonzero taps, "
+                         f"more than T={T}")
+    n_keep = keep.reshape(ncand, -1).sum(axis=1)
+    if keep.shape != (ncand, hb, wb) or (n_keep != 1).any():
+        raise ValueError("mono_taps: each candidate needs exactly one keep "
+                         f"pixel (counts {n_keep.tolist()})")
+    taps = np.zeros((ncand, hb, wb, T), np.float32)
+    codes = count.astype(np.int64)
+    slot = np.cumsum(nz, axis=1) - 1          # tap index of each nonzero d
+    for d in range(8):
+        for t in range(T):
+            sel = nz[:, d] & (slot[:, d] == t)
+            taps[..., t][sel] = w[:, d][sel]
+            codes[sel] |= d << (4 + 3 * t)
+    centers = keep.reshape(ncand, -1).argmax(axis=1).astype(np.int32)
+    return MonoTaps(taps, codes.astype(np.int32), centers, T)
+
+
+def monotonic_prox_taps_plain(morphs, idx, taps, n_iter, min_gradient=0.0,
+                              tol=0.0):
+    """:func:`monotonic_prox_plain` on the compact table ``taps``
+    (:class:`MonoTaps`, numpy or tensors): each pass sums only a pixel's
+    nonzero taps, in ``d`` order, as the kernel does.  Equal to
+    :func:`monotonic_prox_plain` bit for bit for finite morphologies."""
+    dev = morphs.device
+    idx = idx.long()
+    w = torch.as_tensor(taps.weights, device=dev)[idx]    # (..., hb, wb, T)
+    codes = torch.as_tensor(taps.codes, device=dev)[idx].long()
+    cen = torch.as_tensor(taps.centers, device=dev)[idx].long()
+    hb, wb = morphs.shape[-2:]
+    keep = torch.arange(hb * wb, device=dev).reshape(hb, wb) \
+        == cen[..., None, None]
+    count = codes & 15
+    dirs = [(codes >> (4 + 3 * t)) & 7 for t in range(taps.T)]
+    scale = 1.0 - min_gradient
+
+    def one_pass(x):
+        nb = torch.stack([shift_zero(x, dy, dx)
+                          for dy, dx in NEIGHBOR_OFFSETS], dim=-1)
+        ref = torch.zeros_like(x)
+        for t, d in enumerate(dirs):
+            term = w[..., t] * nb.gather(-1, d[..., None])[..., 0]
+            ref = torch.where(t < count, ref + term, ref)
+        return torch.where(keep, morphs, torch.minimum(morphs, ref * scale))
+
+    return _mono_blocks(morphs, n_iter, tol, one_pass)
+
+
+# thread slots per pixel strip that the kernels are built for (csrc/mono.cu)
+MONO_SLOTS = (4, 8, 12)
+MONO_MAX_THREADS = 512
+SMEM_LIMIT = 232448       # bytes of shared memory a block can use (H100)
+
+
+class MonoGeometry(NamedTuple):
+    """How a projection block covers one (hb, wb) morphology: in the
+    frame (the box, transposed when it is wider than tall) the block's
+    thread ``i`` takes column ``i % W`` and, for ``i // W < ny``, rows
+    ``i // W + j * ny`` for ``j < P``, those below H."""
+    transposed: bool
+    H: int            # frame rows
+    W: int            # frame columns (at most 73)
+    ny: int           # row strips
+    P: int            # slots per thread (a kernel template parameter)
+    threads: int      # a whole number of warps, at most MONO_MAX_THREADS
+    smem: int         # bytes: zero-bordered cur and next, and x0
+
+
+def mono_geometry(hb, wb):
+    """The launch geometry of the projection kernels for an (hb, wb)
+    box; raises ValueError for a box they cannot take."""
+    tr = wb > hb
+    H, W = (wb, hb) if tr else (hb, wb)
+    smem = 3 * (H + 2) * (W + 2) * 4
+    for P in MONO_SLOTS:
+        ny = -(-H // P)
+        threads = -(-W * ny // 32) * 32
+        if threads <= MONO_MAX_THREADS and smem <= SMEM_LIMIT:
+            return MonoGeometry(tr, H, W, ny, P, threads, smem)
+    raise ValueError(f"box ({hb}, {wb}) does not fit the projection "
+                     f"kernels ({MONO_MAX_THREADS} threads of at most "
+                     f"{MONO_SLOTS[-1]} pixels, {smem} B of shared memory)")
+
+
+# device copies of the compact tables, per table tensor (built once)
+_TAPS = {}
+
+
+def _device_taps(weights_table, keep_table):
+    """:func:`mono_taps` of two table tensors, on their device: built on
+    the host the first time a table is seen (one device-to-host copy),
+    then kept while the table tensor lives and is not written to."""
+    key = (id(weights_table), id(keep_table))
+    version = (weights_table._version, keep_table._version)
+    hit = _TAPS.get(key)
+    if hit is not None and hit[0]() is weights_table \
+            and hit[1]() is keep_table and hit[2] == version:
+        return hit[3]
+    taps = mono_taps(weights_table.cpu().numpy(), keep_table.cpu().numpy())
+    dev = weights_table.device
+    on_dev = MonoTaps(*(torch.from_numpy(a).to(dev) for a in taps[:3]),
+                      taps.T)
+    _TAPS[key] = (weakref.ref(weights_table), weakref.ref(keep_table),
+                  version, on_dev)
+    weakref.finalize(weights_table, _TAPS.pop, key, None)
+    return on_dev
 
 
 def monotonic_prox(morphs, idx, weights_table, keep_table, n_iter,
@@ -162,6 +324,11 @@ def monotonic_prox(morphs, idx, weights_table, keep_table, n_iter,
     Exits per morphology (the TPU kernel exits per group of lane-packed
     morphologies; the two agree exactly at ``tol == 0`` and with a group
     of one at ``tol > 0``).
+
+    On the card the kernel reads the tables' nonzero taps
+    (:func:`mono_taps`, built on the host once per table tensor), so each
+    candidate needs exactly one keep pixel, and a neighbour with weight 0
+    is never read (inf/NaN: :func:`monotonic_prox_plain`).
     """
     if _is_cpu(morphs, idx, weights_table, keep_table):
         return monotonic_prox_plain(morphs, idx, weights_table, keep_table,
@@ -213,8 +380,8 @@ def monotonic_prox_packed(packed, idx, weights_table, keep_table, wb,
 
 
 def _tables_lib(name, weights_table, keep_table, hb, wb):
-    """Check the monotonicity tables and the box's shared memory; returns
-    (library, ncand)."""
+    """Check the monotonicity tables and the box; returns (library,
+    ncand, the tables' taps on the device, the launch geometry)."""
     _f32(name, weights_table, "weights_table")
     _f32(name, keep_table, "keep_table")
     ncand = weights_table.shape[0]
@@ -223,36 +390,67 @@ def _tables_lib(name, weights_table, keep_table, hb, wb):
         raise ValueError(f"{name}: tables {tuple(weights_table.shape)}, "
                          f"{tuple(keep_table.shape)} do not fit box "
                          f"({hb}, {wb})")
-    lib = build.load()
-    smem = lib.scarlet_mono_smem_bytes(hb, wb)
-    if smem > 232448:
-        raise ValueError(f"{name}: box ({hb}, {wb}) needs {smem} B of "
-                         "shared memory, more than 227 KB")
-    return lib, ncand
+    try:
+        geom = mono_geometry(hb, wb)
+    except ValueError as e:
+        raise ValueError(f"{name}: {e}") from None
+    taps = _device_taps(weights_table, keep_table)
+    return build.load(), ncand, taps, geom
+
+
+def _taps_args(taps, geom):
+    """The kernel arguments that carry the compact tables and the
+    geometry, after the table pointers' place in each entry point."""
+    return ((taps.weights.data_ptr(), taps.codes.data_ptr(),
+             taps.centers.data_ptr()),
+            (taps.T, geom.P, geom.ny, int(geom.transposed), geom.threads))
 
 
 def _mono_launch(name, x, idx, weights_table, keep_table, K, hb, wb, strides,
                  n_iter, min_gradient, tol):
     _require_cuda(name, x, idx, weights_table, keep_table)
-    lib, ncand = _tables_lib(name, weights_table, keep_table, hb, wb)
+    lib, ncand, taps, geom = _tables_lib(name, weights_table, keep_table,
+                                         hb, wb)
     idx32 = idx.to(torch.int32).contiguous()
     B = x.numel() // (K * hb * wb)
     out = torch.empty_like(x)
     if B * K == 0:
         return out
+    tables, launch = _taps_args(taps, geom)
     with torch.cuda.device(x.device):
         err = lib.scarlet_mono_prox(
-            x.data_ptr(), out.data_ptr(), idx32.data_ptr(),
-            weights_table.data_ptr(), keep_table.data_ptr(), ncand, B, K,
-            hb, wb,
-            *strides, int(n_iter), 1.0 - float(min_gradient), float(tol),
-            _stream(x))
+            x.data_ptr(), out.data_ptr(), idx32.data_ptr(), *tables, ncand,
+            B, K, hb, wb, *strides, int(n_iter), 1.0 - float(min_gradient),
+            float(tol), *launch, _stream(x))
     _check(name, err)
     monotonic_prox.launches += 1
     return out
 
 
 monotonic_prox.launches = 0
+
+_MONO_KERNELS = ("monotonic_prox", "prox_chain", "fused_morph_update")
+
+
+def mono_kernel_info(hb, wb, T=4):
+    """What the compiler made of the projection kernels for an (hb, wb)
+    box (card only): per wrapper, the instantiation's registers per
+    thread, local-memory (spill) bytes per thread, threads, dynamic shared
+    bytes and the blocks resident per SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    import ctypes
+
+    geom = mono_geometry(hb, wb)
+    lib = build.load()
+    out = {}
+    for which, name in enumerate(_MONO_KERNELS):
+        vals = (ctypes.c_int * 3)()
+        _check(name, lib.scarlet_mono_kernel_info(
+            which, T, geom.P, geom.threads, geom.smem, vals))
+        out[name] = dict(registers=vals[0], spill_bytes=vals[1],
+                         blocks_per_sm=vals[2], threads=geom.threads,
+                         smem_bytes=geom.smem, T=T, P=geom.P)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -323,7 +521,8 @@ def prox_chain(x_orig, stepped, idx, weights_table, keep_table, thr, gate,
                          f"thr {tuple(thr.shape)}, gate {tuple(gate.shape)}")
     _f32(name, x_orig, "x_orig")
     _f32(name, stepped, "stepped")
-    lib, ncand = _tables_lib(name, weights_table, keep_table, hb, wb)
+    lib, ncand, taps, geom = _tables_lib(name, weights_table, keep_table,
+                                         hb, wb)
     idx32 = idx.to(torch.int32).contiguous()
     thr32 = thr.to(torch.float32).contiguous()
     gate8 = gate.to(torch.bool).contiguous()
@@ -331,13 +530,13 @@ def prox_chain(x_orig, stepped, idx, weights_table, keep_table, thr, gate,
     N = stepped.numel() // (hb * wb) if hb * wb else 0
     if N == 0:
         return out
+    tables, launch = _taps_args(taps, geom)
     with torch.cuda.device(stepped.device):
         err = lib.scarlet_prox_chain(
             x_orig.data_ptr(), stepped.data_ptr(), out.data_ptr(),
-            idx32.data_ptr(), thr32.data_ptr(), gate8.data_ptr(),
-            weights_table.data_ptr(), keep_table.data_ptr(), ncand, N, hb,
-            wb, int(n_iter), 1.0 - float(min_gradient), float(floor),
-            float(tol), _stream(stepped))
+            idx32.data_ptr(), thr32.data_ptr(), gate8.data_ptr(), *tables,
+            ncand, N, hb, wb, int(n_iter), 1.0 - float(min_gradient),
+            float(floor), float(tol), *launch, _stream(stepped))
     _check(name, err)
     prox_chain.launches += 1
     return out
@@ -416,7 +615,8 @@ def fused_morph_update(morphs, grads, opt, gate, weights_table, keep_table,
                          f"{tuple(damp_step.shape)} do not fit morphs "
                          f"{tuple(morphs.shape)}")
     r = int(fit_center_radius)
-    lib, ncand = _tables_lib(name, weights_table, keep_table, hb, wb)
+    lib, ncand, taps, geom = _tables_lib(name, weights_table, keep_table,
+                                         hb, wb)
     if ncand != (2 * r + 1) ** 2 or not 0 <= r <= min(hb, wb) // 2:
         raise ValueError(f"{name}: {ncand} tables for radius {r}")
     thr32 = thr.to(torch.float32).contiguous()
@@ -427,14 +627,15 @@ def fused_morph_update(morphs, grads, opt, gate, weights_table, keep_table,
     if B * K == 0:
         return outs[0], AdaproxState(*outs[1:])
     bm = 0 if box_masks is None else box_masks.data_ptr()
+    tables, launch = _taps_args(taps, geom)
     with torch.cuda.device(morphs.device):
         err = lib.scarlet_fused_morph(
             morphs.data_ptr(), grads.data_ptr(), opt.m.data_ptr(),
             opt.v.data_ptr(), opt.vhat.data_ptr(), bm, thr32.data_ptr(),
-            gate8.data_ptr(), ds.data_ptr(), weights_table.data_ptr(),
-            keep_table.data_ptr(), ncand, B, K, hb, wb, int(n_iter),
-            1.0 - float(min_gradient), r, 1.0 - b1, b1, 1.0 - b2, b2,
-            eps, floor, *(o.data_ptr() for o in outs), _stream(morphs))
+            gate8.data_ptr(), ds.data_ptr(), *tables, ncand, B, K, hb, wb,
+            int(n_iter), 1.0 - float(min_gradient), r, 1.0 - b1, b1,
+            1.0 - b2, b2, eps, floor, *(o.data_ptr() for o in outs),
+            *launch, _stream(morphs))
     _check(name, err)
     fused_morph_update.launches += 1
     return outs[0], AdaproxState(*outs[1:])

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..device import default_device
 from ..lite import engine
 from ..ops import fft as fft_ops
 from ..ops import kernels
@@ -375,7 +376,8 @@ def stream_setup(images, variance, psfs, centers, model_psf, weights=None,
     ``scene_valid / max(variance, 1e-12)``; non-finite pixels are zeroed
     out of images and weights.  ``box_size`` (odd) and ``n_slots`` set
     the shared layout.  ``device``: where the program runs (default: the
-    images' device, the CPU for numpy inputs).
+    images' device, the CUDA card for numpy inputs; ``"cpu"`` for the
+    host).
 
     The config follows the JAX package's by device: on CUDA the
     accelerator branches (``use_pallas``, ``use_pallas_scene``,
@@ -403,9 +405,7 @@ def stream_setup(images, variance, psfs, centers, model_psf, weights=None,
     S = int(box_size)
     if S % 2 == 0:
         raise ValueError(f"box_size must be odd, got {S}")
-    if device is None:
-        device = images.device if isinstance(images, torch.Tensor) else "cpu"
-    device = torch.device(device)
+    device = default_device(device, images)
     engine.pin_float32(device)
     cuda = device.type == "cuda"
 
@@ -467,9 +467,15 @@ def stream_setup(images, variance, psfs, centers, model_psf, weights=None,
     def dev_t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
+    # the tables are uploaded once per box and device, not per chunk
+    w8, keep_c = engine.shared_tensors("stream_mono_center", S, (w8, keep_c),
+                                       device)
+    mono_w, mono_keep = engine.shared_tensors(
+        "monotonicity_tables_float32", ((S, S), 1, "angle"),
+        (mono_w.astype(np.float32), mono_keep.astype(np.float32)), device)
     data_l, state_l, aux = _init_batch(
         images, variance, psfs, centers, center_active, model_psf,
-        scene_valid, dev_t(w8), dev_t(keep_c), S=S, n_slots=int(n_slots),
+        scene_valid, w8, keep_c, S=S, n_slots=int(n_slots),
         fft_shape=tuple(fft_shape), match_shape=match_shape,
         psf_fft_shape=psf_fft_shape, mono_iter=depth, min_snr=float(min_snr),
         thresh=float(thresh), percentile=float(percentile))
@@ -482,8 +488,8 @@ def stream_setup(images, variance, psfs, centers, model_psf, weights=None,
         kernel_rfft=data_l["kernel_rfft"],
         grad_kernel_rfft=data_l["grad_kernel_rfft"],
         bg_rms=data_l["bg_rms"], sed_step_min=data_l["sed_step_min"],
-        mono_weights=(dev_t(mono_w.astype(np.float32)),),
-        mono_keep=(dev_t(mono_keep.astype(np.float32)),),
+        mono_weights=(mono_w,),
+        mono_keep=(mono_keep,),
         box_masks=(data_l["box_masks"],),
         scene_mask=scene_valid if has_valid else None)
     zero_sed = torch.zeros_like(state_l["seds"])
@@ -652,14 +658,6 @@ def stream_records(state, losses, aux, data=None, config=None,
 # ---------------------------------------------------------------------------
 # The one-call stream
 # ---------------------------------------------------------------------------
-def _default_device(images, device):
-    if device is not None:
-        return torch.device(device)
-    if isinstance(images, torch.Tensor):
-        return images.device
-    return torch.device("cpu")
-
-
 def deblend_device_stream(images, variance, psfs, centers, model_psf,
                           weights=None, center_active=None, scene_valid=None,
                           *, box_size, n_slots, max_iter=100, check_every=25,
@@ -702,7 +700,7 @@ def deblend_device_stream(images, variance, psfs, centers, model_psf,
             "upload='auto' (the bandwidth probe) is not ported")
     if upload not in ("bulk", "overlap"):
         raise ValueError(f"unknown upload mode {upload!r}")
-    device = _default_device(images, device)
+    device = default_device(device, images)
     if redetect:
         return _deblend_redetect(
             images, variance, psfs, centers, model_psf, weights,

@@ -28,7 +28,8 @@ def cuda():
 
 
 def _tables(box=BOX):
-    w, keep, n_iter = engine.monotonicity_tables((box, box), 1, "angle")
+    box = (box, box) if isinstance(box, int) else box
+    w, keep, n_iter = engine.monotonicity_tables(box, 1, "angle")
     return (torch.from_numpy(w.astype(np.float32)),
             torch.from_numpy(keep.astype(np.float32)), n_iter)
 
@@ -50,31 +51,51 @@ def _morphs(B, K, box=BOX, seed=0):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("depth", ["4", "full"])
 @pytest.mark.parametrize("tol", [0.0, 1e-3])
-def test_monotonic_prox_matches_plain(cuda, tol):
-    w, keep, n_iter = _tables()
-    m, idx = _morphs(2, 16)
+@pytest.mark.parametrize("box", [21, 41, 59, 69])
+def test_monotonic_prox_matches_plain(cuda, box, tol, depth):
+    """K1 and its packed layout (K2) bit for bit against the plain
+    version, at 4 passes and at the box's full depth."""
+    w, keep, n_iter = _tables(box)
+    n_iter = 4 if depth == "4" else n_iter
+    m, idx = _morphs(2, 16, box)
     args = [x.to(cuda) for x in (m, idx, w, keep)]
     before = kn.monotonic_prox.launches
     got = kn.monotonic_prox(*args, n_iter, tol=tol)
     assert kn.monotonic_prox.launches == before + 1
     assert torch.equal(got, kn.monotonic_prox_plain(*args, n_iter, tol=tol))
-    packed = args[0].transpose(-3, -2).reshape(2, BOX, 16 * BOX).contiguous()
-    got_p = kn.monotonic_prox_packed(packed, *args[1:], BOX, n_iter,
+    packed = args[0].transpose(-3, -2).reshape(2, box, 16 * box).contiguous()
+    got_p = kn.monotonic_prox_packed(packed, *args[1:], box, n_iter,
                                      tol=tol)
     assert torch.equal(got_p, kn.monotonic_prox_packed_plain(
-        packed, *args[1:], BOX, n_iter, tol=tol))
-    assert torch.equal(got_p.reshape(2, BOX, 16, BOX).transpose(-3, -2),
+        packed, *args[1:], box, n_iter, tol=tol))
+    assert torch.equal(got_p.reshape(2, box, 16, box).transpose(-3, -2),
                        got)
 
 
-def _chain_inputs(cuda, B=3, K=16, seed=2):
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(21, 31), (31, 21), (9, 200)])
+def test_monotonic_prox_non_square_matches_plain(cuda, shape):
+    """Boxes wider than tall run on the transposed frame."""
+    hb, wb = shape
+    w, keep, n_iter = _tables(shape)
+    rng = np.random.default_rng(5)
+    m = torch.from_numpy(rng.uniform(size=(3, 4, hb, wb)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(0, 9, (3, 4)))
+    args = [x.to(cuda) for x in (m, idx, w, keep)]
+    for tol in (0.0, 1e-3):
+        assert torch.equal(kn.monotonic_prox(*args, n_iter, tol=tol),
+                           kn.monotonic_prox_plain(*args, n_iter, tol=tol))
+
+
+def _chain_inputs(cuda, B=3, K=16, seed=2, box=BOX):
     """Stepped morphs, moments and per-slot rows for K5/K6: some gates
     off, nonzero thresholds, an argmax tie, box masks cutting columns,
     blend 0 at its first iteration."""
     rng = np.random.default_rng(seed)
-    m, _ = _morphs(B, K, seed=seed)
-    shape = (B, K, BOX, BOX)
+    m, _ = _morphs(B, K, box, seed=seed)
+    shape = (B, K, box, box)
     g = torch.from_numpy((0.1 * rng.normal(size=shape)).astype(np.float32))
     mom = [torch.from_numpy((0.05 * rng.normal(size=shape)).astype(
         np.float32))] + [torch.from_numpy((0.01 * rng.uniform(
@@ -91,11 +112,12 @@ def _chain_inputs(cuda, B=3, K=16, seed=2):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("box", [21, 59, 69])
 @pytest.mark.parametrize("tol", [0.0, 1e-3])
-def test_prox_chain_matches_plain(cuda, tol):
+def test_prox_chain_matches_plain(cuda, tol, box):
     w, keep, n_iter = (x.to(cuda) if torch.is_tensor(x) else x
-                       for x in _tables())
-    m, g, _, _, _, bm, gate, thr, _ = _chain_inputs(cuda)
+                       for x in _tables(box))
+    m, g, _, _, _, bm, gate, thr, _ = _chain_inputs(cuda, box=box)
     stepped = (m + g) * bm
     idx = kn.candidate_index(stepped, 1)
     before = kn.prox_chain.launches
@@ -107,10 +129,11 @@ def test_prox_chain_matches_plain(cuda, tol):
 
 
 @pytest.mark.cuda
-def test_fused_morph_update_matches_plain(cuda):
+@pytest.mark.parametrize("box", [21, 59, 69])
+def test_fused_morph_update_matches_plain(cuda, box):
     w, keep, n_iter = (x.to(cuda) if torch.is_tensor(x) else x
-                       for x in _tables())
-    m, g, m1, v, vh, bm, gate, thr, ds = _chain_inputs(cuda)
+                       for x in _tables(box))
+    m, g, m1, v, vh, bm, gate, thr, ds = _chain_inputs(cuda, box=box)
     opt = engine.AdaproxState(m1, v, vh)
     before = kn.fused_morph_update.launches
     for masks in (bm, None):

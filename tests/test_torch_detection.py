@@ -353,7 +353,7 @@ def test_stream_setup_detects_like_jax():
     args = (inp["images"], inp["variance"], inp["psfs"], None, MODEL_PSF)
     kw = dict(box_size=BOX, n_slots=12, max_peaks=10)
     _, dj, sj, aj = jstream.stream_setup(*args, platform="cpu", **kw)
-    _, dt, st, at = tstream.stream_setup(*args, **kw)
+    _, dt, st, at = tstream.stream_setup(*args, device="cpu", **kw)
     # the catalogs stand under a 1e-7 perturbation of the images
     pert = jstream.stream_setup(_perturbed(inp["images"]), *args[1:],
                                 platform="cpu", **kw)[3]
@@ -372,7 +372,7 @@ def test_stream_setup_detects_like_jax():
                     rtol=1e-4, atol=1e-4)
     with pytest.raises(ValueError, match="center_active"):
         tstream.stream_setup(*args, center_active=np.ones((3, 4), bool),
-                             **kw)
+                             device="cpu", **kw)
 
 
 def test_union_catalogs_matches_jax():
@@ -424,7 +424,8 @@ def test_redetect_matches_jax(crowded):
         _perturbed(crowded["images"]), crowded["variance"], *args,
         **REDETECT)
     rec_t, _, _, aux_t = tstream.deblend_device_stream(
-        crowded["images"], crowded["variance"], *args, **REDETECT)
+        crowded["images"], crowded["variance"], *args, device="cpu",
+        **REDETECT)
     cj, aj = _catalogs(aux_j)
     cp, ap = _catalogs(aux_p)
     ct, at = _catalogs(aux_t)
@@ -446,11 +447,12 @@ def test_redetect_chunked_and_compacted(crowded):
     add sources to the first pass's catalog."""
     args = (crowded["images"], crowded["variance"], crowded["psfs"], None,
             MODEL_PSF)
-    rec, _, _, aux = tstream.deblend_device_stream(*args, **REDETECT)
+    rec, _, _, aux = tstream.deblend_device_stream(*args, device="cpu",
+                                                   **REDETECT)
     cat = _catalogs(aux)
     for kw in (dict(chunk=2), dict(chunk=2, compact=10)):
         rec_c, _, _, aux_c = tstream.deblend_device_stream(
-            *args, **REDETECT, **kw)
+            *args, device="cpu", **REDETECT, **kw)
         assert isinstance(aux_c, list) == ("compact" not in kw)
         for a, b in zip(_catalogs(aux_c), cat):
             assert_array_equal(a, b)
@@ -458,7 +460,7 @@ def test_redetect_chunked_and_compacted(crowded):
             assert a["iterations"] == b["iterations"]
             assert_allclose(a["logL"], b["logL"], rtol=1e-6)
     _, _, _, aux0 = tstream.deblend_device_stream(
-        *args, **dict(REDETECT, redetect=0))
+        *args, device="cpu", **dict(REDETECT, redetect=0))
     n0, n1 = _catalogs(aux0)[1].sum(1), cat[1].sum(1)
     assert (n0 <= n1).all() and n0.sum() < n1.sum()
 
@@ -472,7 +474,8 @@ def test_retry_overflow_with_detected_catalog(crowded):
     kw = dict(box_size=BOX, n_slots=6, max_peaks=12, max_iter=20,
               check_every=10, retry_overflow=True)
     rec_j, _, _, aux_j = jstream.deblend_device_stream(*args, **kw)
-    rec_t, _, _, aux_t = tstream.deblend_device_stream(*args, **kw)
+    rec_t, _, _, aux_t = tstream.deblend_device_stream(*args, device="cpu",
+                                                       **kw)
     assert isinstance(aux_t, list) and "retry_indices" in aux_t[-1]
     ri = aux_t[-1]["retry_indices"]
     assert ri.size and (ri == aux_j[-1]["retry_indices"]).all()

@@ -25,7 +25,7 @@ from scarlet_tpu_torch.parallel import batch as tbatch
 
 def _port(config, data, state):
     return convert.from_jax(dataclasses.asdict(config), jax.device_get(data),
-                            jax.device_get(state))
+                            jax.device_get(state), device="cpu")
 
 
 def _assert_states_close(out_t, out_j, rtol=1e-5, atol=1e-5):
@@ -100,7 +100,8 @@ def test_make_blend_data_matches_jax():
     diff = np.asarray(jfft.match_psf(
         *graft_psfs(), return_fourier=False))
     tdata = teng.make_blend_data(images, np.asarray(data.weights), diff,
-                                 np.full(3, 0.1, np.float32), config)
+                                 np.full(3, 0.1, np.float32), config,
+                                 device="cpu")
     jdata = jeng.make_blend_data(images, np.asarray(data.weights), diff,
                                  np.full(3, 0.1, np.float32), config)
     k = np.asarray(jdata.kernel_rfft)

@@ -151,7 +151,7 @@ def test_fused_plain_is_the_unfused_chain():
 
 def _port(config, data, state):
     return convert.from_jax(dataclasses.asdict(config), jax.device_get(data),
-                            jax.device_get(state))
+                            jax.device_get(state), device="cpu")
 
 
 @pytest.mark.parametrize("extra", [

@@ -27,7 +27,8 @@ def _blend(lite, d, noise_rms=None):
         np.float32)
     obs = lite.LiteObservation(d["images"], d["variance"], weights,
                                d["psfs"], model_psf=model_psf,
-                               noise_rms=noise_rms)
+                               noise_rms=noise_rms,
+                               **({"device": "cpu"} if lite is tlite else {}))
     centers = [(int(np.round(r["y"])), int(np.round(r["x"])))
                for r in d["catalog"]]
     sources = lite.init_all_sources_main(obs, centers, min_snr=50)

@@ -72,7 +72,7 @@ def _setups(inp, **kw):
             MODEL_PSF)
     kw = dict(center_active=inp["active"], box_size=BOX, **kw)
     return (jstream.stream_setup(*args, platform="cpu", **kw),
-            tstream.stream_setup(*args, **kw))
+            tstream.stream_setup(*args, device="cpu", **kw))
 
 
 DISCRETE = ("n_active", "overflow", "slot_source", "split", "psf_fallback")
@@ -143,7 +143,8 @@ def test_deblend_stream_matches_jax(het):
               max_iter=40, check_every=10, chunk=2, compact=20,
               retry_overflow=True)
     rec_j = jstream.deblend_device_stream(*args, **kw)[0]
-    rec_t, state, losses, aux = tstream.deblend_device_stream(*args, **kw)
+    rec_t, state, losses, aux = tstream.deblend_device_stream(
+        *args, device="cpu", **kw)
     assert len(rec_t) == len(rec_j) == len(SEEDS)
     assert [r.get("overflow_retried", False) for r in rec_t] == \
         [r.get("overflow_retried", False) for r in rec_j]
@@ -208,7 +209,7 @@ def test_stream_records_reweight_matches_jax(het):
         platform="cpu")
     sj, lj = jbatch.fit_batch(sj, dj, cj, 5)
     cfg, d, s = convert.from_jax(dataclasses.asdict(cj), jax.device_get(dj),
-                                 jax.device_get(sj))
+                                 jax.device_get(sj), device="cpu")
     aux = {k: torch.from_numpy(np.array(v)) for k, v in aj.items()}
     losses = torch.from_numpy(np.array(lj, np.float32))
     rj = jstream.stream_records(sj, lj, aj)
@@ -244,7 +245,7 @@ def test_dispatch_collect_equals_converged(het):
     config, data, state, _ = tstream.stream_setup(
         het["images"][:2], het["variance"][:2], het["psfs"][:2],
         het["centers"][:2], MODEL_PSF, center_active=het["active"][:2],
-        box_size=BOX, n_slots=12)
+        box_size=BOX, n_slots=12, device="cpu")
     handle = tbatch.fit_batch_device_dispatch(state, data, config, 12,
                                               check_every=5)
     out, losses = tbatch.fit_batch_device_collect(handle, 12)
@@ -264,7 +265,7 @@ def test_unported_stream_options_raise(het, option):
     """Device detection (``centers=None``) and ``redetect`` are ported:
     tests/test_torch_detection.py."""
     kw = dict(center_active=het["active"][:1], box_size=BOX, n_slots=12,
-              max_iter=2)
+              max_iter=2, device="cpu")
     with pytest.raises(NotImplementedError):
         tstream.deblend_device_stream(
             het["images"][:1], het["variance"][:1], het["psfs"][:1],
