@@ -7,23 +7,30 @@ Run from the repository root, with one CUDA card:
 
 1. Builds the CUDA kernels of ``scarlet_tpu_torch/ops/csrc`` with nvcc
    (one compiler process per source, all at once), prints each kernel's
-   registers and spills, and the projection kernels' resident blocks per
-   SM at box 59.
+   registers and spills, the projection kernels' resident blocks per SM
+   at box 59, and K3's and K4's registers, spill, shared bytes, blocks
+   per SM and grid at the host path's shapes (K4 also at the gradient
+   padded by the scene pad, its direct route).
 2. Holds K1-K4 against their plain PyTorch versions on the card at the
    host path's shapes (128 blends x 16 components, box 59, 5 bands,
    58 x 48 scenes, with negative origins and an argmax tie), and times
-   both with CUDA events.
+   both with CUDA events.  K4 runs as the fit calls it (the unpadded
+   gradient, a strided crop, pad 0: the staged route), contiguous, and
+   padded (the direct route), each held bit for bit in g_morph, to
+   GRAD_SED_RTOL in g_sed, and bit for bit across two launches.
 3. Drives the host path: 128 generated blends (fixed seed), host
    initialization, one ``LiteBlend.fit`` on the card, then ``pack_blends``
    and ``fit_batch_device_converged`` for all 128; checks the results,
    that its kernels were launched, and that 4 blends refitted on the CPU
    (plain versions) end at the same logL.  Profiles 20 iterations and
-   counts the passes of their K1 launches.
+   counts the passes of their K1 launches; prints K1's, K3's, K4's and
+   the padding ops' device time per iteration.
 4. The device stream: 256 generated heterogeneous blends (the JAX
    bench's het cell: ``default_rng(42)``, box 59, 16 slots, cap 100,
    check every 25, chunks of 128, compaction at 50, overflow retry, bulk
-   upload).  Holds K5 and K6 against their plain versions at the stream's
-   shapes; runs ``deblend_device_stream`` once to warm up, then three
+   upload).  Holds K5 and K6, and K3 and K4 (K4 strided, contiguous and
+   padded by the stream's pad), against their plain versions at the
+   stream's shapes; runs ``deblend_device_stream`` once to warm up, then three
    times from host and three times from device-resident inputs; checks
    the records and that K1, K3 and K4 were launched; reruns 4 blends on
    the CPU (same discrete init decisions, same final logL); and fits
@@ -199,13 +206,137 @@ def time_ms(fn, reps):
     return float(np.median(times))
 
 
+def device_ms(fn, key, reps=20):
+    """Median device time in ms of the kernels whose name holds ``key``
+    over ``reps`` runs of ``fn`` (``torch.profiler``), after a warm-up run:
+    the kernel's own time, without the host's launch gaps that CUDA events
+    around a call of a few tens of microseconds also count."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):     # the profiler has come back empty-handed once
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        times = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and key in e.name]
+        if times:
+            return float(np.median(times)) / 1e3
+    raise AssertionError(f"the profiler recorded no {key} launch")
+
+
+def in_scene_pixels(origins, on, hb, wb, H, W):
+    """Pixels of the active boxes that lie inside the (H, W) scene."""
+    import torch
+
+    oy, ox = origins[..., 0].long(), origins[..., 1].long()
+    rows = (torch.clamp(oy + hb, max=H) - torch.clamp(oy, min=0)).clamp_min(0)
+    cols = (torch.clamp(ox + wb, max=W) - torch.clamp(ox, min=0)).clamp_min(0)
+    return int((rows * cols * on).sum())
+
+
+def strided_gradient(B, C, H, W, fft_shape, dev):
+    """A seeded (B, C, H, W) gradient that is the centered crop of a
+    ``fft_shape`` array, as the engine's inverse FFT returns it."""
+    import torch
+    from scarlet_tpu_torch.ops import fft
+
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    full = torch.randn(B, C, *fft_shape, generator=g).to(dev)
+    return fft.centered(full, (H, W), axes=(-2, -1))
+
+
+def scene_check(seds, m, origins, on, scene_shape, P):
+    """K3 against its plain version: bit for bit, timed (``ms`` the
+    kernel's device time, ``event_ms`` CUDA events around the call, as
+    the earlier runs timed it); the bound counts the output and the
+    in-scene pixels of the active boxes."""
+    from scarlet_tpu_torch.ops import kernels as kn
+
+    C, H, W = scene_shape
+    hb, wb = m.shape[-2:]
+    got = kn.scene_assembly(seds, m, origins, on, scene_shape, P)
+    ref = kn.scene_assembly_plain(seds, m, origins, on, scene_shape, P)
+    px = in_scene_pixels(origins, on, hb, wb, H, W)
+    # a multiply and an add per band and in-scene pixel of each active box
+    return dict(
+        **bound(nbytes(seds, origins, on, got) + 4 * px, 2.0 * C * px),
+        in_scene_active_pixels=px,
+        max_abs_err=float((got - ref).abs().max()), limit=0.0,
+        ms=device_ms(lambda: kn.scene_assembly(seds, m, origins, on,
+                                               scene_shape, P),
+                     "scene_kernel"),
+        event_ms=time_ms(lambda: kn.scene_assembly(seds, m, origins, on,
+                                                   scene_shape, P), 20),
+        plain_ms=time_ms(lambda: kn.scene_assembly_plain(
+            seds, m, origins, on, scene_shape, P), 5))
+
+
+def grad_check(grad, seds, m, origins, P):
+    """K4 against its plain version on the unpadded (strided) gradient
+    with pad 0, the same contiguous, and padded by P: g_morph bit for
+    bit, g_sed within GRAD_SED_RTOL of sum |g * morph| and the same bits
+    in two launches.  The main numbers are the strided call's (``ms`` its
+    device time, ``event_ms`` CUDA events around the call); the bound
+    counts the unpadded gradient, the morphs in and the g_morphs out."""
+    import torch.nn.functional as F
+    from scarlet_tpu_torch.ops import kernels as kn
+
+    B, C, H, W = grad.shape
+    K, hb, wb = m.shape[-3:]
+    calls = {"strided": (grad, 0), "contiguous": (grad.contiguous(), 0),
+             "padded": (F.pad(grad, (P,) * 4), P)}
+    runs = {}
+    for name, (g, p) in calls.items():
+        gs, gm = kn.grad_gather(g, seds, m, origins, p)
+        rs, rm = kn.grad_gather_plain(g, seds, m, origins, p)
+        scale = kn.grad_gather_plain(g.abs(), seds, m, origins, p)[0]
+        sed_err = float(((gs - rs).abs() / scale.clamp_min(1e-30)).max())
+        again = kn.grad_gather(g, seds, m, origins, p)
+        same = bool((again[0] == gs).all() and (again[1] == gm).all())
+        if sed_err > GRAD_SED_RTOL or not same:
+            raise AssertionError(
+                f"grad_gather ({name}) g_sed off by {sed_err:.3g} of sum "
+                f"|g*morph| (limit {GRAD_SED_RTOL}); repeat equal {same}")
+        runs[name] = dict(
+            grad_route="staged" if kn.grad_geometry(
+                B, K, C, *g.shape[-2:], hb, wb).staged
+            else "direct", pad=p,
+            g_morph_err=float((gm - rm).abs().max()),
+            g_sed_abs_err=float((gs - rs).abs().max()),
+            g_sed_rel_err=sed_err, repeat_bitwise=same,
+            ms=device_ms(lambda: kn.grad_gather(g, seds, m, origins, p),
+                         "grad_kernel"),
+            event_ms=time_ms(lambda: kn.grad_gather(g, seds, m, origins, p),
+                             20))
+        if name == "strided":
+            outs = (gs, gm)
+    main = runs["strided"]
+    return dict(
+        # g_sed and g_morph: a multiply and an add per band and pixel each
+        **bound(nbytes(grad, seds, m, origins, *outs),
+                4.0 * B * K * C * hb * wb),
+        max_abs_err=max(max(r["g_morph_err"], r["g_sed_abs_err"])
+                        for r in runs.values()),
+        limit=f"g_morph 0; g_sed {GRAD_SED_RTOL} x sum|g*morph|",
+        g_morph_err=max(r["g_morph_err"] for r in runs.values()),
+        g_sed_rel_err=max(r["g_sed_rel_err"] for r in runs.values()),
+        ms=main["ms"], event_ms=main["event_ms"],
+        grad_route=main["grad_route"],
+        plain_ms=time_ms(lambda: kn.grad_gather_plain(grad, seds, m,
+                                                      origins, 0), 5),
+        calls=runs)
+
+
 def kernel_phases(dev, card, setup):
     """Each kernel against its plain version on the card, on the main
     path's packed batch (its shapes, its morphologies, seds and origins,
     an argmax tie added).  Returns {name: {max_abs_err, limit, ms,
     plain_ms, ...}}."""
-    import torch
-    import torch.nn.functional as F
     from scarlet_tpu_torch.ops import kernels as kn
 
     config, data, state = setup
@@ -256,43 +387,15 @@ def kernel_phases(dev, card, setup):
     m = state.morphs[0]
     if int(origins.min()) >= 0:
         raise AssertionError("no negative origin in the scene phase")
-    got = kn.scene_assembly(seds, m, origins, on, (C, H, W), P)
-    ref = kn.scene_assembly_plain(seds, m, origins, on, (C, H, W), P)
     out["scene_assembly"] = dict(
-        # a multiply and an add per band and pixel of each active box
-        **bound(nbytes(seds, m, origins, on, got),
-                2.0 * float(on.sum()) * C * box * box),
-        max_abs_err=float((got - ref).abs().max()), limit=0.0,
-        ms=time_ms(lambda: kn.scene_assembly(seds, m, origins, on,
-                                             (C, H, W), P), 20),
-        plain_ms=time_ms(lambda: kn.scene_assembly_plain(
-            seds, m, origins, on, (C, H, W), P), 5),
-        shape=shape)
+        **scene_check(seds, m, origins, on, (C, H, W), P), shape=shape)
 
-    # --- K4: gradient gather from a padded scene gradient ---
-    g = torch.Generator(device="cpu").manual_seed(SEED)
-    gpad = F.pad(torch.randn(B, C, H, W, generator=g).to(dev), (P,) * 4)
-    gs, gm = kn.grad_gather(gpad, seds, m, origins, P)
-    rs, rm = kn.grad_gather_plain(gpad, seds, m, origins, P)
-    # g_sed: a block reduction, summed in another order than torch's sum
-    scale_s = kn.grad_gather_plain(gpad.abs(), seds, m, origins, P)[0]
-    sed_err = float(((gs - rs).abs() / scale_s.clamp_min(1e-30)).max())
-    if sed_err > GRAD_SED_RTOL:
-        raise AssertionError(f"grad_gather g_sed off by {sed_err:.3g} of "
-                             f"sum |g*morph| (limit {GRAD_SED_RTOL})")
-    out["grad_gather"] = dict(
-        # g_sed and g_morph: a multiply and an add per band and pixel each
-        **bound(nbytes(gpad, seds, m, origins, gs, gm),
-                4.0 * B * K * C * box * box),
-        max_abs_err=max(float((gm - rm).abs().max()),
-                        float((gs - rs).abs().max())),
-        limit=f"g_morph 0; g_sed {GRAD_SED_RTOL} x sum|g*morph|",
-        g_morph_err=float((gm - rm).abs().max()),
-        g_sed_rel_err=sed_err,
-        ms=time_ms(lambda: kn.grad_gather(gpad, seds, m, origins, P), 20),
-        plain_ms=time_ms(lambda: kn.grad_gather_plain(gpad, seds, m,
-                                                      origins, P), 5),
-        shape=shape)
+    # --- K4: gradient gather, as the fit calls it (the unpadded gradient,
+    # a strided crop of a larger array as the inverse FFT returns it, pad
+    # 0), then contiguous, then padded by P (the direct route) ---
+    grad = strided_gradient(B, C, H, W, config.fft_shape, dev)
+    out["grad_gather"] = dict(**grad_check(grad, seds, m, origins, P),
+                              shape=shape)
 
     for name, res in out.items():
         limit = res["limit"]
@@ -301,10 +404,44 @@ def kernel_phases(dev, card, setup):
         if err > (limit if isinstance(limit, float) else 0.0):
             raise AssertionError(f"{name}: kernel differs from its plain "
                                  f"version by {err}")
+        timing = f"{res['ms']:.4f} ms" if "event_ms" not in res else \
+            f"{res['ms']:.4f} ms device ({res['event_ms']:.4f} ms events)"
         log(f"kernel {name}: max_abs_err {res['max_abs_err']:.3g} (limit "
-            f"{limit}), kernel {res['ms']:.4f} ms, plain "
-            f"{res['plain_ms']:.4f} ms [{res['shape']}] on {card}")
+            f"{limit}), kernel {timing}, plain {res['plain_ms']:.4f} ms "
+            f"[{res['shape']}] on {card}")
+    log_grad_calls(out["grad_gather"], card)
     return out
+
+
+def log_grad_calls(res, card):
+    """K4's calls, one line each; both routes must have run."""
+    for name, r in res["calls"].items():
+        log(f"  grad_gather {name} (pad {r['pad']}, {r['grad_route']} "
+            f"route): g_morph err {r['g_morph_err']:.3g}, g_sed rel err "
+            f"{r['g_sed_rel_err']:.3g}, two launches bitwise "
+            f"{r['repeat_bitwise']}, {r['ms']:.4f} ms device "
+            f"({r['event_ms']:.4f} ms events) on {card}")
+    routes = {r["grad_route"] for r in res["calls"].values()}
+    if routes != {"staged", "direct"}:
+        raise AssertionError(f"grad_gather ran the routes {routes} only")
+
+
+def log_gather_info(B, K, C, H, W, hb, wb, P, card):
+    """K3's and K4's registers, spill, shared bytes and blocks per SM at
+    the fit's shapes, and K4's at the gradient padded by P."""
+    from scarlet_tpu_torch.ops import kernels as kn
+
+    for hw, pad in (((H, W), 0), ((H + 2 * P, W + 2 * P), P)):
+        for name, i in kn.gather_kernel_info(B, K, C, *hw, hb, wb).items():
+            if name == "scene_assembly" and pad:
+                continue
+            route = f", {i['route']} route, G={i['G']}" \
+                if "route" in i else f", XV={i['XV']}"
+            log(f"{name} at B={B} K={K} C={C} {hw[0]}x{hw[1]} (pad {pad})"
+                f"{route}: grid {tuple(i['grid'])}, {i['threads']} threads,"
+                f" {i['registers']} registers, {i['spill_bytes']} B local "
+                f"(spill) per thread, {i['smem_bytes']} B shared, "
+                f"{i['blocks_per_sm']} blocks resident per SM on {card}")
 
 
 def build_blend(lite, d):
@@ -441,7 +578,10 @@ def device_busy(prof):
 def profile_fit(setup, n_iter=20):
     """Device time by kernel over ``n_iter`` iterations of the batched fit
     (``torch.profiler``), and the device's busy share of the wall time:
-    the union of the kernels' intervals over the profiled window."""
+    the union of the kernels' intervals over the profiled window.
+    Returns, per K1, K3, K4 and the padding ops (``F.pad``), device ms
+    per iteration and launches (ops) per iteration, K1's to K4's ms per
+    launch."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from scarlet_tpu_torch.lite import engine
@@ -469,10 +609,30 @@ def profile_fit(setup, n_iter=20):
     for name, (tot, n) in top:
         log(f"  {tot / n_iter / 1e3:9.4f} ms/iter {n / n_iter:6.1f} "
             f"calls/iter  {name[:90]}")
-    # K1's device time per launch
-    k1 = [(tot, n) for name, (tot, n) in by_name.items()
-          if "mono_kernel" in name]
-    return sum(t for t, _ in k1) / max(sum(n for _, n in k1), 1) / 1e3
+    per_iter = {}
+    for label, key in (("K1", "mono_kernel"), ("K3", "scene_kernel"),
+                       ("K4", "grad_kernel")):
+        hits = [(t, n) for name, (t, n) in by_name.items() if key in name]
+        per_iter[label] = dict(
+            ms_per_iteration=sum(t for t, _ in hits) / n_iter / 1e3,
+            launches_per_iteration=sum(n for _, n in hits) / n_iter,
+            ms_per_launch=sum(t for t, _ in hits)
+            / max(sum(n for _, n in hits), 1) / 1e3)
+    # padding ops and the device time of their kernels
+    pads = [e for e in prof.key_averages()
+            if e.key in ("aten::constant_pad_nd", "aten::pad")]
+    pad_us = sum(getattr(e, "device_time_total", None)
+                 or getattr(e, "cuda_time_total", 0.0) for e in pads)
+    per_iter["pad"] = dict(
+        ms_per_iteration=pad_us / n_iter / 1e3,
+        calls_per_iteration=max((e.count for e in pads), default=0) / n_iter)
+    log("per fit iteration: " + "; ".join(
+        f"{k} {v['ms_per_iteration']:.4f} ms device ("
+        + (f"{v['launches_per_iteration']:.1f} launches, "
+           f"{v['ms_per_launch']:.4f} ms each)" if k != "pad" else
+           f"{v['calls_per_iteration']:.1f} pad ops)")
+        for k, v in per_iter.items()))
+    return per_iter
 
 
 def fit_k1_work(setup, n_iter=20):
@@ -637,6 +797,36 @@ def stream_kernel_phases(dev, card, het):
             f"{res['limit']}), kernel {res['ms']:.4f} ms, plain "
             f"{res['plain_ms']:.4f} ms [{res['shape']}] on {card}")
     return out
+
+
+def stream_gather_phase(dev, card, het):
+    """K3 and K4 against their plain versions at the stream's shapes
+    (chunk 0: its seds, morphologies, origins and slots, pad
+    ``config.pad``); K4 on a strided gradient, contiguous and padded."""
+    config, _, state, _ = het_setup(dev, het, slice(0, HET["chunk"]))
+    C, H, W = config.scene_shape
+    P = config.pad
+    seds, m = state.seds[0], state.morphs[0]
+    origins, on = state.origins[0], state.comp_active[0]
+    B, K = on.shape
+    shape = f"B={B} K={K} C={C} {H}x{W} box={m.shape[-1]} pad={P}"
+    scene = scene_check(seds, m, origins, on, (C, H, W), P)
+    grad = grad_check(strided_gradient(B, C, H, W, config.fft_shape, dev),
+                      seds, m, origins, P)
+    for name, res in (("scene_assembly", scene), ("grad_gather", grad)):
+        err = res["g_morph_err"] if name == "grad_gather" \
+            else res["max_abs_err"]
+        if err != 0.0:
+            raise AssertionError(f"{name} at the stream's shapes differs "
+                                 f"from its plain version by {err}")
+        log(f"kernel {name} at the stream's shapes: max_abs_err "
+            f"{res['max_abs_err']:.3g}, kernel {res['ms']:.4f} ms device "
+            f"({res['event_ms']:.4f} ms events), plain "
+            f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
+            f"[{shape}] on {card}")
+    log_grad_calls(grad, card)
+    return {"scene_assembly": dict(scene, shape=shape),
+            "grad_gather": dict(grad, shape=shape)}
 
 
 def stream_path(dev, card, het, host_init_s):
@@ -1171,10 +1361,17 @@ def main():
             f"blocks resident per SM")
 
     single, setup, init_s = setup_blends(dev)
+    config = setup[0]
+    log_gather_info(*setup[2].comp_active[0].shape, *config.scene_shape,
+                    *config.box_shapes[0], config.pad, card)
     kres = kernel_phases(dev, card, setup)
     host_counts, summary = main_path(dev, card, single, setup, init_s)
     log(f"summary: {json.dumps(summary)}")
-    k1_fit_ms = profile_fit(setup)
+    fit_profile = profile_fit(setup)
+    k1_fit_ms = fit_profile["K1"]["ms_per_launch"]
+    for label, name in (("K3", "scene_assembly"), ("K4", "grad_gather")):
+        kres[name]["fit_profile"] = fit_profile[label]
+    kres["grad_gather"]["fit_profile_pad"] = fit_profile["pad"]
     k1_morphs = int(setup[2].comp_active[0].numel())
     k1_fit = fit_k1_work(setup)
     log(f"K1 in the profiled fit: {k1_fit_ms:.4f} ms per launch, "
@@ -1188,6 +1385,8 @@ def main():
 
     het = make_het()
     kres.update(stream_kernel_phases(dev, card, het))
+    for name, res in stream_gather_phase(dev, card, het).items():
+        kres[name]["stream_shapes"] = res
     stream_counts, stream_summary = stream_path(
         dev, card, het, init_s * 128 / N_BLENDS)
     log(f"stream summary: {json.dumps(stream_summary)}")

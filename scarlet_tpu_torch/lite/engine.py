@@ -38,7 +38,6 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..device import default_device
 from ..ops import fft as fft_ops
@@ -512,7 +511,6 @@ def fit_step(state, data, config):
     """
     check_supported(config)
     C = config.scene_shape[0]
-    P = config.pad
 
     scene = make_scene(state, config)
     if data.scene_mask is not None:
@@ -525,7 +523,9 @@ def fit_step(state, data, config):
     grad_scene = _convolve(residual, data.grad_kernel_rfft, config)
     if data.scene_mask is not None:
         grad_scene = grad_scene * data.scene_mask[..., None, :, :]
-    gpad = F.pad(grad_scene, (P, P, P, P))
+    # the JAX fit_step pads grad_scene by config.pad for the TPU's window
+    # reads; grad_gather reads 0 outside the array, so it takes the
+    # gradient unpadded and in place (a strided crop of the inverse FFT)
 
     it = state.it
     active = state.active
@@ -543,7 +543,7 @@ def fit_step(state, data, config):
         gate = active[..., None] & on_b                  # (…, K)
 
         g_seds, g_morphs = kernels.grad_gather(
-            gpad, seds_b, morphs_b, state.origins[b], P)
+            grad_scene, seds_b, morphs_b, state.origins[b], 0)
 
         # SED: relative step with a noise-floor minimum
         # (lite/initialization.py:275-279), floored by the prox

@@ -28,6 +28,7 @@ _HERE = pathlib.Path(__file__).parent
 _CSRC = _HERE / "csrc"
 _BUILD = _HERE / "_build"
 SOURCES = ("mono.cu", "scene.cu", "grad.cu", "attrib.cu")
+HEADERS = ("launch.cuh",)
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -51,7 +52,7 @@ def nvcc_path():
 
 def library_path():
     h = hashlib.sha256(" ".join(_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((_CSRC / name).read_bytes())
     return _BUILD / f"libscarlet_kernels_{h.hexdigest()[:16]}.so"
@@ -112,11 +113,15 @@ def load():
     lib.scarlet_fused_morph.argtypes = [p] * 12 + [i] * 6 + [f, i] + \
         [f] * 6 + [p] * 4 + geom
     lib.scarlet_mono_kernel_info.argtypes = [i] * 5 + [p]
-    lib.scarlet_scene_assembly.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
-                                           i, p]
-    lib.scarlet_grad_gather.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
-                                        i, i, p]
+    # the gather kernels end with the geometry of kernels.scene_geometry
+    # (XV, TX, TY, bands, tiles, threads, smem) and grad_geometry (staged,
+    # G, groups, smem)
+    lib.scarlet_scene_assembly.argtypes = [p] * 5 + [i] * 7 + [i] * 7 + [p]
+    lib.scarlet_scene_kernel_info.argtypes = [i, i, i, p]
+    lib.scarlet_grad_gather.argtypes = [p] * 6 + [i] * 8 + [ll] * 3 + \
+        [i] * 4 + [p]
     lib.scarlet_grad_max_bands.argtypes = []
+    lib.scarlet_grad_kernel_info.argtypes = [i, i, i, p]
     lib.scarlet_mono_pass_variant.argtypes = [p, p, p, p, i, i, i, i, i, i,
                                               f, p]
     lib.scarlet_mono_pass_variant_smem_bytes.argtypes = [i, i, i]
@@ -124,8 +129,10 @@ def load():
     lib.scarlet_error_string.restype = ctypes.c_char_p
     for name in ("scarlet_mono_prox", "scarlet_mono_kernel_info",
                  "scarlet_prox_chain", "scarlet_fused_morph",
-                 "scarlet_scene_assembly", "scarlet_grad_gather",
-                 "scarlet_grad_max_bands", "scarlet_mono_pass_variant",
+                 "scarlet_scene_assembly", "scarlet_scene_kernel_info",
+                 "scarlet_grad_gather",
+                 "scarlet_grad_max_bands", "scarlet_grad_kernel_info",
+                 "scarlet_mono_pass_variant",
                  "scarlet_mono_pass_variant_smem_bytes"):
         getattr(lib, name).restype = ctypes.c_int
     _lib = lib

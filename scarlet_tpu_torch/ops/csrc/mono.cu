@@ -82,6 +82,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int kUnroll = 4;       // passes per convergence test (MONO_UNROLL)
@@ -460,27 +462,8 @@ fused_kernel(const float* __restrict__ x, const float* __restrict__ g_,
   chain_epilogue(g, res, xo + off, hb, wb, thr[bk], floor, red);
 }
 
-template <typename Kernel>
-int set_smem(Kernel kernel, int smem) {
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-}
-
-template <typename Kernel>
-int kernel_info(Kernel kernel, int threads, int smem, int* out) {
-  cudaFuncAttributes attr;
-  int err = (int)cudaFuncGetAttributes(&attr, kernel);
-  if (err != 0) return err;
-  err = set_smem(kernel, smem);
-  if (err != 0) return err;
-  int blocks = 0;
-  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
-                                                           threads, smem);
-  out[0] = attr.numRegs;
-  out[1] = (int)attr.localSizeBytes;
-  out[2] = blocks;
-  return err;
-}
+using scarlet::kernel_info;
+using scarlet::set_smem;
 
 int smem_bytes(int hb, int wb) { return 3 * (hb + 2) * (wb + 2) * 4; }
 

@@ -40,6 +40,7 @@ buffer; :func:`prox_chain` writes a fresh tensor.
 """
 from __future__ import annotations
 
+import functools
 import weakref
 from typing import NamedTuple
 
@@ -58,7 +59,12 @@ __all__ = [
     "prox_chain",
     "fused_morph_update",
     "scene_assembly",
+    "SceneGeometry",
+    "scene_geometry",
     "grad_gather",
+    "GradGeometry",
+    "grad_geometry",
+    "gather_kernel_info",
     "MONO_PASS_MIXES",
     "mono_pass_variant",
     "monotonic_prox_plain",
@@ -787,7 +793,13 @@ def scene_assembly_plain(seds, morphs, origins, comp_active, scene_shape,
                          pad):
     """Plain version of :func:`scene_assembly` (engine.py:427-444 of the
     JAX package): add each component's ``(sed * morph) * active`` into a
-    zero scene padded by ``pad``, in component order, then crop."""
+    zero scene padded by ``pad``, in component order, then crop.
+
+    The kernel skips inactive components, which here add ``+-0`` at the
+    padding's corner: the same bits for finite inputs.  Where an inactive
+    slot's sed or morphology holds inf or NaN, ``0 * inf`` makes this
+    version's pixels NaN inside the parked box, and the kernel's stay as
+    the active components make them (csrc/scene.cu)."""
     C, H, W = scene_shape
     K = seds.shape[-2]
     hb, wb = morphs.shape[-2:]
@@ -814,6 +826,38 @@ def scene_assembly_plain(seds, morphs, origins, comp_active, scene_shape,
     return out.reshape(*lead, C, H, W)
 
 
+SCENE_THREADS = 128       # most threads of a scene-assembly block
+
+
+class SceneGeometry(NamedTuple):
+    """How the scene-assembly kernel covers a batch of (C, H, W) scenes
+    (csrc/scene.cu): block (b, band, tile) takes blend b, rows
+    ``[band * TY, band * TY + TY)`` and columns ``[tile * TX * XV,
+    (tile + 1) * TX * XV)``; its thread ``t < TX * TY`` takes row
+    ``t // TX`` of the band and the ``XV`` columns from
+    ``(tile * TX + t % TX) * XV``, all C bands of them."""
+    XV: int           # consecutive columns a thread owns: 4, 2 or 1
+    TX: int           # threads along a row
+    TY: int           # rows of a block
+    bands: int        # row bands of a scene
+    tiles: int        # column tiles of a scene
+    blocks: int
+    threads: int      # a whole number of warps, at most SCENE_THREADS
+    smem: int         # bytes: origins, the component list and the seds
+
+
+@functools.lru_cache(maxsize=256)
+def scene_geometry(B, K, C, H, W):
+    """The launch geometry of the scene-assembly kernel."""
+    XV = 4 if W % 4 == 0 else (2 if W % 2 == 0 else 1)
+    TX = min(W // XV, SCENE_THREADS)
+    TY = max(1, min(H, SCENE_THREADS // TX))
+    threads = max(32, -(-TX * TY // 32) * 32)
+    bands, tiles = -(-H // TY), -(-W // (TX * XV))
+    return SceneGeometry(XV, TX, TY, bands, tiles, B * bands * tiles,
+                         threads, 4 * K * (3 + C))
+
+
 def scene_assembly(seds, morphs, origins, comp_active, scene_shape, pad):
     """Sum of the K factorized components of each blend, placed at their
     (possibly negative or overhanging) integer origins; boxes clip at the
@@ -823,7 +867,7 @@ def scene_assembly(seds, morphs, origins, comp_active, scene_shape, pad):
     integer scene coordinates of each box's corner; comp_active (..., K)
     bool.  Returns (..., C, H, W) for ``scene_shape = (C, H, W)``.
     ``pad`` is the overhang the plain version pads by (the kernel needs
-    none).
+    none).  Equal to the plain version bit for bit for finite inputs.
     """
     if _is_cpu(seds, morphs, origins, comp_active):
         return scene_assembly_plain(seds, morphs, origins, comp_active,
@@ -852,11 +896,12 @@ def scene_assembly(seds, morphs, origins, comp_active, scene_shape, pad):
     if K == 0:
         return out.zero_()
     lib = build.load()
+    g = scene_geometry(B, K, C, H, W)
     with torch.cuda.device(seds.device):
         err = lib.scarlet_scene_assembly(
             seds.data_ptr(), morphs.data_ptr(), org.data_ptr(),
-            act.data_ptr(), out.data_ptr(), B, K, C, hb, wb, H, W,
-            _stream(seds))
+            act.data_ptr(), out.data_ptr(), B, K, C, hb, wb, H, W, g.XV,
+            g.TX, g.TY, g.bands, g.tiles, g.threads, g.smem, _stream(seds))
     _check(name, err)
     scene_assembly.launches += 1
     return out
@@ -868,26 +913,27 @@ scene_assembly.launches = 0
 # ---------------------------------------------------------------------------
 # K4: gradient gather
 # ---------------------------------------------------------------------------
-def grad_gather_plain(gpad, seds, morphs, origins, pad):
+def grad_gather_plain(grad, seds, morphs, origins, pad):
     """Plain version of :func:`grad_gather` (engine.py:786-794 of the JAX
-    package): per component, the window ``g`` of the padded gradient,
-    ``g_sed = sum_hw g * morph`` and ``g_morph = sum_c sed_c * g_c``
-    (summed in c order).  Window pixels outside the padded gradient read
-    0, as in the kernel."""
-    C, Hp, Wp = gpad.shape[-3:]
+    package): per component, the window ``g`` of the gradient padded by
+    ``pad``, ``g_sed = sum_hw g * morph`` and ``g_morph = sum_c sed_c *
+    g_c`` (summed in c order).  Window pixels outside the array read 0, as
+    in the kernel, so the unpadded gradient with ``pad = 0`` gives the
+    same bits as the gradient zero-padded by P with ``pad = P``."""
+    C, Hp, Wp = grad.shape[-3:]
     K = seds.shape[-2]
     hb, wb = morphs.shape[-2:]
     lead = seds.shape[:-2]
-    gpad = gpad.reshape(-1, C, Hp, Wp).permute(0, 2, 3, 1)
+    grad = grad.reshape(-1, C, Hp, Wp).permute(0, 2, 3, 1)
     seds = seds.reshape(-1, K, C)
     morphs = morphs.reshape(-1, K, hb, wb)
     origins = origins.reshape(-1, K, 2)
-    bi = torch.arange(gpad.shape[0], device=gpad.device)[:, None, None]
+    bi = torch.arange(grad.shape[0], device=grad.device)[:, None, None]
     g_seds, g_morphs = [], []
     for k in range(K):
         rows, cols = _windows(origins[:, k], pad, hb, wb)
         inside = (rows >= 0) & (rows < Hp) & (cols >= 0) & (cols < Wp)
-        g = gpad[bi, rows.clamp(0, Hp - 1), cols.clamp(0, Wp - 1)]
+        g = grad[bi, rows.clamp(0, Hp - 1), cols.clamp(0, Wp - 1)]
         g = torch.where(inside[..., None], g, 0.0).permute(0, 3, 1, 2)
         g_seds.append((g * morphs[:, k, None]).sum(dim=(-2, -1)))
         sed = seds[:, k, :, None, None]
@@ -900,32 +946,111 @@ def grad_gather_plain(gpad, seds, morphs, origins, pad):
     return g_seds, g_morphs
 
 
-def grad_gather(gpad, seds, morphs, origins, pad):
-    """Per-component (g_sed, g_morph) from the scene gradient ``gpad``,
-    padded by ``pad`` on both spatial sides.
+GRAD_THREADS = 256        # threads of a gradient-gather block
+GRAD_BLOCKS_PER_SM = 4    # its register budget: 64 a thread
+SM_COUNT = 132            # SMs of an H100 SXM
+SM_SMEM = 233472          # shared bytes of an SM (228 KB)
+BLOCK_SMEM_RESERVED = 1024  # shared bytes the card keeps for each block
 
-    gpad (..., C, H+2P, W+2P), seds (..., K, C), morphs (..., K, hb, wb)
-    float32; origins (..., K, 2) integer.  Returns ((..., K, C),
+
+class GradGeometry(NamedTuple):
+    """How the gradient-gather kernel covers a batch (csrc/grad.cu):
+    block (b, group) takes blend b and components ``group * G`` to
+    ``group * G + G - 1`` (those below K); row ``y`` of the group's
+    component ``j`` falls to warp ``(j * hb + y) % (threads // 32)``,
+    whose lane ``l`` takes columns ``l, l + 32, ...`` of it."""
+    staged: bool      # the blend's gradient staged in shared memory
+    G: int            # components per block
+    groups: int       # blocks per blend
+    blocks: int
+    threads: int
+    smem: int         # bytes: g_sed sums, two morphologies (+ the gradient)
+    blocks_per_sm: int  # what the shared memory and registers allow
+
+
+def _grad_smem(G, C, H, W, hb, wb, staged):
+    """Dynamic shared bytes of a gradient-gather block (csrc/grad.cu), in
+    parts of whole 16 bytes: the (G, C, warps) g_sed sums, the group's
+    seds and origins, two morphology buffers (each up to 3 floats in, at
+    its alignment within 16 bytes) and, staged, the gradient plane
+    (likewise shifted)."""
+    def quads(n):
+        return -(-n // 4) * 4
+
+    mstride = (hb * wb + 6) // 4 * 4
+    return 4 * (quads(G * C * (GRAD_THREADS // 32)) + quads(G * C)
+                + quads(2 * G) + 2 * mstride
+                + (C * H * W + 3 if staged else 0))
+
+
+@functools.lru_cache(maxsize=256)
+def grad_geometry(B, K, C, H, W, hb, wb):
+    """The launch geometry of the gradient-gather kernel for B blends of
+    K (hb, wb) components on (C, H, W) gradients (padding included).
+
+    The route is the shape's: the staged route where two blocks, each
+    with the gradient, two morphologies and one component's sums, fit an
+    SM's shared memory (a block alone on an SM waits out its whole staging
+    copy: slower than the direct route on an H100), else the direct
+    route, which reads the gradient through the L1 cache.  The group G is
+    the fewest components per block that fills every SM with the most
+    blocks it holds (up to ``GRAD_BLOCKS_PER_SM``) in one wave."""
+    staged = 2 * (_grad_smem(1, C, H, W, hb, wb, True)
+                  + BLOCK_SMEM_RESERVED) <= SM_SMEM
+    cap = max(1, K)
+    for bps in range(GRAD_BLOCKS_PER_SM, 0, -1):
+        G = min(cap, max(1, -(-B * K // (SM_COUNT * bps))))
+        while G > 1 and _grad_smem(G, C, H, W, hb, wb, staged) \
+                > SMEM_LIMIT:
+            G -= 1
+        smem = _grad_smem(G, C, H, W, hb, wb, staged)
+        if bps == 1 or bps * (smem + BLOCK_SMEM_RESERVED) <= SM_SMEM:
+            break
+    groups = -(-K // G) if K else 0
+    return GradGeometry(staged, G, groups, B * groups, GRAD_THREADS, smem,
+                        bps)
+
+
+def grad_gather(grad, seds, morphs, origins, pad):
+    """Per-component (g_sed, g_morph) from the scene gradient ``grad``,
+    padded by ``pad`` on both spatial sides (the fit passes the unpadded
+    gradient and 0).
+
+    grad (..., C, H+2P, W+2P) float32 with unit column stride, read in
+    place through its strides (no copy); seds (..., K, C), morphs (..., K,
+    hb, wb) float32; origins (..., K, 2) integer.  Returns ((..., K, C),
     (..., K, hb, wb)).  g_morph equals the plain version bit for bit;
-    g_sed to float32 roundoff of its hb*wb-term sum (reduction order).
+    g_sed to float32 roundoff of its hb*wb-term sum (reduction order), the
+    same bits from run to run.  The route (:func:`grad_geometry`) follows
+    the gradient's shape.
     """
-    if _is_cpu(gpad, seds, morphs, origins):
-        return grad_gather_plain(gpad, seds, morphs, origins, pad)
+    if _is_cpu(grad, seds, morphs, origins):
+        return grad_gather_plain(grad, seds, morphs, origins, pad)
     name = "grad_gather"
-    _require_cuda(name, gpad, seds, morphs, origins)
-    C, Hp, Wp = gpad.shape[-3:]
+    _require_cuda(name, grad, seds, morphs, origins)
+    C, Hp, Wp = grad.shape[-3:]
     K = seds.shape[-2]
     hb, wb = morphs.shape[-2:]
     lead = tuple(seds.shape[:-2])
-    if (seds.shape[-1] != C or tuple(gpad.shape[:-3]) != lead
+    if (seds.shape[-1] != C or tuple(grad.shape[:-3]) != lead
             or tuple(morphs.shape[:-2]) != lead + (K,)
             or tuple(origins.shape) != lead + (K, 2)):
-        raise ValueError(f"{name}: shapes do not match: gpad "
-                         f"{tuple(gpad.shape)}, seds {tuple(seds.shape)}, "
+        raise ValueError(f"{name}: shapes do not match: grad "
+                         f"{tuple(grad.shape)}, seds {tuple(seds.shape)}, "
                          f"morphs {tuple(morphs.shape)}, origins "
                          f"{tuple(origins.shape)}")
-    for t, what in ((gpad, "gpad"), (seds, "seds"), (morphs, "morphs")):
-        _f32(name, t, what)
+    if grad.dtype != torch.float32:
+        raise TypeError(f"{name}: grad must be float32, got {grad.dtype}")
+    if grad.stride(-1) != 1 and Wp > 1:
+        raise ValueError(f"{name}: grad's column stride is "
+                         f"{grad.stride(-1)}; the kernel reads unit stride")
+    try:
+        g4 = grad.view(-1, C, Hp, Wp)
+    except RuntimeError:
+        raise ValueError(f"{name}: grad's leading dimensions do not merge "
+                         f"into one stride {tuple(grad.stride())}") from None
+    _f32(name, seds, "seds")
+    _f32(name, morphs, "morphs")
     lib = build.load()
     if C > lib.scarlet_grad_max_bands():
         raise ValueError(f"{name}: {C} bands; the kernel takes at most "
@@ -936,17 +1061,49 @@ def grad_gather(gpad, seds, morphs, origins, pad):
     B = seds.numel() // (K * C) if K * C else 0
     if B * K == 0:
         return g_seds, g_morphs
-    with torch.cuda.device(gpad.device):
+    geo = grad_geometry(B, K, C, Hp, Wp, hb, wb)
+    with torch.cuda.device(grad.device):
         err = lib.scarlet_grad_gather(
-            gpad.data_ptr(), seds.data_ptr(), morphs.data_ptr(),
+            g4.data_ptr(), seds.data_ptr(), morphs.data_ptr(),
             org.data_ptr(), g_seds.data_ptr(), g_morphs.data_ptr(), B, K, C,
-            hb, wb, Hp, Wp, int(pad), _stream(gpad))
+            hb, wb, Hp, Wp, int(pad), *g4.stride()[:3], int(geo.staged),
+            geo.G, geo.groups, geo.smem, _stream(grad))
     _check(name, err)
     grad_gather.launches += 1
     return g_seds, g_morphs
 
 
 grad_gather.launches = 0
+
+
+def gather_kernel_info(B, K, C, H, W, hb, wb):
+    """What the compiler made of the scene-assembly and gradient-gather
+    kernels at these shapes (card only; (H, W) is the gradient's, so a
+    padded shape shows its route): per kernel, registers per thread,
+    local-memory (spill) bytes per thread, threads, dynamic shared bytes,
+    blocks resident per SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and the grid."""
+    import ctypes
+
+    lib = build.load()
+    sg = scene_geometry(B, K, C, H, W)
+    gg = grad_geometry(B, K, C, H, W, hb, wb)
+    out = {}
+    for name, err, geo, extra in (
+            ("scene_assembly", lambda v: lib.scarlet_scene_kernel_info(
+                sg.XV, sg.threads, sg.smem, v), sg,
+             dict(grid=(B, sg.bands, sg.tiles), XV=sg.XV, TX=sg.TX,
+                  TY=sg.TY)),
+            ("grad_gather", lambda v: lib.scarlet_grad_kernel_info(
+                int(gg.staged), C, gg.smem, v), gg,
+             dict(grid=(B, gg.groups), G=gg.G,
+                  route="staged" if gg.staged else "direct"))):
+        vals = (ctypes.c_int * 3)()
+        _check(name, err(vals))
+        out[name] = dict(registers=vals[0], spill_bytes=vals[1],
+                         blocks_per_sm=vals[2], threads=geo.threads,
+                         smem_bytes=geo.smem, blocks=geo.blocks, **extra)
+    return out
 
 
 _COUNTED = (monotonic_prox, prox_chain, fused_morph_update, scene_assembly,

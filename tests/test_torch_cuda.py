@@ -147,32 +147,116 @@ def test_fused_morph_update_matches_plain(cuda, box):
     assert kn.fused_morph_update.launches == before + 2
 
 
-def _bucket(B, K, C=5, H=58, W=48, hb=BOX, pad=30, seed=1):
+def _bucket(B, K, C=5, H=58, W=48, hb=BOX, wb=None, pad=61, seed=1):
+    """Seeded components whose boxes reach up to pad - 1 pixels past
+    every scene edge; blend 1 has no active component, and one active box
+    of blend 0 lies wholly off the scene (pad > hb, wb)."""
+    wb = hb if wb is None else wb
     rng = np.random.default_rng(seed)
     seds = rng.uniform(0.1, 2, (B, K, C)).astype(np.float32)
-    morphs = rng.uniform(0, 1, (B, K, hb, hb)).astype(np.float32)
+    morphs = rng.uniform(0, 1, (B, K, hb, wb)).astype(np.float32)
     oy = rng.integers(1 - pad, H - hb + pad, (B, K, 1))
-    ox = rng.integers(1 - pad, W - hb + pad, (B, K, 1))
+    ox = rng.integers(1 - pad, W - wb + pad, (B, K, 1))
     origins = np.concatenate([oy, ox], -1).astype(np.int32)
     on = rng.uniform(size=(B, K)) > 0.2
+    on[0, 0] = True
+    on[1] = False
+    origins[0, 0] = (H + 1, -wb - 1)
     assert origins.min() < 0
     return [torch.from_numpy(x) for x in (seds, morphs, origins, on)]
 
 
+def _gradient(B, C, H, W, layout, device, seed=3):
+    """A (B, C, H, W) gradient: contiguous, or the centered crop of a
+    larger array (the engine's inverse FFT), read through its strides."""
+    g = torch.Generator().manual_seed(seed)
+    if layout == "contiguous":
+        return torch.randn(B, C, H, W, generator=g).to(device)
+    full = torch.randn(B, C, H + 31, W + 27, generator=g).to(device)
+    return full[..., 15:15 + H, 13:13 + W]
+
+
+# (box, C, K, scene): boxes 21-69 and a non-square one, C 1-8, K 1-40, the
+# fit's 58 x 48 scene (K4's staged route) and 160 x 160 (above the staging
+# budget at C > 1: the direct route)
+SCENE_GRAD_CASES = [
+    (21, 5, 16, (58, 48)), (41, 5, 16, (58, 48)), (59, 5, 16, (58, 48)),
+    (69, 5, 16, (58, 48)), (59, 1, 16, (58, 48)), (59, 8, 16, (58, 48)),
+    (59, 5, 1, (58, 48)), (59, 5, 40, (58, 48)), ((31, 21), 3, 16, (57, 47)),
+    (21, 5, 16, (160, 160)), (59, 1, 40, (160, 160)),
+    (69, 8, 40, (160, 160))]
+
+
 @pytest.mark.cuda
-def test_scene_and_grad_match_plain(cuda):
-    C, H, W, P = 5, 58, 48, 30
-    seds, morphs, origins, on = (x.to(cuda) for x in _bucket(4, 16))
+@pytest.mark.parametrize("layout", ["contiguous", "strided"])
+@pytest.mark.parametrize("box,C,K,scene", SCENE_GRAD_CASES)
+def test_scene_and_grad_match_plain(cuda, box, C, K, scene, layout):
+    """K3 bit for bit; K4 on the unpadded gradient (pad 0) and on the
+    gradient padded by P, each on the route of its shape (the cases take
+    both routes, kernels.grad_geometry): g_morph bit for bit, g_sed within
+    1e-5 of sum |g * morph| and the same bits in two launches."""
+    H, W = scene
+    hb, wb = (box, box) if isinstance(box, int) else box
+    P = max(hb, wb) + 2
+    B = 4
+    seds, morphs, origins, on = (x.to(cuda) for x in _bucket(
+        B, K, C, H, W, hb, wb, P, seed=hb + C + K))
+    before = kn.scene_assembly.launches
     got = kn.scene_assembly(seds, morphs, origins, on, (C, H, W), P)
-    ref = kn.scene_assembly_plain(seds, morphs, origins, on, (C, H, W), P)
-    assert torch.equal(got, ref)
-    gpad = F.pad(torch.randn(4, C, H, W, device=cuda), (P, P, P, P))
-    gs, gm = kn.grad_gather(gpad, seds, morphs, origins, P)
-    rs, rm = kn.grad_gather_plain(gpad, seds, morphs, origins, P)
-    assert torch.equal(gm, rm)
-    # g_sed: a block reduction, in another order than torch's sum
-    scale = kn.grad_gather_plain(gpad.abs(), seds, morphs, origins, P)[0]
-    assert bool(((gs - rs).abs() <= 1e-5 * scale).all())
+    assert kn.scene_assembly.launches == before + 1
+    assert torch.equal(got, kn.scene_assembly_plain(seds, morphs, origins,
+                                                    on, (C, H, W), P))
+    assert not got[1].any()
+    grad = _gradient(B, C, H, W, layout, cuda)
+    gpad = F.pad(grad, (P, P, P, P))
+    for g, p in ((grad, 0), (gpad, P)):
+        gs, gm = kn.grad_gather(g, seds, morphs, origins, p)
+        rs, rm = kn.grad_gather_plain(g, seds, morphs, origins, p)
+        assert torch.equal(gm, rm)
+        # g_sed: a block reduction, in another order than torch's sum
+        scale = kn.grad_gather_plain(g.abs(), seds, morphs, origins, p)[0]
+        assert bool(((gs - rs).abs() <= 1e-5 * scale).all())
+        again = kn.grad_gather(g, seds, morphs, origins, p)
+        assert torch.equal(again[0], gs) and torch.equal(again[1], gm)
+
+
+@pytest.mark.cuda
+def test_scene_skips_inactive_slots(cuda):
+    """The stated difference (csrc/scene.cu): the kernel ignores an
+    inactive slot even where its morphology is NaN; the plain version's
+    parked box then turns pixels NaN."""
+    P = 61
+    seds, morphs, origins, on = (x.to(cuda) for x in _bucket(3, 8, pad=P))
+    morphs[0, ~on[0]] = float("nan")
+    keep = on[0].nonzero()[:, 0]
+    got = kn.scene_assembly(seds, morphs, origins, on, (5, 58, 48), P)
+    ref = kn.scene_assembly_plain(seds[:1, keep], morphs[:1, keep],
+                                  origins[:1, keep], on[:1, keep],
+                                  (5, 58, 48), P)
+    assert torch.equal(got[:1], ref)
+
+
+@pytest.mark.cuda
+def test_kernel_info_leaves_launches_valid(cuda):
+    """Querying the compiler facts at small shapes does not shrink a
+    kernel's shared-memory allowance: launches at larger shapes (more
+    components, the staged gradient) still run."""
+    kn.gather_kernel_info(2, 1, 5, 58, 48, 21, 21)
+    kn.mono_kernel_info(21, 21)
+    seds, morphs, origins, on = (x.to(cuda) for x in _bucket(2, 16))
+    got = kn.scene_assembly(seds, morphs, origins, on, (5, 58, 48), 61)
+    assert torch.equal(got, kn.scene_assembly_plain(
+        seds, morphs, origins, on, (5, 58, 48), 61))
+    grad = _gradient(2, 5, 58, 48, "strided", cuda)
+    assert kn.grad_geometry(2, 16, 5, 58, 48, BOX, BOX).staged
+    gm = kn.grad_gather(grad, seds, morphs, origins, 0)[1]
+    assert torch.equal(gm, kn.grad_gather_plain(grad, seds, morphs,
+                                                origins, 0)[1])
+    w, keep, n_iter = (x.to(cuda) if torch.is_tensor(x) else x
+                       for x in _tables())
+    m, idx = (x.to(cuda) for x in _morphs(2, 4))
+    assert torch.equal(kn.monotonic_prox(m, idx, w, keep, n_iter),
+                       kn.monotonic_prox_plain(m, idx, w, keep, n_iter))
 
 
 @pytest.mark.cuda

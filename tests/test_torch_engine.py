@@ -58,6 +58,34 @@ def test_fit_scan_matches_jax(path, n_iter):
     _assert_states_close(out_t, out_j)
 
 
+@pytest.mark.parametrize("mask", [None, "edge"])
+def test_fit_step_reads_the_gradient_unpadded(mask, monkeypatch):
+    """The port's fit_step hands grad_gather the scene gradient unpadded
+    (pad 0), where the JAX fit_step pads it: without a scene mask the
+    strided crop of the inverse FFT itself, with one the masked product.
+    Both match the JAX fit_step."""
+    config, data, state = graft._demo_setup()
+    config = dataclasses.replace(config, mono_n_iters=(16,))
+    if mask is not None:
+        m = np.ones(config.scene_shape[1:], np.float32)
+        m[:, -6:] = 0.0
+        data = data._replace(scene_mask=jnp.asarray(m))
+    out_j, logl_j = jeng.fit_step(state, data, config)
+    cfg, d, s = _port(config, data, state)
+    seen = []
+    gather = teng.kernels.grad_gather
+
+    def spy(grad, seds, morphs, origins, pad):
+        seen.append((grad.is_contiguous(), pad))
+        return gather(grad, seds, morphs, origins, pad)
+
+    monkeypatch.setattr(teng.kernels, "grad_gather", spy)
+    out_t, logl_t = teng.fit_step(s, d, cfg)
+    assert seen == [(mask is not None, 0)]
+    assert_allclose(float(logl_t), float(logl_j), rtol=1e-6)
+    _assert_states_close(out_t, out_j)
+
+
 def test_fit_scan_batch_matches_single_blends():
     """A leading batch axis gives each blend's own fit."""
     config, data, state = graft._demo_setup()
