@@ -49,7 +49,17 @@ Run from the repository root, with one CUDA card:
    the catalog stream, the host syncs per detection call, the card's
    catalogs against the CPU's for 32 blends, and one ``redetect=1`` run
    on the first 128 blends.
-7. Prints one JSON line with the kernels, the card's name and power
+7. The wavelet init recipe: the het stream with ``recipe="wavelets"``
+   (warm-up, three runs from numpy, three device-resident) beside the
+   main recipe's device-resident median, ``stream_setup`` per chunk of
+   128 for both recipes, the monotonic-mask closure's passes and host
+   reads per call (its counters) and the device ms of its profiler
+   range, the launches of K1, K3 and K4, 4 blends' init
+   decisions and final logL (50 iterations at e_rel 0) against the CPU;
+   chunk 0 with ``use_mask=True`` (K1 launched in the fit only, the
+   CPU's decisions on 4 blends); one ``centers=None`` wavelet run on the
+   first 128 blends.
+8. Prints one JSON line with the kernels, the card's name and power
    limit, then, last, the device line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without a CUDA device, or outside
@@ -57,6 +67,7 @@ the repository, it exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -103,6 +114,8 @@ T1_BOUNDS = {"alu8": 1e-6}
 # het blends whose catalogs the card and the CPU detect
 DET_CPU_BLENDS = 32
 REDETECT_BLENDS = 128
+# iterations of the wavelet stream's card-vs-CPU rerun (e_rel 0)
+WAVELET_CPU_ITERS = 50
 
 REPLACES = {
     "monotonic_prox": "scarlet_tpu/ops/pallas_kernels.py:204",
@@ -932,6 +945,22 @@ def stream_path(dev, card, het, host_init_s):
     return counts, summary
 
 
+def _init_decisions_equal(card, cpu, what):
+    """The discrete init decisions of two ``stream_setup`` results on the
+    same blends: origins, active slots, box masks, slot sources, splits,
+    PSF fallbacks, active counts and overflow."""
+    pairs = [("origins", card[2].origins[0], cpu[2].origins[0]),
+             ("comp_active", card[2].comp_active[0], cpu[2].comp_active[0]),
+             ("box_masks", card[1].box_masks[0], cpu[1].box_masks[0])]
+    pairs += [(k, card[3][k], cpu[3][k])
+              for k in ("slot_source", "split", "psf_fallback", "n_active",
+                        "overflow")]
+    for name, a, b in pairs:
+        if not bool((a.cpu() == b).all()):
+            raise AssertionError(f"card and CPU {what} init disagree on "
+                                 f"{name}")
+
+
 def cpu_rerun(dev, het):
     """4 well-conditioned blends initialized and fitted on the card and on
     the CPU (plain versions) at the card's mono_tol: the same discrete
@@ -941,14 +970,7 @@ def cpu_rerun(dev, het):
     card = het_setup(dev, het, CPU_BLENDS)
     cfg = card[0]
     cpu = het_setup("cpu", het, CPU_BLENDS, mono_tol=cfg.mono_tol)
-    pairs = [("origins", card[2].origins[0], cpu[2].origins[0]),
-             ("comp_active", card[2].comp_active[0], cpu[2].comp_active[0]),
-             ("box_masks", card[1].box_masks[0], cpu[1].box_masks[0])]
-    pairs += [(k, card[3][k], cpu[3][k])
-              for k in ("slot_source", "split", "psf_fallback")]
-    for name, a, b in pairs:
-        if not bool((a.cpu() == b).all()):
-            raise AssertionError(f"card and CPU init disagree on {name}")
+    _init_decisions_equal(card, cpu, "stream")
     finals = []
     t0 = time.perf_counter()
     for _, data, state, _ in (card, cpu):
@@ -969,7 +991,6 @@ def fused_configs(dev, het):
     """Chunk 0 at mono_tol 0, fitted three ways: the default, K5
     (packed_prox_chain) and K6 (packed_morphs off, fuse_morph on).
     Returns ({config: counts}, summary)."""
-    import dataclasses
     import torch
     from scarlet_tpu_torch.ops import kernels as kn
     from scarlet_tpu_torch.parallel import batch
@@ -1323,6 +1344,206 @@ def detection_path(dev, card, het, catalog_dev_s):
     return counts, summary
 
 
+def wavelet_path(dev, card, het, main_dev_s):
+    """The het stream with ``recipe="wavelets"`` (warm-up, three runs from
+    numpy, three device-resident) beside the main recipe's
+    device-resident median; ``stream_setup`` per chunk for both recipes
+    and the monotonic-mask closure's passes and host reads per call; 4
+    blends' init decisions and final logL against the CPU; chunk 0 with
+    ``use_mask=True``; one ``centers=None`` wavelet run.  Returns
+    (launch counts of one run, summary)."""
+    import torch
+    from scarlet_tpu_torch.ops import kernels as kn
+    from scarlet_tpu_torch.ops import prox
+    from scarlet_tpu_torch.parallel import batch, stream
+
+    mp = model_psf()
+    wav = dict(recipe="wavelets")
+
+    def run(images, variance, psfs, centers=het["centers"], **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = stream.deblend_device_stream(
+            images, variance, psfs, centers, mp, device=dev,
+            **({} if centers is None else dict(center_active=het["active"])),
+            **dict(HET, **wav, **kw))
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    host_in = (het["images"], het["variance"], het["psfs"])
+    _, warm_s = run(*host_in)
+    kn.reset_launch_counts()
+    res, t = run(*host_in)
+    counts = kn.launch_counts()
+    host_times = [t] + [run(*host_in)[1] for _ in range(2)]
+    dev_in = tuple(torch.from_numpy(x).to(dev) for x in host_in)
+    dev_times = [run(*dev_in)[1] for _ in range(3)]
+
+    records = res[0]
+    for i, r in enumerate(records):
+        if not (np.isfinite(r["logL"]) and np.isfinite(r["init logL"])
+                and np.all(np.isfinite(r["flux"]))):
+            raise AssertionError(f"wavelet record {i} is not finite")
+    worse = [i for i, r in enumerate(records)
+             if not r["logL"] > r["init logL"]]
+    log(f"wavelet stream blends whose final logL is not above their "
+        f"initial one: {worse}")
+    if len(worse) > MAX_WORSE * len(records):
+        raise AssertionError(f"logL did not improve for {len(worse)} of "
+                             f"{len(records)} wavelet-stream blends")
+    for name in PATH_KERNELS:
+        if counts[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 "wavelet path")
+
+    # stream_setup alone per chunk of 128 (device-resident, synchronized)
+    # for both recipes, and the closure's work in one wavelet call
+    sl = slice(0, HET["chunk"])
+    chunk_in = [x[sl] for x in dev_in]
+    setup_kw = dict(center_active=het["active"][sl],
+                    box_size=HET["box_size"], n_slots=HET["n_slots"],
+                    device=dev)
+
+    def setup_s(**kw):
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stream.stream_setup(*chunk_in, het["centers"][sl], mp,
+                                **setup_kw, **kw)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return float(np.median(times))
+
+    def closure_work(**kw):
+        """The closure's passes and host reads (``prox.mask_counts``) in one
+        ``stream_setup`` call, and the device ms of the kernels launched in
+        its ``torch.profiler`` range with the range's host ms (profiled)."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        for _ in range(3):     # the profiler has come back empty-handed once
+            prox.reset_mask_counts()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as p:
+                stream.stream_setup(*chunk_in, het["centers"][sl], mp,
+                                    **setup_kw, **kw)
+                torch.cuda.synchronize()
+            counts = prox.mask_counts()
+            ranges = [e for e in p.events()
+                      if e.name == "monotonic_mask_device"
+                      and e.device_type == DeviceType.CPU]
+            dev_us = sum(getattr(e, "device_time_total", None)
+                         or getattr(e, "cuda_time_total", 0.0)
+                         for e in ranges)
+            if len(ranges) == 1 and dev_us > 0:
+                return (counts["passes"], counts["host_syncs"], dev_us / 1e3,
+                        ranges[0].time_range.elapsed_us() / 1e3)
+        raise AssertionError("the profiler recorded no closure kernel")
+
+    setup_wav_s, setup_main_s = setup_s(**wav), setup_s()
+    passes, syncs, closure_ms, closure_host_ms = closure_work(**wav)
+
+    # 4 well-conditioned blends on the card and on the CPU (plain
+    # versions), fitted with the card's config at e_rel 0
+    card_b = het_setup(dev, het, CPU_BLENDS, **wav)
+    cfg = dataclasses.replace(card_b[0], e_rel=0.0)
+    cpu_b = het_setup("cpu", het, CPU_BLENDS, **wav)
+    _init_decisions_equal(card_b, cpu_b, "wavelet")
+    finals = []
+    t0 = time.perf_counter()
+    for _, data, state, _ in (card_b, cpu_b):
+        out, _ = batch.fit_batch_device_converged(
+            state, data, cfg, WAVELET_CPU_ITERS, HET["check_every"])
+        finals.append(out.last_loss.cpu().numpy())
+    cpu_s = time.perf_counter() - t0
+    rel = np.abs(finals[1] - finals[0]) / np.abs(finals[0])
+    log(f"wavelet CPU rerun of het blends {CPU_BLENDS}, "
+        f"{WAVELET_CPU_ITERS} iterations at e_rel 0 ({cpu_s:.1f} s): init "
+        f"decisions equal; logL {finals[1]} vs card {finals[0]}, max rel "
+        f"diff {rel.max():.3g} (limit {CPU_RTOL})")
+    if not rel.max() <= CPU_RTOL:
+        raise AssertionError("CPU and card wavelet-stream logL disagree")
+
+    # the main recipe with the monotonic-mask seeds on chunk 0: no K1
+    # launch in the init, K1 in the fit; the CPU's decisions on 4 blends
+    kn.reset_launch_counts()
+    mask_passes, mask_syncs, mask_closure_ms, mask_closure_host_ms = \
+        closure_work(use_mask=True)
+    mcfg, mdata, mstate, maux = stream.stream_setup(
+        *chunk_in, het["centers"][sl], mp, **setup_kw, use_mask=True)
+    init_k1 = kn.launch_counts()["monotonic_prox"]
+    out, losses = batch.fit_batch_device_converged(
+        mstate, mdata, mcfg, HET["max_iter"], HET["check_every"])
+    fit_k1 = kn.launch_counts()["monotonic_prox"] - init_k1
+    mrec = stream.stream_records(out, losses, maux)
+    if init_k1 != 0 or fit_k1 <= 0:
+        raise AssertionError(f"use_mask: K1 launched {init_k1} times in the "
+                             f"init and {fit_k1} in the fit")
+    if not all(np.isfinite(r["logL"]) and np.all(np.isfinite(r["flux"]))
+               for r in mrec):
+        raise AssertionError("a use_mask record is not finite")
+    _init_decisions_equal(het_setup(dev, het, CPU_BLENDS, use_mask=True),
+                          het_setup("cpu", het, CPU_BLENDS, use_mask=True),
+                          "use_mask")
+
+    # device detection feeding the wavelet recipe
+    m = REDETECT_BLENDS
+    dres, det_s = run(*(x[:m] for x in host_in), centers=None)
+    if not all(np.isfinite(r["logL"]) for r in dres[0]):
+        raise AssertionError("a centers=None wavelet record is not finite")
+
+    its = np.array([r["iterations"] for r in records])
+    wav_dev = float(np.median(dev_times))
+    summary = dict(
+        wavelet_blends_per_min=N_HET / float(np.median(host_times)) * 60.0,
+        wall_s=sorted(host_times), warmup_s=warm_s,
+        device_resident_blends_per_min=N_HET / wav_dev * 60.0,
+        device_resident_wall_s=sorted(dev_times),
+        main_device_resident_blends_per_min=N_HET / main_dev_s * 60.0,
+        main_device_resident_s=main_dev_s,
+        setup_wavelets_s_per_chunk=setup_wav_s,
+        setup_main_s_per_chunk=setup_main_s,
+        closure_passes_per_setup=passes, closure_host_reads_per_setup=syncs,
+        closure_device_ms_per_setup=closure_ms,
+        closure_range_host_ms_per_setup=closure_host_ms,
+        mask_closure_passes_per_setup=mask_passes,
+        mask_closure_host_reads_per_setup=mask_syncs,
+        mask_closure_device_ms_per_setup=mask_closure_ms,
+        mask_closure_range_host_ms_per_setup=mask_closure_host_ms,
+        median_iterations=float(np.median(its)),
+        iterations_sum=int(its.sum()),
+        mean_components=float(np.mean([r["n_components"] for r in records])),
+        overflow=int(sum(r["overflow"] for r in records)),
+        retried=int(sum(bool(r.get("overflow_retried")) for r in records)),
+        cpu_rerun_max_rel=float(rel.max()), cpu_rerun_s=cpu_s,
+        use_mask_fit_k1_launches=int(fit_k1),
+        use_mask_median_iterations=float(np.median(
+            [r["iterations"] for r in mrec])),
+        centers_none_blends=m, centers_none_wall_s=det_s)
+    log(f"wavelet stream of {N_HET} het blends on {dev}: "
+        f"{summary['wavelet_blends_per_min']:.1f} blends/min from numpy "
+        f"(walls {[round(x, 3) for x in sorted(host_times)]} s, warm-up "
+        f"{warm_s:.2f} s), {summary['device_resident_blends_per_min']:.1f} "
+        f"device-resident vs the main recipe's "
+        f"{summary['main_device_resident_blends_per_min']:.1f} (medians "
+        f"{wav_dev:.4f} vs {main_dev_s:.4f} s); stream_setup per chunk of "
+        f"{HET['chunk']}: wavelets {setup_wav_s:.4f} s, main "
+        f"{setup_main_s:.4f} s; mask closure per wavelet stream_setup: "
+        f"{passes} passes, {syncs} host reads, {closure_ms:.4f} device ms, "
+        f"{closure_host_ms:.4f} host ms profiled (use_mask: {mask_passes}, "
+        f"{mask_syncs}, {mask_closure_ms:.4f}, {mask_closure_host_ms:.4f}); "
+        f"median "
+        f"iterations {summary['median_iterations']}; "
+        f"{summary['mean_components']:.2f} components per blend; overflow "
+        f"{summary['overflow']} (retried {summary['retried']}); use_mask "
+        f"chunk 0: K1 0 launches in the init, {fit_k1} in the fit; "
+        f"centers=None on {m} blends {det_s:.3f} s; on {card}")
+    log(f"wavelet kernel launches (one run): {counts}")
+    return counts, summary
+
+
 def main():
     import torch
 
@@ -1401,6 +1622,10 @@ def main():
         dev, card, het, float(np.median(
             stream_summary["device_resident_wall_s"])))
     log(f"detection summary: {json.dumps(det_summary)}")
+    _, wav_summary = wavelet_path(
+        dev, card, het, float(np.median(
+            stream_summary["device_resident_wall_s"])))
+    log(f"wavelet summary: {json.dumps(wav_summary)}")
 
     # each kernel's launches from the run of the path that drives it:
     # K1, K3 and K4 from one device-stream run, K5 and K6 from the fit of

@@ -26,5 +26,8 @@ from .initialization import (  # noqa: F401
     init_main_parameters,
     init_adaprox_component,
     init_all_sources_main,
+    WaveletInitParameters,
+    init_wavelet_source,
+    init_all_sources_wavelets,
     parameterize_sources,
 )

@@ -417,7 +417,16 @@ def render(state, data, config):
 def _prox_morph_bucket(morphs, seds, data, config, b):
     """Box mask -> monotonicity -> background threshold (or positivity)
     -> center floor -> max normalization over bucket ``b``'s
-    (…, Kb, hb, wb) stack.  Ref: lite/models.py:224-244."""
+    (…, Kb, hb, wb) stack.  Ref: lite/models.py:224-244.
+
+    The projection's exit tolerance is ``config.mono_tol`` only under
+    ``use_pallas``, as in scarlet_tpu/lite/engine.py:627-647; the plain
+    branch there ignores it and so runs at tol 0 here.  Both branches run
+    whole 4-pass blocks (the kernel's exit rule), where the JAX plain
+    branch stops after exactly ``n_iter`` passes: at tol 0 the two agree
+    whenever ``n_iter`` is at least the table's DAG depth (every config
+    ``engine.monotonicity_tables`` builds) or a multiple of 4, so one
+    kernel and one plain version serve both configs."""
     hb, wb = config.box_shapes[b]
     bc = (hb // 2, wb // 2)
 
@@ -429,7 +438,8 @@ def _prox_morph_bucket(morphs, seds, data, config, b):
     idx = kernels.candidate_index(morphs, config.fit_center_radius)
     morphs = kernels.monotonic_prox(
         morphs, idx, data.mono_weights[b], data.mono_keep[b],
-        config.mono_n_iters[b], config.min_gradient, tol=config.mono_tol)
+        config.mono_n_iters[b], config.min_gradient,
+        tol=config.mono_tol if config.use_pallas else 0.0)
 
     if config.bg_thresh is not None:
         model = seds[..., :, None, None] * morphs[..., None, :, :]

@@ -1,24 +1,31 @@
 """Lite source initialization (host-side).
 
 Behavioral reference: scarlet/lite/initialization.py.  Detection coadd,
-monotonic morphology seeds, joint SED least squares, and the SNR-gated
-1/2-component bulge-disk split of the scarlet-main recipe.
+monotonic morphology seeds (projected, or masked by the monotonic flood
+fill), joint SED least squares, the SNR-gated 1/2-component bulge-disk
+split of the scarlet-main recipe, and the wavelet recipe (starlet
+detection dictionaries, bulge and disk from separate scales).
 """
 from __future__ import annotations
 
+import logging
 from functools import partial
 
 import numpy as np
 import torch
 
 from ..bbox import Box
+from ..detect import bounds_to_bbox, get_detect_wavelets
 from ..ops import prox as prox_ops
 from ..initialization import trim_morphology
 from ..models.parameter import relative_step
 from .measure import calculate_snr
 from .models import LiteSource, LiteFactorizedComponent, LiteComponent
 from .parameters import AdaproxParameter
-from .utils import insert_image, host_convolve as _host_convolve, to_numpy
+from .utils import (insert_image, host_convolve as _host_convolve,
+                    project_morph_to_center, to_numpy)
+
+logger = logging.getLogger("scarlet_tpu_torch.lite.initialization")
 
 __all__ = [
     "init_monotonic_morph",
@@ -26,6 +33,9 @@ __all__ = [
     "init_main_parameters",
     "init_adaprox_component",
     "init_all_sources_main",
+    "WaveletInitParameters",
+    "init_wavelet_source",
+    "init_all_sources_wavelets",
     "parameterize_sources",
 ]
 
@@ -47,15 +57,28 @@ def init_monotonic_morph(detect, center, full_box, grow=0, normalize=True,
     """Monotonic morphology seed from a detection image.
     Ref: lite/initialization.py:83-137.
 
-    Only ``use_mask=False`` (the scarlet-main recipe) is ported: the
-    detection image is projected with the exact Jacobi formulation at
-    ``n_iter = monotonic_depth`` (equal to the reference's sequential
-    sweep) and trimmed at ``thresh``.
+    ``use_mask=True``: the pixels reachable monotonically from the peak
+    (:func:`prox_ops.prox_monotonic_mask`, no orphan interpolation), their
+    bounds grown by ``grow`` and centered in the smallest quantized box.
+    ``use_mask=False`` (the scarlet-main recipe): the detection image
+    projected with the exact Jacobi formulation at ``n_iter =
+    monotonic_depth`` (equal to the reference's sequential sweep) and
+    trimmed at ``thresh``.  Returns (bbox, morph), morph None when the
+    seed is empty.
     """
-    if use_mask:
-        raise NotImplementedError(
-            "init_monotonic_morph(use_mask=True) is not ported")
     detect = to_numpy(detect)
+    if use_mask:
+        _, morph, bounds = prox_ops.prox_monotonic_mask(detect, 0, center,
+                                                        max_iter=0)
+        bbox = bounds_to_bbox(bounds)
+        if bbox.shape == (1, 1) and morph[bbox.slices][0, 0] == 0:
+            return bbox, None
+        if grow is not None and grow > 0:
+            bbox = bbox.grow(grow)
+        morph, bbox = project_morph_to_center(morph, center, bbox, full_box)
+        if normalize:
+            morph = morph / np.max(morph)
+        return bbox, morph
     weights = prox_ops.monotonic_weights(detect.shape, "angle", center)
     n_iter = prox_ops.monotonic_depth(weights, detect.shape, center)
     morph = to_numpy(prox_ops.prox_weighted_monotonic(
@@ -219,6 +242,131 @@ def init_all_sources_main(observation, centers, detect=None, min_snr=50,
                                         sed, morph)]
 
         sources.append(LiteSource(components, images.dtype))
+    return sources
+
+
+class WaveletInitParameters:
+    """Shared precomputations of the wavelet recipe: the starlet detection
+    dictionaries (coefficients clipped at 0; detectlets = all detail
+    scales, bulgelets = ``bulge_slice``, disklets = ``disk_slice``), the
+    detectlets convolved to each band's seeing, and the PSF SED.
+    Ref: lite/initialization.py:422-477."""
+
+    def __init__(self, observation, bulge_slice=slice(None, 2),
+                 disk_slice=slice(2, -1), bulge_grow=5, disk_grow=5,
+                 use_psf=True, scales=5, wavelets=None):
+        images = to_numpy(observation.images)
+        if wavelets is None:
+            wavelets = get_detect_wavelets(
+                images, to_numpy(observation.variance), scales=scales)
+        wavelets = np.array(to_numpy(wavelets), copy=True)
+        wavelets[wavelets < 0] = 0
+        detectlets = np.sum(wavelets[:-1], axis=0)
+        bulgelets = np.sum(wavelets[bulge_slice], axis=0)
+        disklets = np.sum(wavelets[disk_slice], axis=0)
+
+        model_psf = to_numpy(observation.model_psf)
+        convolved = _host_convolve(
+            observation, np.repeat(detectlets[None, :, :],
+                                   observation.shape[0], axis=0))
+        convolved_psf = _host_convolve(
+            observation, np.repeat(model_psf[0][None, :, :],
+                                   images.shape[0], axis=0))
+        py = model_psf.shape[1] // 2
+        px = model_psf.shape[2] // 2
+
+        self.observation = observation
+        self.images = images
+        self.convolved = convolved
+        self.detectlets = detectlets
+        self.bulgelets = bulgelets
+        self.disklets = disklets
+        self.bulge_grow = bulge_grow
+        self.disk_grow = disk_grow
+        self.psf_sed = convolved_psf[:, py, px]
+        self.py = py
+        self.px = px
+        self.use_psf = use_psf
+
+
+def init_wavelet_source(center, nbr_components, init):
+    """One source from the wavelet dictionaries: the PSF seed below one
+    component's S/N (or off the detectlets' support), one detectlets
+    component below two, else a bulge and a disk with joint SEDs; a
+    component whose SED solves to 0 is dropped, and a source whose seeds
+    are all empty has no component.  Ref: lite/initialization.py:480-559.
+    """
+    observation = init.observation
+    dtype = init.images.dtype
+    model_psf = to_numpy(observation.model_psf)[0]
+    sed_center = (slice(None), center[0], center[1])
+
+    if (nbr_components < 1 and init.use_psf) or \
+            init.detectlets[center[0], center[1]] <= 0:
+        sed = _ratio_sed(init.images[sed_center], init.psf_sed)
+        morph = model_psf / np.max(model_psf)
+        bbox = Box(model_psf.shape,
+                   origin=(center[0] - init.py, center[1] - init.px))
+        component = LiteComponent(center, observation.bbox[0] @ bbox, sed,
+                                  morph)
+        return LiteSource([component], dtype)
+
+    if nbr_components < 2:
+        bbox, morph = init_monotonic_morph(
+            init.detectlets, center, observation.bbox[1:], init.disk_grow)
+        if morph is None or np.max(morph) <= 0:
+            return LiteSource([], dtype)
+        sed = _ratio_sed(init.images[sed_center],
+                         init.convolved[sed_center])
+        morph = morph / np.max(morph)
+        component = LiteComponent(center, observation.bbox[0] @ bbox, sed,
+                                  morph)
+        return LiteSource([component], dtype)
+
+    bulge_box, bulge_morph = init_monotonic_morph(
+        init.bulgelets, center, observation.bbox[1:], init.bulge_grow)
+    disk_box, disk_morph = init_monotonic_morph(
+        init.disklets, center, observation.bbox[1:], init.disk_grow)
+
+    if bulge_morph is None or disk_morph is None:
+        if bulge_morph is None and disk_morph is None:
+            return LiteSource([], dtype)
+        return init_wavelet_source(center, 1, init)
+
+    bulge_sed, disk_sed = multifit_seds(
+        observation, [bulge_morph, disk_morph], [bulge_box, disk_box])
+
+    components = []
+    if np.sum(bulge_sed != 0):
+        components.append(LiteComponent(
+            center, observation.bbox[0] @ bulge_box, bulge_sed, bulge_morph))
+    else:
+        logger.debug("cut bulge")
+    if np.sum(disk_sed) != 0:
+        components.append(LiteComponent(
+            center, observation.bbox[0] @ disk_box, disk_sed, disk_morph))
+    else:
+        logger.debug("cut disk")
+    return LiteSource(components, dtype)
+
+
+def init_all_sources_wavelets(observation, centers, min_snr=50, bulge_grow=5,
+                              disk_grow=5, use_psf=True,
+                              bulge_slice=slice(None, 2),
+                              disk_slice=slice(2, -1), scales=5,
+                              wavelets=None):
+    """All sources from the wavelet dictionaries, each with its
+    ``floor(snr) / min_snr`` components (:func:`init_wavelet_source`).
+    Ref: lite/initialization.py:562-605."""
+    init = WaveletInitParameters(
+        observation, bulge_slice, disk_slice, bulge_grow, disk_grow, use_psf,
+        scales, wavelets)
+    variance = to_numpy(observation.variance)
+    psfs = to_numpy(observation.psfs)
+    sources = []
+    for center in centers:
+        snr = np.floor(calculate_snr(init.images, variance, psfs, center))
+        sources.append(init_wavelet_source(center, snr / min_snr, init))
     return sources
 
 

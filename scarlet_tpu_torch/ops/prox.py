@@ -7,7 +7,10 @@ graph is a DAG and ``monotonic_depth`` parallel passes reproduce the
 reference's sequential radius-ordered sweep (operators_pybind11.cc:14-36).
 
 The weight tables and the DAG depth are host-side numpy; the projection
-itself and the symmetry operators work on torch tensors.
+itself and the symmetry operators work on torch tensors.  The monotonic
+mask (the pixels reachable monotonically from the peak) is a batched
+closure on tensors, :func:`monotonic_mask_device`, which
+:func:`prox_monotonic_mask` wraps for one host image.
 
 Behavioral references: scarlet/operator.py, scarlet/operators_pybind11.cc.
 """
@@ -27,6 +30,12 @@ __all__ = [
     "prox_sdss_symmetry",
     "uncentered_operator",
     "prox_uncentered_symmetry",
+    "MASK_PASSES",
+    "mask_counts",
+    "reset_mask_counts",
+    "mask_extent",
+    "prox_monotonic_mask",
+    "monotonic_mask_device",
 ]
 
 # 8-neighbor offsets in the reference's order (operator.py:84).
@@ -203,3 +212,148 @@ def prox_uncentered_symmetry(X, step=0, center=None, algorithm="kspace",
             "ported; only 'sdss' is")
     return uncentered_operator(X, prox_sdss_symmetry, center, step=step,
                                fill=fill)
+
+
+# ---------------------------------------------------------------------------
+# Monotonic mask: the pixels reachable monotonically from the peak
+# ---------------------------------------------------------------------------
+# closure passes between two host reads of "did any pixel join"
+MASK_PASSES = 8
+
+# closure passes and host reads of monotonic_mask_device since the last
+# reset_mask_counts()
+_mask_counts = {"passes": 0, "host_syncs": 0}
+
+
+def mask_counts():
+    """Closure passes and host reads of :func:`monotonic_mask_device`
+    since the last :func:`reset_mask_counts` (a copy)."""
+    return dict(_mask_counts)
+
+
+def reset_mask_counts():
+    for k in _mask_counts:
+        _mask_counts[k] = 0
+
+
+def mask_extent(on):
+    """Bounds of each (..., H, W) mask's pixels: (y0, y1, x0, x1) tensors,
+    H, -1, W, -1 where a mask is empty."""
+    H, W = on.shape[-2:]
+    ry = torch.arange(H, device=on.device)
+    rx = torch.arange(W, device=on.device)
+    row_on = on.any(dim=-1)
+    col_on = on.any(dim=-2)
+    return (torch.where(row_on, ry, H).amin(dim=-1),
+            torch.where(row_on, ry, -1).amax(dim=-1),
+            torch.where(col_on, rx, W).amin(dim=-1),
+            torch.where(col_on, rx, -1).amax(dim=-1))
+
+
+def prox_monotonic_mask(X, step=0, center=None, center_radius=1,
+                        variance=0.0, max_iter=3):
+    """Keep only the pixels reachable monotonically from the peak near
+    ``center``; returns ``(valid, model, bounds)`` (numpy, host side).
+    Ref: scarlet/operator.py:132-180.
+
+    The mask is :func:`monotonic_mask_device`'s closure on the image's
+    float32 values, on the CPU; ``bounds`` (min y, max y, min x, max x)
+    is its extent, and the model the float32 image times the mask, cast
+    back to the image's dtype, as the JAX package's native fill computes
+    them.  Only ``max_iter=0`` is ported: the interpolation of orphan
+    pixels that ``max_iter > 0`` runs (operators_pybind11.cc:127-232)
+    raises ``NotImplementedError``."""
+    if max_iter > 0:
+        raise NotImplementedError(
+            "prox_monotonic_mask: orphan interpolation (max_iter > 0) is not "
+            "ported; pass max_iter=0")
+    X = np.asarray(X)
+    if center is None:
+        center = (X.shape[0] // 2, X.shape[1] // 2)
+    if center_radius > 0:
+        c = (int(center[0]), int(center[1]))
+    else:
+        c, center_radius = (int(np.round(center[0])),
+                            int(np.round(center[1]))), 0
+    X32 = np.ascontiguousarray(X, np.float32)
+    valid, _ = monotonic_mask_device(torch.from_numpy(X32), torch.tensor(c),
+                                     center_radius, variance)
+    bounds = np.array([int(b) for b in mask_extent(valid)], dtype=np.int32)
+    valid = valid.numpy()
+    return valid, (X32 * valid).astype(X.dtype), bounds
+
+
+def monotonic_mask_device(X, centers, center_radius=1, variance=0.0):
+    """The monotonic mask of :func:`prox_monotonic_mask` (``max_iter=0``)
+    for a batch, on the tensors' device: X (..., H, W), centers (..., 2)
+    integer (y, x).  Port of scarlet_tpu/ops/prox.py:414-473.
+
+    The peak is searched in the (2r+1)^2 window about each center, which
+    is clipped at the low edge and masked past the high edge; the first
+    maximum wins.  A pixel joins when a 4-neighbour has joined, it is
+    below that neighbour plus ``variance``, and it is positive: which
+    pixels join depends only on the original values, so the set is the
+    closure of these steps, whatever their order (the set the reference's
+    host flood fill finds).  Passes run in blocks of :data:`MASK_PASSES`
+    and the host reads "did any pixel of the batch join" once per block
+    (a pass after the closure changes nothing); :func:`mask_counts`
+    counts them.  The call is a ``torch.profiler`` range of its own name.
+
+    Returns ``(valid, model)``: the (..., H, W) bool mask and X where
+    valid, +0 elsewhere (XLA's select, where
+    :func:`prox_monotonic_mask`'s product keeps the sign of a negative
+    pixel's zero)."""
+    with torch.profiler.record_function("monotonic_mask_device"):
+        return _mask_closure(X, centers, center_radius, variance)
+
+
+def _mask_closure(X, centers, center_radius, variance):
+    lead = X.shape[:-2]
+    H, W = X.shape[-2:]
+    x = X.reshape(-1, H, W)
+    N = x.shape[0]
+    dev = x.device
+    c = torch.as_tensor(centers, device=dev).reshape(N, 2).long()
+    cy, cx = c[:, 0], c[:, 1]
+    if center_radius > 0:
+        r = int(center_radius)
+        n = 2 * r + 1
+        # the window's top-left, clipped at the low edge and kept inside
+        # the image padded by 2r at the high edge (a dynamic slice)
+        y0 = (cy - r).clamp(0, H - 1)
+        x0 = (cx - r).clamp(0, W - 1)
+        pad = F.pad(x, (0, 2 * r, 0, 2 * r), value=float("-inf"))
+        off = torch.arange(n, device=dev)
+        rows = y0[:, None] + off                                 # (N, n)
+        cols = x0[:, None] + off
+        win = pad[torch.arange(N, device=dev)[:, None, None],
+                  rows[:, :, None], cols[:, None, :]]            # (N, n, n)
+        ok = ((rows <= (cy + r)[:, None]) & (rows < H))[:, :, None] \
+            & ((cols <= (cx + r)[:, None]) & (cols < W))[:, None, :]
+        k = torch.where(ok, win, float("-inf")).flatten(1).argmax(dim=1)
+        cy = y0 + k // n
+        cx = x0 + k % n
+
+    yy = torch.arange(H, device=dev)
+    xx = torch.arange(W, device=dev)
+    valid = (yy[:, None] == cy[:, None, None]) \
+        & (xx[None, :] == cx[:, None, None])
+    # may a pixel join from its neighbour above, below, left, right
+    pos = x > 0
+    from_up = (x[:, 1:] < x[:, :-1] + variance) & pos[:, 1:]
+    from_down = (x[:, :-1] < x[:, 1:] + variance) & pos[:, :-1]
+    from_left = (x[:, :, 1:] < x[:, :, :-1] + variance) & pos[:, :, 1:]
+    from_right = (x[:, :, :-1] < x[:, :, 1:] + variance) & pos[:, :, :-1]
+    while True:
+        before = valid.clone()
+        for _ in range(MASK_PASSES):
+            valid[:, 1:] |= valid[:, :-1] & from_up
+            valid[:, :-1] |= valid[:, 1:] & from_down
+            valid[:, :, 1:] |= valid[:, :, :-1] & from_left
+            valid[:, :, :-1] |= valid[:, :, 1:] & from_right
+        _mask_counts["passes"] += MASK_PASSES
+        _mask_counts["host_syncs"] += 1
+        if not bool((valid != before).any()):
+            break
+    valid = valid.reshape(*lead, H, W)
+    return valid, torch.where(valid, X, 0.0)

@@ -1,6 +1,8 @@
 """Starlet (isotropic undecimated) wavelet transform and the ground-type
 multiresolution support, batched over leading axes: the part of
-``scarlet_tpu/ops/wavelet.py`` that device detection runs.
+``scarlet_tpu/ops/wavelet.py`` that device detection and the wavelet
+initialization run, and the host support of the wavelet init's host
+path (:func:`get_multiresolution_support`).
 
 The a-trous B3-spline convolution is five zero-boundary shift-adds per
 axis, in the JAX package's order, so each coefficient is the same sum of
@@ -17,6 +19,7 @@ __all__ = [
     "get_scales",
     "starlet_transform",
     "multiresolution_support",
+    "get_multiresolution_support",
 ]
 
 # B3 spline filter (Starck et al. 2011; scarlet/wavelet.py:171)
@@ -148,3 +151,31 @@ def multiresolution_support(starlets, sigma, K=3, epsilon=1e-1, max_iter=20,
         done = done | conv
     mask = absc > K * sig_last[..., None, None]
     return mask.to(torch.int32).reshape(*lead, J, H, W)
+
+
+def get_multiresolution_support(image, starlets, sigma, K=3, epsilon=1e-1,
+                                max_iter=20, image_type="ground"):
+    """Significance masks (K-sigma clipping per scale) of host (numpy)
+    starlet coefficients: (J, H, W) int.  Host side, the ground variant of
+    scarlet_tpu/ops/wavelet.py:211-251, in its numpy arithmetic (the std
+    of the float32 coefficients times the int mask, the loop's early
+    exit), so the host path decides like the JAX package's.  The "space"
+    variant draws unseeded noise and is not ported."""
+    if image_type != "ground":
+        raise NotImplementedError(
+            f"get_multiresolution_support: image_type {image_type!r} is not "
+            "ported; only 'ground' is")
+    image = np.asarray(image)
+    starlets = np.asarray(starlets)
+    sigma_j = np.ones((len(starlets),), dtype=image.dtype) * sigma
+    last_sigma_j = sigma_j
+    for _ in range(max_iter):
+        M = np.abs(starlets) > K * sigma_j[:, None, None]
+        S = ~M
+        sigma_j = np.std(starlets * S.astype(int), axis=(1, 2))
+        cut = sigma_j > 0
+        if np.all(np.abs(sigma_j[cut] - last_sigma_j[cut]) / sigma_j[cut]
+                  < epsilon):
+            break
+        last_sigma_j = sigma_j
+    return M.astype(int)

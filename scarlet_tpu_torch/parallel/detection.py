@@ -98,6 +98,16 @@ def _masked_median_sigma(variance, validb):
     return 0.5 * (flat.gather(1, lo) + flat.gather(1, hi))[:, 0]
 
 
+def _ordered_sum(x, dim):
+    """Sum over ``dim`` term by term in index order (XLA's reduction
+    order over a short leading axis)."""
+    terms = x.unbind(dim)
+    out = terms[0]
+    for t in terms[1:]:
+        out = out + t
+    return out
+
+
 def _segment(values, seg, n, reduce):
     """``reduce`` ("sum", "amin", "amax") of ``values`` by segment id
     ``seg`` (both flat), into ``n`` segments; empty segments hold 0."""
@@ -205,11 +215,7 @@ def detect_peaks_device(images, variance, scene_valid=None, *, max_peaks,
     else:
         sv = torch.as_tensor(scene_valid, device=images.device).to(dtype)
     validb = sv > 0.5
-    # the band sum in band order (XLA's reduction order)
-    band_sum = images[:, 0]
-    for c in range(1, C):
-        band_sum = band_sum + images[:, c]
-    detect_sum = torch.where(validb, band_sum, 0.0)
+    detect_sum = torch.where(validb, _ordered_sum(images, 1), 0.0)
     sigma = _masked_median_sigma(variance, validb)
     coeffs = wavelet_ops.starlet_transform(detect_sum, scales=scales)
     M = wavelet_ops.multiresolution_support(coeffs, sigma, K=3, epsilon=1e-1,

@@ -6,13 +6,20 @@ Port of ``scarlet_tpu/parallel/stream.py``:
     raw (B, C, H, W) stacks -> stream_setup -> (config, BlendData,
     BlendState, aux) -> fit_batch_device_converged -> stream_records
 
-The initialization is the host recipe of ``lite.init_all_sources_main``
-(chi^2 coadd detection, SDSS symmetrization, exact weighted-monotonic
-projection, threshold trim, SNR-gated bulge/disk split with joint
-least-squares SEDs, PSF fallback) written over the (B, K) axes of a
+The initialization is a host recipe written over the (B, K) axes of a
 chunk of blends and their catalog rows as tensor axes, with no per-blend
-host work.  The projection runs through kernel ``monotonic_prox`` (K1)
-with one centered table, exact (tol 0).
+host work:
+
+- ``recipe="main"``, ``lite.init_all_sources_main``: chi^2 coadd
+  detection, SDSS symmetrization, exact weighted-monotonic projection
+  (kernel ``monotonic_prox``, K1, with one centered table at tol 0),
+  threshold trim, SNR-gated bulge/disk split with joint least-squares
+  SEDs, PSF fallback; with ``use_mask=True`` the monotonic mask
+  (``ops.prox.monotonic_mask_device``) replaces the projection and trim;
+- ``recipe="wavelets"``, ``lite.init_all_sources_wavelets``: starlet
+  detection dictionaries with the multiresolution support, each row's
+  single, bulge and disk seeds masked by the monotonic mask in one
+  batched call, boxes grown by ``grow``, the PSF gate, joint SEDs.
 
 With ``centers=None`` the catalogs are detected on the stream's device
 (``parallel.detection.detect_peaks_device``) from the sanitized stacks, and
@@ -20,9 +27,8 @@ With ``centers=None`` the catalogs are detected on the stream's device
 followed by a cold refit with the grown catalog.
 
 Options of the JAX stream that the port does not run yet raise
-``NotImplementedError``: the wavelet recipe, the monotonic-mask seeds
-(``use_mask``), quantized uploads (``upload_dtype``), the upload bandwidth
-probe (``upload="auto"``) and box growth.
+``NotImplementedError``: quantized uploads (``upload_dtype``), the upload
+bandwidth probe (``upload="auto"``) and box growth.
 """
 from __future__ import annotations
 
@@ -35,10 +41,11 @@ from ..lite import engine
 from ..ops import fft as fft_ops
 from ..ops import kernels
 from ..ops import prox as prox_ops
+from ..ops import wavelet as wavelet_ops
 from ..optim import AdaproxState
 from .batch import (_SHARED_FIELDS, fit_batch_device_collect,
                     fit_batch_device_converged, fit_batch_device_dispatch)
-from .detection import detect_peaks_device
+from .detection import _masked_median_sigma, _ordered_sum, detect_peaks_device
 
 __all__ = ["stream_setup", "stream_records", "deblend_device_stream"]
 
@@ -138,27 +145,104 @@ def _convolve_shared(image, kernel_rfft, fft_shape):
                                      (-2, -1))
 
 
+def _wavelet_dictionaries(images, variance, scene_valid, n_scales,
+                          bulge_scales):
+    """The wavelet recipe's detection dictionaries of a chunk (B, H, W)
+    each (stream.py:145-168 of the JAX package): the band sum's starlet
+    coefficients, significance-masked by the multiresolution support and
+    clipped at 0; detectlets sum every detail scale, bulgelets the first
+    ``bulge_scales``, disklets the rest."""
+    validb = scene_valid > 0.5
+    detect_sum = torch.where(validb, _ordered_sum(images, 1), 0.0)
+    sigma = _masked_median_sigma(variance, validb)
+    coeffs = wavelet_ops.starlet_transform(detect_sum, scales=n_scales)
+    M = wavelet_ops.multiresolution_support(coeffs, sigma, K=3, epsilon=1e-1,
+                                            max_iter=20, valid=scene_valid)
+    w = torch.clamp_min(M.to(images.dtype) * coeffs, 0.0)   # (B, J, H, W)
+    return (_ordered_sum(w[:, :-1], 1), _ordered_sum(w[:, :bulge_scales], 1),
+            _ordered_sum(w[:, bulge_scales:-1], 1))
+
+
+def _centered_box(half, S, dtype):
+    """(…, S, S) masks of the centered boxes of half-size ``half`` (…)."""
+    ridx = torch.arange(S, device=half.device) - S // 2
+    h = half[..., None, None]
+    return ((ridx[:, None].abs() <= h) & (ridx[None, :].abs() <= h)).to(dtype)
+
+
+def _joint_seds(bulge, disk, bm, images, kernel_rfft, cyc, cxc, fft_shape):
+    """Joint bulge/disk SEDs per band by 2x2 normal equations with a
+    relative ridge (stream.py:286-314 of the JAX package): each morph
+    (B, K, S, S) placed at its box corner (cyc, cxc) in a padded scene,
+    convolved per band, cut back out and masked by ``bm``."""
+    B, C, H, W = images.shape
+    K, S = bulge.shape[1], bulge.shape[-1]
+    hS = S // 2
+    dev = images.device
+    ridx = torch.arange(S, device=dev)
+    pair = torch.stack([bulge, disk], 2)                     # (B,K,2,S,S)
+    scene = images.new_zeros((B, K, 2, H + 2 * hS, W + 2 * hS))
+    rows = cyc[..., None, None] + ridx[:, None]                 # (B,K,S,1)
+    cols = cxc[..., None, None] + ridx[None, :]                 # (B,K,1,S)
+    b5 = torch.arange(B, device=dev)[:, None, None, None]
+    k5 = torch.arange(K, device=dev)[None, :, None, None]
+    scene = scene.movedim(2, -1)
+    scene[b5, k5, rows, cols] = pair.movedim(2, -1)
+    scene = scene.movedim(-1, 2)[..., hS:hS + H, hS:hS + W]
+    conv = _convolve_shared(scene[..., None, :, :],
+                            kernel_rfft[:, None, None], fft_shape)
+    conv = F.pad(conv, (hS, hS, hS, hS))             # (B, K, 2, C, Hp, Wp)
+    cwin = _windows(conv.reshape(B * K, 2 * C, *conv.shape[-2:]),
+                    cyc.reshape(B * K, 1), cxc.reshape(B * K, 1), S, S)
+    cwin = cwin.reshape(B, K, 2, C, S, S)
+    bm = bm[:, :, None]                                      # (B,K,1,S,S)
+    A1 = cwin[:, :, 0] * bm
+    A2 = cwin[:, :, 1] * bm
+    ipad = F.pad(images, (hS, hS, hS, hS))
+    y = _windows(ipad, cyc, cxc, S, S) * bm                   # (B,K,C,S,S)
+    g11 = (A1 * A1).sum(dim=(-2, -1))
+    g22 = (A2 * A2).sum(dim=(-2, -1))
+    g12 = (A1 * A2).sum(dim=(-2, -1))
+    r1 = (A1 * y).sum(dim=(-2, -1))
+    r2 = (A2 * y).sum(dim=(-2, -1))
+    # relative ridge: the solve stays finite when bulge == disk; an
+    # all-zero pair (a null wavelet slot) has det clamped, numerators 0
+    lam = 1e-6 * torch.maximum(g11, g22) + TINY
+    g11 = g11 + lam
+    g22 = g22 + lam
+    det = torch.clamp_min(g11 * g22 - g12 * g12, TINY)
+    return (torch.clamp_min((g22 * r1 - g12 * r2) / det, 0.0),
+            torch.clamp_min((g11 * r2 - g12 * r1) / det, 0.0))
+
+
 def _init_batch(images, variance, psfs, centers, center_on, model_psf,
                 scene_valid, w8, keep_c, *, S, n_slots, fft_shape,
                 match_shape, psf_fft_shape, mono_iter, min_snr, thresh,
-                percentile):
-    """The main-recipe initialization (stream.py:171-541 of the JAX
-    package, ``recipe="main"``) of a chunk of B blends with K catalog rows
-    each.  Returns (data_leaves, state_leaves, aux) with slot-packed
-    tensors at the shared (S, n_slots) layout."""
+                percentile, use_mask=False, recipe="main", grow=5,
+                n_scales=5, bulge_scales=2, use_psf=True):
+    """The initialization (stream.py:171-541 of the JAX package) of a
+    chunk of B blends with K catalog rows each: the main recipe (with
+    ``use_mask``, the monotonic mask's seeds instead of the projection and
+    trim) or the wavelet recipe.  Returns (data_leaves, state_leaves, aux)
+    with slot-packed tensors at the shared (S, n_slots) layout."""
     B, C, H, W = images.shape
     K = centers.shape[1]
     hS = S // 2
     dtype = images.dtype
     dev = images.device
     bi = torch.arange(B, device=dev)[:, None]
+    wavelets = recipe == "wavelets"
 
     # --- observation-level quantities ------------------------------------
     n_valid = torch.clamp_min(scene_valid.sum(dim=(-2, -1)), 1.0)   # (B,)
     noise_rms = ((torch.sqrt(variance) * scene_valid[:, None]).sum(
         dim=(-2, -1)) / n_valid[:, None])                           # (B, C)
-    detect = ((images / (noise_rms ** 2)[..., None, None]).sum(dim=1)
-              * scene_valid)                                       # (B,H,W)
+    if wavelets:
+        detect, bulgelets, disklets = _wavelet_dictionaries(
+            images, variance, scene_valid, n_scales, bulge_scales)
+    else:
+        detect = ((images / (noise_rms ** 2)[..., None, None]).sum(dim=1)
+                  * scene_valid)                                   # (B,H,W)
 
     # difference kernel (fft.match_psf semantics: the k-space ratio at the
     # PSF-matching shape, the kernel image at the PSF shape) and its rFFTs
@@ -197,8 +281,6 @@ def _init_batch(images, variance, psfs, centers, center_on, model_psf,
     ph, pw = psfs.shape[-2:]
     py, px = ph // 2, pw // 2
     dpad = F.pad(detect, (hS, hS, hS, hS))
-    vpad = F.pad(scene_valid, (hS, hS, hS, hS))
-    ipad = F.pad(images, (hS, hS, hS, hS))
     ipad_p = F.pad(images, (px, px, py, py))
     vpad_p = F.pad(variance, (px, px, py, py))
 
@@ -207,10 +289,6 @@ def _init_batch(images, variance, psfs, centers, center_on, model_psf,
     # box corners in the hS-padded views, and the centers' own pixels
     cyc, cxc = _corner(cys, H + 2 * hS, S), _corner(cxs, W + 2 * hS, S)
     cy1, cx1 = _corner(cys, H, 1), _corner(cxs, W, 1)
-    thresh_val = noise_rms.mean(dim=-1) * thresh                    # (B,)
-    flux_thresh = torch.tensor(percentile / 100.0, dtype=dtype, device=dev)
-    ridx = torch.arange(S, device=dev)
-    yy, xx = ridx[:, None], ridx[None, :]
 
     # PSF-weighted peak S/N (lite/measure.py calculate_snr)
     cyp = _corner(cys, H + 2 * py, ph)
@@ -221,106 +299,94 @@ def _init_batch(images, variance, psfs, centers, center_on, model_psf,
     snr = ((img_c * p4).sum(dim=(-3, -2, -1))
            / torch.sqrt(torch.clamp_min(
                (p4 * var_c * p4).sum(dim=(-3, -2, -1)), TINY)))    # (B, K)
-    split_snr = torch.floor(snr) / min_snr >= 2
-
-    # centered S x S detection cutouts; SDSS symmetrization only where a
-    # pixel and its mirror are both inside the image
-    d = _windows(dpad, cyc, cxc, S, S)                          # (B,K,S,S)
-    valid = _windows(vpad, cyc, cxc, S, S) > 0.5
-    both = valid & torch.flip(valid, (-2, -1))
-    d = torch.where(both, torch.minimum(d, torch.flip(d, (-2, -1))), d)
-
-    # exact weighted-monotonic projection, then the threshold trim
-    # (initialization.trim_morphology): sub-threshold pixels to 0, the
-    # centered quantized logical box
-    m = _mono_project(d, w8, keep_c, mono_iter)
-    m = torch.where(m > thresh_val[:, None, None, None], m, 0.0)
-    on = m > 0
-    row_on = on.any(dim=-1)                                     # (B, K, S)
-    col_on = on.any(dim=-2)
-    y0 = torch.where(row_on, ridx, S).amin(dim=-1)
-    y1 = torch.where(row_on, ridx, -1).amax(dim=-1)
-    x0 = torch.where(col_on, ridx, S).amin(dim=-1)
-    x1 = torch.where(col_on, ridx, -1).amax(dim=-1)
-    contains = (y0 <= hS) & (hS <= y1) & (x0 <= hS) & (hS <= x1)
-    # trim_morphology's size, with the stop-side +1 of the Box bounds
-    size = 2 * torch.maximum(torch.maximum(hS - y0, y1 + 1 - hS),
-                             torch.maximum(hS - x0, x1 + 1 - hS))
-    half = (_quantized_boxsize(size, S) // 2)[..., None, None]
-    box_mask = (((yy - hS).abs() <= half)
-                & ((xx - hS).abs() <= half)).to(dtype)
-    m = m * box_mask
-    morph_max = m.amax(dim=(-2, -1))                                # (B, K)
-    fallback = ~contains | (morph_max <= 0)
-
-    # peak SED from the image / convolved-detection ratio
     img_pk = images[bi, :, cy1, cx1]                            # (B, K, C)
-    sed = _ratio_sed(img_pk, convolved[bi, :, cy1, cx1]) \
-        * morph_max[..., None]
-    morph = m / torch.clamp_min(morph_max, TINY)[..., None, None]
-
-    # PSF fallback
+    conv_pk = convolved[bi, :, cy1, cx1]
     sed_fb = _ratio_sed(img_pk, psf_sed[:, None])
-    fb3 = fallback[..., None, None]
-    morph = torch.where(fb3, psf_morph, morph)
-    sed = torch.where(fallback[..., None], sed_fb, sed)
-    box_mask = torch.where(fb3, psf_box_mask, box_mask)
 
-    # bulge/disk split candidates (percentile/100 flux threshold)
-    disk = torch.minimum(morph, flux_thresh)
-    bulge = torch.clamp_min(morph - flux_thresh, 0.0)
-    bmax = bulge.amax(dim=(-2, -1))
-    dmax = disk.amax(dim=(-2, -1))
-    split = split_snr & ~fallback & (bmax > 0) & (dmax > 0)
-    bulge = bulge / torch.clamp_min(bmax, TINY)[..., None, None]
-    disk = disk / torch.clamp_min(dmax, TINY)[..., None, None]
+    if wavelets:
+        (prim_morph, prim_sed, prim_mask, disk, disk_sed, disk_mask, prim_on,
+         disk_on, split, fallback) = _wavelet_seeds(
+            dpad, bulgelets, disklets, detect[bi, cy1, cx1], snr, img_pk,
+            conv_pk, sed_fb, psf_morph, psf_box_mask, center_on, images,
+            kernel_rfft, cyc, cxc, S=S, fft_shape=fft_shape, min_snr=min_snr,
+            grow=grow, use_psf=use_psf)
+    else:
+        thresh_val = noise_rms.mean(dim=-1) * thresh                # (B,)
+        flux_thresh = torch.tensor(percentile / 100.0, dtype=dtype,
+                                   device=dev)
+        split_snr = torch.floor(snr) / min_snr >= 2
 
-    # --- joint bulge/disk SEDs: per-band 2x2 normal equations -------------
-    # each morph placed at its center in a padded scene, convolved per
-    # band, and cut back out (stream.py:286-314)
-    pair = torch.stack([bulge, disk], 2)                     # (B,K,2,S,S)
-    scene = images.new_zeros((B, K, 2, H + 2 * hS, W + 2 * hS))
-    rows = cyc[..., None, None] + ridx[:, None]                 # (B,K,S,1)
-    cols = cxc[..., None, None] + ridx[None, :]                 # (B,K,1,S)
-    b5 = torch.arange(B, device=dev)[:, None, None, None]
-    k5 = torch.arange(K, device=dev)[None, :, None, None]
-    scene = scene.movedim(2, -1)
-    scene[b5, k5, rows, cols] = pair.movedim(2, -1)
-    scene = scene.movedim(-1, 2)[..., hS:hS + H, hS:hS + W]
-    conv = _convolve_shared(scene[..., None, :, :],
-                            kernel_rfft[:, None, None], fft_shape)
-    conv = F.pad(conv, (hS, hS, hS, hS))             # (B, K, 2, C, Hp, Wp)
-    cwin = _windows(conv.reshape(B * K, 2 * C, *conv.shape[-2:]),
-                    cyc.reshape(B * K, 1), cxc.reshape(B * K, 1), S, S)
-    cwin = cwin.reshape(B, K, 2, C, S, S)
-    bm = box_mask[:, :, None]                                # (B,K,1,S,S)
-    A1 = cwin[:, :, 0] * bm
-    A2 = cwin[:, :, 1] * bm
-    y = _windows(ipad, cyc, cxc, S, S) * bm                   # (B,K,C,S,S)
-    g11 = (A1 * A1).sum(dim=(-2, -1))
-    g22 = (A2 * A2).sum(dim=(-2, -1))
-    g12 = (A1 * A2).sum(dim=(-2, -1))
-    r1 = (A1 * y).sum(dim=(-2, -1))
-    r2 = (A2 * y).sum(dim=(-2, -1))
-    # relative ridge: the solve stays finite when bulge == disk
-    lam = 1e-6 * torch.maximum(g11, g22) + TINY
-    g11 = g11 + lam
-    g22 = g22 + lam
-    det = torch.clamp_min(g11 * g22 - g12 * g12, TINY)
-    bulge_sed = torch.clamp_min((g22 * r1 - g12 * r2) / det, 0.0)
-    disk_sed = torch.clamp_min((g11 * r2 - g12 * r1) / det, 0.0)
+        # centered S x S detection cutouts; SDSS symmetrization only where
+        # a pixel and its mirror are both inside the image
+        vpad = F.pad(scene_valid, (hS, hS, hS, hS))
+        d = _windows(dpad, cyc, cxc, S, S)                      # (B,K,S,S)
+        valid = _windows(vpad, cyc, cxc, S, S) > 0.5
+        both = valid & torch.flip(valid, (-2, -1))
+        d = torch.where(both, torch.minimum(d, torch.flip(d, (-2, -1))), d)
 
-    s3 = split[..., None, None]
-    prim_morph = torch.where(s3, bulge, morph)
-    prim_sed = torch.where(split[..., None], bulge_sed, sed)
-    prim_on = center_on
-    disk_on = center_on & split
+        if use_mask:
+            # the monotonic mask (prox_monotonic_mask semantics), no
+            # threshold trim
+            centers_box = torch.full((B, K, 2), hS, dtype=torch.long,
+                                     device=dev)
+            on, m = prox_ops.monotonic_mask_device(d, centers_box)
+            no_support = (on.sum(dim=(-2, -1)) <= 1) \
+                & (m.amax(dim=(-2, -1)) <= 0)
+        else:
+            # exact weighted-monotonic projection, then the threshold trim
+            # (initialization.trim_morphology): sub-threshold pixels to
+            # 0, the centered quantized logical box
+            m = _mono_project(d, w8, keep_c, mono_iter)
+            m = torch.where(m > thresh_val[:, None, None, None], m, 0.0)
+            on = m > 0
+        y0, y1, x0, x1 = prox_ops.mask_extent(on)
+        contains = (y0 <= hS) & (hS <= y1) & (x0 <= hS) & (hS <= x1)
+        # trim_morphology's size, with the stop-side +1 of the Box bounds
+        size = 2 * torch.maximum(torch.maximum(hS - y0, y1 + 1 - hS),
+                                 torch.maximum(hS - x0, x1 + 1 - hS))
+        if use_mask:
+            # project_morph_to_center: a center outside the support box
+            # takes the smallest quantized box, not the PSF fallback
+            size = torch.where(contains, size, 0)
+        box_mask = _centered_box(_quantized_boxsize(size, S) // 2, S, dtype)
+        m = m * box_mask
+        morph_max = m.amax(dim=(-2, -1))                            # (B, K)
+        fallback = (no_support if use_mask else ~contains) \
+            | (morph_max <= 0)
+
+        # peak SED from the image / convolved-detection ratio
+        sed = _ratio_sed(img_pk, conv_pk) * morph_max[..., None]
+        morph = m / torch.clamp_min(morph_max, TINY)[..., None, None]
+
+        # PSF fallback
+        fb3 = fallback[..., None, None]
+        morph = torch.where(fb3, psf_morph, morph)
+        sed = torch.where(fallback[..., None], sed_fb, sed)
+        box_mask = torch.where(fb3, psf_box_mask, box_mask)
+
+        # bulge/disk split candidates (percentile/100 flux threshold)
+        disk = torch.minimum(morph, flux_thresh)
+        bulge = torch.clamp_min(morph - flux_thresh, 0.0)
+        bmax = bulge.amax(dim=(-2, -1))
+        dmax = disk.amax(dim=(-2, -1))
+        split = split_snr & ~fallback & (bmax > 0) & (dmax > 0)
+        bulge = bulge / torch.clamp_min(bmax, TINY)[..., None, None]
+        disk = disk / torch.clamp_min(dmax, TINY)[..., None, None]
+
+        bulge_sed, disk_sed = _joint_seds(bulge, disk, box_mask, images,
+                                          kernel_rfft, cyc, cxc, fft_shape)
+        s3 = split[..., None, None]
+        prim_morph = torch.where(s3, bulge, morph)
+        prim_sed = torch.where(split[..., None], bulge_sed, sed)
+        prim_mask = disk_mask = box_mask
+        prim_on = center_on
+        disk_on = center_on & split
 
     # --- slot packing: (bulge | single, disk) interleaved, compacted -------
     origins_k = torch.stack([cys - hS, cxs - hS], dim=-1).to(torch.int32)
     seds2 = torch.stack([prim_sed, disk_sed], 2).reshape(B, 2 * K, C)
     morphs2 = torch.stack([prim_morph, disk], 2).reshape(B, 2 * K, S, S)
-    bmask2 = torch.stack([box_mask, box_mask], 2).reshape(B, 2 * K, S, S)
+    bmask2 = torch.stack([prim_mask, disk_mask], 2).reshape(B, 2 * K, S, S)
     origins2 = torch.stack([origins_k, origins_k], 2).reshape(B, 2 * K, 2)
     active2 = torch.stack([prim_on, disk_on], 2).reshape(B, 2 * K)
     source2 = torch.arange(K, device=dev).repeat_interleave(2).expand(B,
@@ -346,6 +412,69 @@ def _init_batch(images, variance, psfs, centers, center_on, model_psf,
     return data_leaves, state_leaves, aux
 
 
+def _wavelet_seeds(dpad, bulgelets, disklets, detect_pk, snr, img_pk,
+                   conv_pk, sed_fb, psf_morph, psf_box_mask, center_on,
+                   images, kernel_rfft, cyc, cxc, *, S, fft_shape, min_snr,
+                   grow, use_psf):
+    """The wavelet recipe's per-row seeds (stream.py:319-404 of the JAX
+    package, ref lite/initialization.py:480-559) over the (B, K) axes:
+    the monotonic mask of each dictionary's box, all three in one batched
+    closure; the PSF gate, the bulge/disk split and the null rows; joint
+    SEDs over the union of the two boxes, a component whose SED is all 0
+    dropped ("cut bulge" / "cut disk")."""
+    hS = S // 2
+    B, K = snr.shape
+    dtype = dpad.dtype
+    dev = dpad.device
+    pads = torch.stack([dpad, F.pad(bulgelets, (hS, hS, hS, hS)),
+                        F.pad(disklets, (hS, hS, hS, hS))])  # (3, B, Hp, Wp)
+    boxes = _windows(pads.movedim(0, 1), cyc, cxc, S, S)     # (B,K,3,S,S)
+    centers_box = torch.full((B, K, 3, 2), hS, dtype=torch.long, device=dev)
+    on, m = prox_ops.monotonic_mask_device(boxes, centers_box)
+    no_support = (on.sum(dim=(-2, -1)) <= 1) & (m.amax(dim=(-2, -1)) <= 0)
+    # project_morph_to_center's box: the mask's bounds grown by ``grow``,
+    # centered and quantized (with the stop-side +1 of the Box bounds)
+    y0, y1, x0, x1 = prox_ops.mask_extent(on)
+    reach = torch.maximum(torch.maximum(hS - y0, y1 + 1 - hS),
+                          torch.maximum(hS - x0, x1 + 1 - hS))
+    bm = _centered_box(_quantized_boxsize(2 * (reach + grow), S) // 2, S,
+                       dtype)
+    m = m * bm
+    mx = m.amax(dim=(-2, -1))
+    morphs = m / torch.clamp_min(mx, TINY)[..., None, None]
+    empty = no_support | (mx <= 0)                              # (B, K, 3)
+    (morph1, bulge, disk), (bm1, bmB, bmD) = morphs.unbind(2), bm.unbind(2)
+    no1, noB, noD = empty.unbind(2)
+
+    nbr = torch.floor(snr) / min_snr
+    psf_gate = ((nbr < 1) & bool(use_psf)) | (detect_pk <= 0)
+    want_split = (nbr >= 2) & ~psf_gate
+    split = want_split & ~noB & ~noD
+    # both bulge and disk empty: a null source; exactly one empty: the
+    # single-component seed; a single seed without support: null
+    null_both = want_split & noB & noD
+    single = ~psf_gate & ~split & ~null_both
+    null = null_both | (single & no1)
+    sed1 = _ratio_sed(img_pk, conv_pk)
+
+    bulge_sed, disk_sed = _joint_seds(bulge, disk, torch.maximum(bmB, bmD),
+                                      images, kernel_rfft, cyc, cxc,
+                                      fft_shape)
+    bulge_cut = ~(bulge_sed > 0).any(dim=-1)
+    disk_cut = ~(disk_sed > 0).any(dim=-1)
+
+    s3, g3 = split[..., None, None], psf_gate[..., None, None]
+    prim_morph = torch.where(g3, psf_morph, torch.where(s3, bulge, morph1))
+    prim_sed = torch.where(psf_gate[..., None], sed_fb,
+                           torch.where(split[..., None], bulge_sed, sed1))
+    prim_mask = torch.where(g3, psf_box_mask, torch.where(s3, bmB, bm1))
+    prim_on = center_on & ~null & ~(split & bulge_cut)
+    disk_on = center_on & split & ~disk_cut
+    split = split & ~bulge_cut & ~disk_cut
+    return (prim_morph, prim_sed, prim_mask, disk, disk_sed, bmD, prim_on,
+            disk_on, split, psf_gate)
+
+
 def _as_tensor(x, device, dtype=None):
     if x is None:
         return None
@@ -358,7 +487,8 @@ def stream_setup(images, variance, psfs, centers, model_psf, weights=None,
                  center_active=None, scene_valid=None, *, box_size, n_slots,
                  min_snr=50, thresh=0.5, percentile=25, bg_thresh=None,
                  e_rel=1e-4, min_iter=1, fft_shape=None, device=None,
-                 use_mask=False, recipe="main", max_peaks=None,
+                 use_mask=False, recipe="main", grow=5, wavelet_scales=5,
+                 bulge_scales=2, use_psf=True, max_peaks=None,
                  detect_scales=3, box_grow=None, mono_tol=None,
                  morph_step=None, min_gradient=0.0):
     """Batched device-side initialization of a chunk of blends.
@@ -379,6 +509,13 @@ def stream_setup(images, variance, psfs, centers, model_psf, weights=None,
     images' device, the CUDA card for numpy inputs; ``"cpu"`` for the
     host).
 
+    ``recipe``: "main" (with ``use_mask``, the monotonic-mask seeds) or
+    "wavelets" (starlet dictionaries over ``wavelet_scales`` scales, at
+    most what the physical (H, W) holds; bulge from the first
+    ``bulge_scales``, disk from the rest but the coarse plane; mask boxes
+    grown by ``grow``; ``use_psf`` gates rows below one component's S/N
+    to the PSF seed).
+
     The config follows the JAX package's by device: on CUDA the
     accelerator branches (``use_pallas``, ``use_pallas_scene``,
     ``packed_morphs``) and ``mono_tol = 1e-3``; on the CPU none of them
@@ -389,12 +526,8 @@ def stream_setup(images, variance, psfs, centers, model_psf, weights=None,
     ``slot_source``, ``snr``, ``split``, ``psf_fallback`` (and the
     detected catalog with ``centers=None``).
     """
-    if recipe != "main":
-        if recipe != "wavelets":
-            raise ValueError(f"unknown recipe {recipe!r}")
-        raise NotImplementedError("recipe='wavelets' is not ported yet")
-    if use_mask:
-        raise NotImplementedError("use_mask=True is not ported yet")
+    if recipe not in ("main", "wavelets"):
+        raise ValueError(f"unknown recipe {recipe!r}")
     if box_grow is not None:
         raise NotImplementedError("box_grow is not ported yet")
     detect = centers is None
@@ -478,7 +611,12 @@ def stream_setup(images, variance, psfs, centers, model_psf, weights=None,
         scene_valid, w8, keep_c, S=S, n_slots=int(n_slots),
         fft_shape=tuple(fft_shape), match_shape=match_shape,
         psf_fft_shape=psf_fft_shape, mono_iter=depth, min_snr=float(min_snr),
-        thresh=float(thresh), percentile=float(percentile))
+        thresh=float(thresh), percentile=float(percentile),
+        use_mask=bool(use_mask), recipe=recipe, grow=int(grow),
+        # the scale count is capped by the physical (H, W), as the host
+        # caps it by its image's shape
+        n_scales=wavelet_ops.get_scales((H, W), int(wavelet_scales)),
+        bulge_scales=int(bulge_scales), use_psf=bool(use_psf))
     if detect:
         aux = dict(aux, detected_peaks=detected_peaks, centers=centers,
                    center_active=center_active)

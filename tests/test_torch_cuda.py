@@ -369,3 +369,57 @@ def test_detection_on_card_matches_cpu(cuda):
         assert a.device.type == "cuda"
         assert torch.equal(a.cpu(), b)
     assert bool(cpu[1].any(dim=1).all())
+
+
+@pytest.mark.cuda
+def test_mask_closure_on_card_matches_cpu(cuda):
+    """monotonic_mask_device on a (3 * 128 * 16, 59, 59) batch, the
+    wavelet stream's chunk of three dictionaries: the card's masks and
+    models equal the CPU's bit for bit."""
+    from scarlet_tpu_torch.ops.prox import monotonic_mask_device
+
+    m, _ = _morphs(3 * 128, 16, seed=5)
+    x = m - 0.4                      # negative pixels stop the closure
+    centers = torch.full((3 * 128, 16, 2), BOX // 2, dtype=torch.long)
+    cpu = monotonic_mask_device(x, centers)
+    card = monotonic_mask_device(x.to(cuda), centers.to(cuda))
+    for a, b in zip(card, cpu):
+        assert a.device.type == "cuda"
+        assert torch.equal(a.cpu(), b)
+    assert 1 < int(cpu[0].sum(dim=(-2, -1)).min())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(recipe="wavelets"), dict(use_mask=True)],
+                         ids=["wavelets", "mask"])
+def test_stream_setup_on_card_matches_cpu(cuda, kw):
+    """stream_setup on 4 generated blends (seeds 0, 1, 2, 4), on the card
+    and on the CPU: the same discrete init decisions, seeds to 1e-4."""
+    from scarlet_tpu_torch.parallel import stream
+
+    blends = [generate_blend(np.random.default_rng(s)) for s in (0, 1, 2, 4)]
+    K = max(len(b["catalog"]) for b in blends)
+    centers = np.zeros((4, K, 2), np.int32)
+    active = np.zeros((4, K), bool)
+    for i, b in enumerate(blends):
+        k = len(b["catalog"])
+        centers[i, :k] = np.round(np.stack([b["catalog"]["y"],
+                                            b["catalog"]["x"]], -1))
+        active[i, :k] = True
+    args = [np.stack([b[k] for b in blends])
+            for k in ("images", "variance", "psfs")]
+    mp = lite.integrated_circular_gaussian(sigma=0.8)[None].astype(
+        np.float32)
+    out = [stream.stream_setup(*args, centers, mp, center_active=active,
+                               box_size=BOX, n_slots=16, device=dev, **kw)
+           for dev in (cuda, "cpu")]
+    (_, dc, sc, ac), (_, dp, sp, ap) = out
+    for k in ("n_active", "overflow", "slot_source", "split",
+              "psf_fallback"):
+        assert torch.equal(ac[k].cpu(), ap[k]), k
+    for f in ("origins", "comp_active"):
+        assert torch.equal(getattr(sc, f)[0].cpu(), getattr(sp, f)[0]), f
+    assert torch.equal(dc.box_masks[0].cpu(), dp.box_masks[0])
+    for f in ("seds", "morphs"):
+        torch.testing.assert_close(getattr(sc, f)[0].cpu(),
+                                   getattr(sp, f)[0], rtol=1e-4, atol=1e-4)

@@ -159,13 +159,35 @@ def test_unported_options_raise(field, value):
 
 
 def test_static_mono_tol_runs_close_to_exact():
+    """A static tolerance applies on the accelerator configuration (the
+    only one that reads it) and stays close to the exact projection."""
     config, data, state = graft._demo_setup()
     cfg, d, s = _port(dataclasses.replace(config, mono_n_iters=(32,)),
                       data, state)
     _, exact = teng.fit_scan(s, d, cfg, 10)
-    _, loose = teng.fit_scan(s, d, dataclasses.replace(cfg, mono_tol=1e-3),
-                             10)
+    cfg_acc = dataclasses.replace(cfg, use_pallas=True,
+                                  use_pallas_scene=True, packed_morphs=True)
+    _, loose = teng.fit_scan(s, d, dataclasses.replace(cfg_acc,
+                                                       mono_tol=1e-3), 10)
     assert abs(float(loose[-1] - exact[-1])) < 1e-3 * abs(float(exact[-1]))
+
+
+def test_plain_branch_ignores_mono_tol_like_jax():
+    """On a ``use_pallas=False`` config the JAX engine's plain projection
+    ignores ``mono_tol`` and runs its ``n_iter`` passes; the port's does
+    the same (tol 0), so both agree to the roundoff of the exact run:
+    max |dmorph| <= 1e-6, logL rtol 1e-6 (with the tolerance applied the
+    port was off by 2.56e-6 and 3.48e-6)."""
+    config, data, state = graft._demo_setup()
+    config = dataclasses.replace(config, mono_n_iters=(32,), mono_tol=1e-3)
+    assert not config.use_pallas
+    out_j, loss_j = jeng.fit_scan(state, data, config, 10)
+    cfg, d, s = _port(config, data, state)
+    assert cfg.mono_tol == 1e-3
+    out_t, loss_t = teng.fit_scan(s, d, cfg, 10)
+    assert_allclose(to_numpy(loss_t), np.asarray(loss_j), rtol=1e-6)
+    for a, b in zip(out_t.morphs, out_j.morphs):
+        assert np.abs(to_numpy(a) - np.asarray(b)).max() <= 1e-6
 
 
 def test_tf32_pinned_off_for_cuda(monkeypatch):

@@ -258,12 +258,12 @@ def test_dispatch_collect_equals_converged(het):
 
 
 @pytest.mark.parametrize("option", [
-    dict(recipe="wavelets"), dict(use_mask=True),
     dict(upload_dtype="bfloat16"), dict(upload="auto"),
     dict(box_grow=0.1)], ids=lambda o: next(iter(o)))
 def test_unported_stream_options_raise(het, option):
     """Device detection (``centers=None``) and ``redetect`` are ported:
-    tests/test_torch_detection.py."""
+    tests/test_torch_detection.py; the wavelet recipe and ``use_mask``:
+    tests/test_torch_wavelets.py."""
     kw = dict(center_active=het["active"][:1], box_size=BOX, n_slots=12,
               max_iter=2, device="cpu")
     with pytest.raises(NotImplementedError):
