@@ -59,7 +59,23 @@ Run from the repository root, with one CUDA card:
    chunk 0 with ``use_mask=True`` (K1 launched in the fit only, the
    CPU's decisions on 4 blends); one ``centers=None`` wavelet run on the
    first 128 blends.
-8. Prints one JSON line with the kernels, the card's name and power
+8. The fit options.  K1 with one exit tolerance per blend (the TPU
+   kernel's ``tol_arr`` mode) at the stream's shapes, tolerances 0, 1e-3
+   and 1e6 by turns, bit for bit against its plain version (and K2); a
+   tensor of the static tolerance gives the float launch's bits; its time
+   with the tensor beside the float's.  The matmul-DFT convolution
+   against cuFFT: both routes (complex64, split re/im) and TF32 against a
+   float64 reference; 15-iteration loss trajectories, device ms and
+   launches per iteration (``torch.profiler``) and blends/min of both
+   modes in turns (3 runs each) on the host path and on het chunk 0.  The
+   het stream with ``box_grow=0.1`` and with ``mono_tol_early=1e-2,
+   mono_tol_switch=10`` (blends/min, median iterations, grown slots with
+   their step scales, no blend frozen before the switch, K1's per-blend
+   launches counted); the oversized source of tests/test_box_growth.py on
+   the card and the CPU; FISTA on the host path (the host init's seeds
+   through ``init_fista_component``, ``pack_blends``,
+   ``fit_batch_device_converged``, 4 blends refitted on the CPU).
+9. Prints one JSON line with the kernels, the card's name and power
    limit, then, last, the device line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without a CUDA device, or outside
@@ -124,6 +140,8 @@ REPLACES = {
     "scene_assembly": "scarlet_tpu/ops/pallas_kernels.py:694",
     "grad_gather": "scarlet_tpu/ops/pallas_kernels.py:772",
     "mono_pass_variant": "tools/mono_pass_attrib.py:193",
+    "monotonic_prox_tol_tensor": "scarlet_tpu/ops/pallas_kernels.py:40-135, "
+                                 "182-202, 231-251",
 }
 SOURCES = {
     "monotonic_prox": "scarlet_tpu_torch/ops/csrc/mono.cu",
@@ -132,6 +150,7 @@ SOURCES = {
     "scene_assembly": "scarlet_tpu_torch/ops/csrc/scene.cu",
     "grad_gather": "scarlet_tpu_torch/ops/csrc/grad.cu",
     "mono_pass_variant": "scarlet_tpu_torch/ops/csrc/attrib.cu",
+    "monotonic_prox_tol_tensor": "scarlet_tpu_torch/ops/csrc/mono.cu",
 }
 
 
@@ -166,8 +185,9 @@ def mono_passes_run(morphs, idx, wt, kt, n_iter, tol, running=None,
                     scale=1.0):
     """The passes each morphology of (..., K, hb, wb) runs under the
     projection's exit rule (blocks of 4, the last two compared), from
-    the plain passes: an integer tensor (..., K).  ``running`` (..., K)
-    bool: morphologies that run at all (the others run 0)."""
+    the plain passes: an integer tensor (..., K).  ``tol``: a float or one
+    per blend (..., ).  ``running`` (..., K) bool: morphologies that run
+    at all (the others run 0)."""
     import torch
     from scarlet_tpu_torch.ops import kernels as kn
 
@@ -183,8 +203,7 @@ def mono_passes_run(morphs, idx, wt, kt, n_iter, tol, running=None,
         for _ in range(kn.MONO_UNROLL - 1):
             x = kn._mono_pass(x, morphs, w, keep, scale)
         new = kn._mono_pass(x, morphs, w, keep, scale)
-        changed = ((new - x).abs().amax(dim=(-2, -1)) > tol) if tol > 0 \
-            else (new != x).any(dim=-1).any(dim=-1)
+        changed = kn._block_changed(new, x, tol)
         passes += kn.MONO_UNROLL * run
         run &= changed
         x = new
@@ -217,6 +236,29 @@ def time_ms(fn, reps):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def device_ms_all(fn, reps=20):
+    """Device ms per call of all the kernels ``fn`` launches, summed, over
+    ``reps`` calls (``torch.profiler``), after a warm-up call; and the
+    kernels per call.  For calls of several short kernels, whose CUDA
+    event times the host's launch gaps swing."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):     # the profiler has come back empty-handed once
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kern = [e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == DeviceType.CUDA]
+        if kern:
+            return sum(kern) / reps / 1e3, len(kern) / reps
+    raise AssertionError("the profiler recorded no kernel")
 
 
 def device_ms(fn, key, reps=20):
@@ -457,7 +499,9 @@ def log_gather_info(B, K, C, H, W, hb, wb, P, card):
                 f"{i['blocks_per_sm']} blocks resident per SM on {card}")
 
 
-def build_blend(lite, d):
+def build_seeds(lite, d):
+    """The host initialization of one generated blend: (sources with raw
+    seeds, observation)."""
     weights = (1.0 / np.maximum(d["variance"], 1e-12)).astype(np.float32)
     model_psf = lite.integrated_circular_gaussian(sigma=0.8)[None].astype(
         np.float32)
@@ -465,24 +509,33 @@ def build_blend(lite, d):
                                d["psfs"], model_psf=model_psf, device="cpu")
     centers = [(int(np.round(r["y"])), int(np.round(r["x"])))
                for r in d["catalog"]]
-    sources = lite.init_all_sources_main(obs, centers, min_snr=50)
-    sources = lite.parameterize_sources(sources, obs,
-                                        lite.init_adaprox_component)
-    return lite.LiteBlend(sources, obs)
+    return lite.init_all_sources_main(obs, centers, min_snr=50), obs
+
+
+def parameterized(lite, seeds, param="init_adaprox_component"):
+    sources, obs = seeds
+    return lite.LiteBlend(lite.parameterize_sources(
+        sources, obs, getattr(lite, param)), obs)
+
+
+def build_blend(lite, d):
+    return parameterized(lite, build_seeds(lite, d))
 
 
 def setup_blends(dev):
     """Generate the blends (fixed seed), initialize them on the host and
     pack them on the card.  Returns (single, (config, data, state), init
-    seconds); ``single`` is a separately built copy of the first blend,
-    for ``LiteBlend.fit``."""
+    seconds, seeds); ``single`` is a separately built copy of the first
+    blend, for ``LiteBlend.fit``; ``seeds`` the host init's (sources,
+    observation) of each blend, for other parameterizations."""
     from scarlet_tpu_torch import lite, parallel
     from scarlet_tpu_torch.testing import generate_blend
 
     rng = np.random.default_rng(SEED)
     raw = [generate_blend(rng) for _ in range(N_BLENDS)]
     t0 = time.perf_counter()
-    blends = [build_blend(lite, d) for d in raw]
+    seeds = [build_seeds(lite, d) for d in raw]
+    blends = [parameterized(lite, sd) for sd in seeds]
     init_s = time.perf_counter() - t0
     n_comp = [len(b.components) for b in blends]
     log(f"host init of {N_BLENDS} blends: {init_s:.2f} s; components per "
@@ -493,7 +546,7 @@ def setup_blends(dev):
         f"{config.bucket_counts}, scene {config.scene_shape}, fft "
         f"{config.fft_shape}, pad {config.pad}, mono n_iter "
         f"{config.mono_n_iters}")
-    return build_blend(lite, raw[0]), setup, init_s
+    return build_blend(lite, raw[0]), setup, init_s, seeds
 
 
 def main_path(dev, card, single, setup, init_s):
@@ -1544,6 +1597,483 @@ def wavelet_path(dev, card, het, main_dev_s):
     return counts, summary
 
 
+# ---------------------------------------------------------------------------
+# 8. The fit options: K1 with one tolerance per blend, the matmul DFT,
+# box growth, the scheduled tolerance and FISTA
+# ---------------------------------------------------------------------------
+TOL_MIX = (0.0, 1e-3, 1e6)      # per-blend tolerances of K1's tensor mode
+DFT_ITERS = 15      # loss trajectories, DFT against FFT
+DFT_RUNS = 3        # converged fits of each mode, in turns
+DFT_RTOL = 1e-4     # the JAX package's bound (tests/test_parallel.py:234)
+# a relative change of the images at float32 roundoff: how many blends it
+# parts from their own FFT fit beyond DFT_RTOL says how many are
+# ill-conditioned under the fit (PERF.md, ROADMAP Queue 3 traps)
+PERTURB = 1e-7
+SCHEDULE = dict(mono_tol_early=1e-2, mono_tol_switch=10)
+BOX_GROW = 0.1
+GROW_ITERS = 60     # the oversized source (tests/test_box_growth.py)
+
+
+def tol_tensor_phase(dev, card, het):
+    """K1 and K2 with one exit tolerance per blend, read on the card, at
+    the stream's shapes (chunk 0: its box-masked morphologies, candidate
+    tables and the het set's tables), mixing TOL_MIX: bit for bit against
+    the plain version; a tensor filled with a static tolerance gives the
+    float launch's bits; the kernel's time with the tensor beside its time
+    with the float (the same work), in turns."""
+    import torch
+    from scarlet_tpu_torch.ops import kernels as kn
+
+    config, data, state, _ = het_setup(dev, het, slice(0, HET["chunk"]))
+    wt, kt = data.mono_weights[0], data.mono_keep[0]
+    n_iter = config.mono_n_iters[0]
+    morphs = (state.morphs[0] * data.box_masks[0]).contiguous()
+    B, K, hb, wb = morphs.shape
+    idx = kn.candidate_index(morphs, 1)
+    tols = torch.tensor(TOL_MIX, device=dev)[
+        torch.arange(B, device=dev) % len(TOL_MIX)]
+
+    def run(f, tol):
+        return f(morphs, idx, wt, kt, n_iter, tol=tol)
+
+    got = run(kn.monotonic_prox, tols)
+    ref = run(kn.monotonic_prox_plain, tols)
+    err = float((got - ref).abs().max())
+    packed = morphs.transpose(-3, -2).reshape(B, hb, K * wb).contiguous()
+    got_p = kn.monotonic_prox_packed(packed, idx, wt, kt, wb, n_iter,
+                                     tol=tols)
+    err_p = float((got_p.reshape(B, hb, K, wb).transpose(-3, -2)
+                   - ref).abs().max())
+    same, timing = {}, {}
+    for tol in (0.0, 1e-3):
+        full = torch.full((B,), tol, device=dev)
+        same[tol] = bool(torch.equal(run(kn.monotonic_prox, full),
+                                     run(kn.monotonic_prox, tol)))
+        # float, tensor, tensor, float, float, tensor: the kernel's device
+        # time (median of 20 launches each), and CUDA events around the
+        # call, which also count the wrapper's host work
+        order = (tol, full, full, tol, tol, full)
+        t = [device_ms(lambda a=a: run(kn.monotonic_prox, a), "mono_kernel")
+             for a in order]
+        e = [time_ms(lambda a=a: run(kn.monotonic_prox, a), 20)
+             for a in order]
+        timing[tol] = dict(float_ms=[t[0], t[3], t[4]],
+                           tensor_ms=[t[1], t[2], t[5]],
+                           float_event_ms=[e[0], e[3], e[4]],
+                           tensor_event_ms=[e[1], e[2], e[5]])
+    if err or err_p or not all(same.values()):
+        raise AssertionError(f"K1 with a tolerance per blend differs from "
+                             f"its plain version ({err}, packed {err_p}) "
+                             f"or from the float launch ({same})")
+    passes = mono_passes_run(morphs, idx, wt, kt, n_iter, tols)
+    res = dict(
+        **bound(2 * nbytes(morphs) + nbytes(idx, wt, kt, tols),
+                mono_ops(passes, idx, wt)),
+        mean_passes=float(passes.double().mean()),
+        mean_passes_by_tol={str(t): float(passes[tols == t].double().mean())
+                            for t in TOL_MIX},
+        max_abs_err=max(err, err_p), limit=0.0,
+        ms=time_ms(lambda: run(kn.monotonic_prox, tols), 10),
+        plain_ms=time_ms(lambda: run(kn.monotonic_prox_plain, tols), 3),
+        tensor_equals_float=same, float_vs_tensor=timing,
+        shape=f"B={B} K={K} box={hb} n_iter={n_iter} tol per blend "
+              f"{TOL_MIX} in turns")
+    log(f"kernel monotonic_prox with a tolerance per blend: max_abs_err "
+        f"{res['max_abs_err']:.3g} (limit 0, K1 and K2), a tensor of the "
+        f"static tolerance gives the float launch's bits {same}; kernel "
+        f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, bound "
+        f"{res['bound_ms']:.4f} ms by {res['bound_by']}, passes per "
+        f"morphology {res['mean_passes_by_tol']} [{res['shape']}] on {card}")
+    for tol, t in timing.items():
+        # the tensor's median against the float's, beside the spread of
+        # the float's own three runs
+        fm = float(np.median(t["float_ms"]))
+        gap = (float(np.median(t["tensor_ms"])) - fm) / fm
+        spread = (max(t["float_ms"]) - min(t["float_ms"])) / fm
+        t.update(gap=gap, float_spread=spread)
+        log(f"  tol {tol}: kernel device ms, float "
+            f"{[round(x, 4) for x in t['float_ms']]}, tensor "
+            f"{[round(x, 4) for x in t['tensor_ms']]} (medians of 20, in "
+            f"turns): the per-blend read "
+            f"{'costs nothing measurable' if abs(gap) <= spread else 'differs'}"
+            f" (median gap {100 * gap:+.2f}%, float spread "
+            f"{100 * spread:.2f}%); events around the call, float "
+            f"{[round(x, 4) for x in t['float_event_ms']]}, tensor "
+            f"{[round(x, 4) for x in t['tensor_event_ms']]} ms on {card}")
+    return res
+
+
+def _rel_trajectories(a, b):
+    """Per blend, the largest relative difference of two loss
+    trajectories (n_iter, B)."""
+    a, b = a.cpu().double().numpy(), b.cpu().double().numpy()
+    return (np.abs(a - b) / np.abs(b)).max(axis=0)
+
+
+def _profile_iterations(state, data, cfg, n_iter=10):
+    """Device busy ms, summed kernel ms and kernel launches per fit
+    iteration of ``cfg`` (``torch.profiler``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from scarlet_tpu_torch.lite import engine
+
+    engine.fit_scan(state, data, cfg, 2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        engine.fit_scan(state, data, cfg, n_iter)
+        torch.cuda.synchronize()
+    kern, busy_us, _ = device_busy(prof)
+    return dict(busy_ms_per_iteration=busy_us / n_iter / 1e3,
+                kernel_ms_per_iteration=sum(
+                    e.time_range.elapsed_us() for e in kern) / n_iter / 1e3,
+                launches_per_iteration=len(kern) / n_iter)
+
+
+def _bpm_in_turns(state, data, cfgs, runs=DFT_RUNS):
+    """Converged fits (cap MAX_ITER) of each config in turns, after one
+    warm-up each: blends/min per run."""
+    import torch
+    from scarlet_tpu_torch.parallel import batch
+
+    B = state.active.shape[0]
+    for cfg in cfgs.values():
+        batch.fit_batch_device_converged(state, data, cfg, MAX_ITER,
+                                         CHECK_EVERY)
+    out = {name: [] for name in cfgs}
+    for _ in range(runs):
+        for name, cfg in cfgs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batch.fit_batch_device_converged(state, data, cfg, MAX_ITER,
+                                             CHECK_EVERY)
+            torch.cuda.synchronize()
+            out[name].append(B / (time.perf_counter() - t0) * 60.0)
+    return out
+
+
+def split_dft(fft, shape, fft_shape, dev):
+    """The DFT convolution with the real and imaginary parts kept apart
+    (the (re, im) stacks the JAX package stores) in four real products
+    over stacked blocks: a yardstick for the port's complex64 products,
+    timed here and used nowhere in the port."""
+    import torch
+
+    A, B, iA, iB = fft.dft_conv_matrices(shape, fft_shape, np.float32)
+    Hf, Hs, Wh = A.shape[1], iA.shape[1], B.shape[2]
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    a_ri, b_ri = up(np.concatenate(A, 0)), up(np.concatenate(B, 1))
+    ia_blk = up(np.block([[iA[0], -iA[1]], [iA[1], iA[0]]]))
+    ib_re = up(np.concatenate([iB[0], -iB[1]], 0))
+
+    def conv(image, kernel_rfft):
+        q = torch.matmul(torch.matmul(a_ri, image), b_ri)
+        yr = q[..., :Hf, :Wh] - q[..., Hf:, Wh:]
+        yi = q[..., :Hf, Wh:] + q[..., Hf:, :Wh]
+        kr, ki = kernel_rfft.real, kernel_rfft.imag
+        r = torch.matmul(ia_blk, torch.cat([yr * kr - yi * ki,
+                                            yr * ki + yi * kr], dim=-2))
+        return torch.matmul(torch.cat([r[..., :Hs, :], r[..., Hs:, :]], -1),
+                            ib_re)
+
+    return conv
+
+
+def dft_phase(dev, card, setup, het):
+    """The matmul-DFT convolution against cuFFT at the host path's shapes:
+    the port's complex64 products beside the split re/im form, against a
+    float64 reference with TF32 off and allowed; loss trajectories over
+    DFT_ITERS iterations; device ms, summed kernel ms and launches per fit
+    iteration; blends/min of both modes in turns with the spread of
+    DFT_RUNS runs; on the host path and on het chunk 0."""
+    import torch
+    from scarlet_tpu_torch.lite import engine
+    from scarlet_tpu_torch.ops import fft
+
+    config, data, state = setup
+    C, H, W = config.scene_shape
+    scene = engine.make_scene(state, config).contiguous()
+    kr = data.kernel_rfft
+    ops = fft.dft_conv_operators((H, W), config.fft_shape, torch.float32, dev)
+    split = split_dft(fft, (H, W), config.fft_shape, dev)
+    ref64 = fft.convolve_fft(scene.cpu().double(),
+                             kr.cpu().to(torch.complex128), config.fft_shape)
+    scale = float(ref64.abs().max())
+
+    def rel_err(out):
+        return float((out.cpu().double() - ref64).abs().max()) / scale
+
+    calls = {"fft": lambda: fft.convolve_fft(scene, kr, config.fft_shape),
+             "dft": lambda: fft.convolve_dft(scene, kr, ops),
+             "split dft (yardstick)": lambda: split(scene, kr)}
+    routes = {}
+    for name, f in calls.items():
+        dms, launches = device_ms_all(f)
+        routes[name] = dict(rel_err_tf32_off=rel_err(f()), ms=dms,
+                            launches=launches, event_ms=time_ms(f, 20))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for name in ("dft", "split dft (yardstick)"):
+            routes[name]["rel_err_tf32_on"] = rel_err(calls[name]())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    for name, r in routes.items():
+        log(f"convolution {name} at B={scene.shape[0]} C={C} {H}x{W} fft "
+            f"{config.fft_shape}: {r['ms']:.4f} ms device in "
+            f"{r['launches']:.0f} kernels ({r['event_ms']:.4f} ms events), "
+            f"rel err vs float64 {r['rel_err_tf32_off']:.3g} with TF32 off"
+            + (f", {r['rel_err_tf32_on']:.3g} with TF32 allowed"
+               if "rel_err_tf32_on" in r else "") + f" on {card}")
+    if routes["dft"]["rel_err_tf32_off"] > 1e-5:
+        raise AssertionError("the DFT convolution is not float32 with TF32 "
+                             "off")
+
+    out = dict(routes=routes)
+    het_setup_0 = het_setup(dev, het, slice(0, HET["chunk"]))[:3]
+    # per blend, DFT_RTOL holds on the het blends a roundoff change of the
+    # images leaves in place (CPU_BLENDS); over all blends, the median
+    for where, (cfg, dat, st), strict in (("host path", setup, []),
+                                          ("het chunk 0", het_setup_0,
+                                           CPU_BLENDS)):
+        cfgs = {"fft": cfg, "dft": dataclasses.replace(cfg, conv_mode="dft")}
+        _, l_fft = engine.fit_scan(st, dat, cfgs["fft"], DFT_ITERS)
+        _, l_dft = engine.fit_scan(st, dat, cfgs["dft"], DFT_ITERS)
+        rel = _rel_trajectories(l_dft, l_fft)
+        # the FFT fit against itself on images changed by PERTURB: a blend
+        # it parts beyond DFT_RTOL is ill-conditioned under the fit
+        _, l_pert = engine.fit_scan(
+            st, dat._replace(images=dat.images * (1 + PERTURB)),
+            cfgs["fft"], DFT_ITERS)
+        rel_p = _rel_trajectories(l_pert, l_fft)
+        far = np.flatnonzero(rel > DFT_RTOL).tolist()
+        moved = np.flatnonzero(rel_p > DFT_RTOL).tolist()
+        if not (np.isfinite(l_dft.cpu().numpy()).all()
+                and np.median(rel) <= FUSED_MEDIAN_RTOL
+                and all(rel[b] <= DFT_RTOL for b in strict)):
+            raise AssertionError(
+                f"DFT and FFT trajectories part on the {where}: median "
+                f"{np.median(rel)}, blends {strict}: {rel[strict]}")
+        prof = {m: _profile_iterations(st, dat, c) for m, c in cfgs.items()}
+        bpm = _bpm_in_turns(st, dat, cfgs)
+        out[where] = dict(median_rel=float(np.median(rel)),
+                          max_rel=float(rel.max()), blends_beyond=far,
+                          perturbed_beyond=moved,
+                          perturbed_median_rel=float(np.median(rel_p)),
+                          strict_blends=strict,
+                          strict_max_rel=float(rel[strict].max())
+                          if strict else None,
+                          profile=prof, blends_per_min=bpm)
+        log(f"DFT vs FFT on the {where} ({st.active.shape[0]} blends, "
+            f"{DFT_ITERS} iterations): loss trajectories median rel diff "
+            f"{np.median(rel):.3g} (limit {FUSED_MEDIAN_RTOL}), max "
+            f"{rel.max():.3g}"
+            + (f", blends {strict} {rel[strict].max():.3g} (limit "
+               f"{DFT_RTOL})" if strict else "")
+            + f"; {len(far)} blends beyond {DFT_RTOL} ({far}); the FFT fit "
+            f"against itself on images changed by {PERTURB}: median "
+            f"{np.median(rel_p):.3g}, {len(moved)} blends beyond ({moved}): "
+            "ill-conditioned blends part at roundoff")
+        for m in cfgs:
+            p = prof[m]
+            log(f"  {m}: {p['busy_ms_per_iteration']:.4f} ms device busy "
+                f"and {p['kernel_ms_per_iteration']:.4f} ms of kernels per "
+                f"iteration, {p['launches_per_iteration']:.1f} launches per "
+                f"iteration; blends/min "
+                f"{[round(x, 1) for x in bpm[m]]} (median "
+                f"{np.median(bpm[m]):.1f}, spread "
+                f"{min(bpm[m]):.1f}..{max(bpm[m]):.1f}) on {card}")
+    return out
+
+
+def _states(st):
+    return st if isinstance(st, list) else [st]
+
+
+def grow_schedule_phase(dev, card, het):
+    """The het stream (256 blends, chunks of 128, box 59, 16 slots, cap
+    100) with ``box_grow`` and with the scheduled tolerance: one warm-up,
+    then one run with the launch counts zeroed before it; records finite,
+    blends/min, median iterations; under the schedule no blend frozen
+    before the switch and K1's per-blend mode launched; with growth the
+    grown slots, each with a step scale below 1.  Returns ({form: launch
+    counts}, summary)."""
+    import torch
+    from scarlet_tpu_torch.ops import kernels as kn
+    from scarlet_tpu_torch.parallel import stream
+
+    mp = model_psf()
+    counts, summary = {}, {}
+    for form, kw in (("box_grow", dict(box_grow=BOX_GROW)),
+                     ("schedule", SCHEDULE)):
+        def run():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = stream.deblend_device_stream(
+                het["images"], het["variance"], het["psfs"], het["centers"],
+                mp, center_active=het["active"], device=dev,
+                **dict(HET, **kw))
+            torch.cuda.synchronize()
+            return res, time.perf_counter() - t0
+
+        run()
+        kn.reset_launch_counts()
+        (records, state, _, _), wall = run()
+        counts[form] = kn.launch_counts()
+        for name in PATH_KERNELS:
+            if counts[form][name] <= 0:
+                raise AssertionError(f"{name} was not launched in the "
+                                     f"{form} stream")
+        if not all(np.isfinite(r["logL"]) and np.all(np.isfinite(r["flux"]))
+                   for r in records):
+            raise AssertionError(f"a {form} record is not finite")
+        worse = [i for i, r in enumerate(records)
+                 if not r["logL"] > r["init logL"]]
+        if len(worse) > MAX_WORSE * len(records):
+            raise AssertionError(f"{form}: logL did not improve for "
+                                 f"{len(worse)} blends")
+        its = np.array([r["iterations"] for r in records])
+        res = dict(blends_per_min=N_HET / wall * 60.0, wall_s=wall,
+                   median_iterations=float(np.median(its)),
+                   min_iterations=int(its.min()), worse=worse)
+        if form == "schedule":
+            # a blend frozen at it ends with it + 1 iterations, and it must
+            # pass the switch: at least switch + 2 (or the cap)
+            if its.min() < min(SCHEDULE["mono_tol_switch"] + 2,
+                               HET["max_iter"]):
+                raise AssertionError(f"a blend froze before iteration "
+                                     f"{SCHEDULE['mono_tol_switch']}")
+            if counts[form]["monotonic_prox_tol_tensor"] <= 0:
+                raise AssertionError("the scheduled stream did not read its "
+                                     "tolerance per blend")
+        else:
+            halves = [s.box_half[0].cpu() for s in _states(state)]
+            scales = [s.step_scale[0].cpu() for s in _states(state)]
+            grown = sum(int((h >= 0).sum()) for h in halves)
+            if not all(bool((sc[h >= 0] < 1.0).all())
+                       for h, sc in zip(halves, scales)):
+                raise AssertionError("a grown slot kept its step")
+            res.update(grown_slots=grown, active_slots=int(sum(
+                s.comp_active[0].sum() for s in _states(state))),
+                largest_half=max(int(h.max()) for h in halves))
+        summary[form] = res
+        log(f"het stream with {form} {kw}: {res['blends_per_min']:.1f} "
+            f"blends/min from numpy ({wall:.3f} s), median iterations "
+            f"{res['median_iterations']}, fewest {res['min_iterations']}"
+            + (f"; {res['grown_slots']} of {res['active_slots']} slots grew "
+               f"(largest half-size {res['largest_half']}), each with a step "
+               f"scale < 1" if form == "box_grow" else
+               f"; no blend froze before iteration "
+               f"{SCHEDULE['mono_tol_switch']}")
+            + f"; launches {counts[form]} on {card}")
+    return counts, summary
+
+
+def oversized_growth(dev, card):
+    """The oversized-source case of tests/test_box_growth.py in the port,
+    on the card and on the CPU with the card's config (plain versions):
+    the same grown half-sizes and step scales, logL rtol CPU_RTOL."""
+    import torch
+    from scipy.signal import fftconvolve
+    from scarlet_tpu_torch import lite
+    from scarlet_tpu_torch.parallel import batch, stream
+
+    rng = np.random.default_rng(0)
+    C, H, W = 3, 64, 64
+    yy, xx = np.mgrid[:H, :W]
+    prof = np.exp(-np.hypot(yy - 32, xx - 32) / 6.0).astype(np.float32)
+    sed = np.asarray([1.0, 2.0, 1.5], np.float32)
+    psf = lite.integrated_circular_gaussian(sigma=1.2).astype(np.float32)
+    truth = sed[:, None, None] * prof[None] * 30.0
+    images = np.stack([fftconvolve(truth[c], psf, mode="same")
+                       for c in range(C)]).astype(np.float32)
+    variance = np.full_like(images, 0.01)
+    images += rng.standard_normal(images.shape).astype(np.float32) * 0.1
+    args = (images[None], variance[None], psf[None].repeat(C, 0)[None],
+            np.asarray([[[32, 32]]]), model_psf())
+    bm = np.zeros((1, 2, 59, 59), np.float32)
+    bm[:, :, 22:37, 22:37] = 1.0      # half-size 7
+    outs = {}
+    cfg = None
+    for where in (dev, "cpu"):
+        c, d, st, _ = stream.stream_setup(
+            *args, box_size=59, n_slots=2, box_grow=BOX_GROW, device=where)
+        cfg = c if cfg is None else cfg     # the card's, on both
+        d = d._replace(box_masks=(torch.from_numpy(bm).to(where),))
+        outs[str(where)], _ = batch.fit_batch_device_converged(
+            st, d, cfg, GROW_ITERS, 20)
+    card_o, cpu_o = outs[str(dev)], outs["cpu"]
+    half, scale = card_o.box_half[0].cpu(), card_o.step_scale[0].cpu()
+    same = bool((half == cpu_o.box_half[0]).all()
+                and (scale == cpu_o.step_scale[0]).all())
+    rel = abs(float(card_o.last_loss[0]) - float(cpu_o.last_loss[0])) \
+        / abs(float(cpu_o.last_loss[0]))
+    log(f"oversized source, {GROW_ITERS} iterations with box_grow "
+        f"{BOX_GROW}: card half-sizes {half.tolist()}, step scales "
+        f"{scale.tolist()} (CPU the same: {same}); logL "
+        f"{float(card_o.last_loss[0]):.6g} vs CPU "
+        f"{float(cpu_o.last_loss[0]):.6g}, rel diff {rel:.3g} (limit "
+        f"{CPU_RTOL}) on {card}")
+    if not (same and rel <= CPU_RTOL and int(half.max()) > 7):
+        raise AssertionError("the oversized source grew otherwise on the "
+                             "card than on the CPU")
+    return dict(box_half=half.tolist(), step_scale=scale.tolist(),
+                logL=float(card_o.last_loss[0]), cpu_rel=rel)
+
+
+def fista_host_path(dev, card, seeds):
+    """The host path with FISTA: the host init's seeds through
+    ``init_fista_component``, ``pack_blends`` on the card and
+    ``fit_batch_device_converged``; logL finite and improving, N_CPU
+    blends within CPU_RTOL of their CPU refit.  Returns (launch counts,
+    summary)."""
+    import torch
+    from scarlet_tpu_torch import lite, parallel
+    from scarlet_tpu_torch.ops import kernels as kn
+
+    blends = [parameterized(lite, sd, "init_fista_component")
+              for sd in seeds]
+    config, data, state = parallel.pack_blends(blends, e_rel=E_REL,
+                                               device=dev)
+    if config.optimizer != "fista":
+        raise AssertionError(f"pack_blends chose {config.optimizer}")
+    parallel.fit_batch_device_converged(state, data, config, MAX_ITER,
+                                        CHECK_EVERY)
+    kn.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, losses = parallel.fit_batch_device_converged(
+        state, data, config, MAX_ITER, check_every=CHECK_EVERY)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kn.launch_counts()
+    losses, final = losses.cpu().numpy(), out.last_loss.cpu().numpy()
+    if not (np.isfinite(losses).all() and np.isfinite(final).all()):
+        raise AssertionError("non-finite logL in the FISTA fit")
+    worse = np.flatnonzero(final <= losses[0]).tolist()
+    if len(worse) > MAX_WORSE * len(final):
+        raise AssertionError(f"FISTA: logL did not improve for {worse}")
+    for name in PATH_KERNELS:
+        if counts[name] <= 0:
+            raise AssertionError(f"{name} was not launched by the FISTA fit")
+    sel = list(range(N_CPU))
+    cdata, cstate = parallel.select_blends(data, state, sel, device="cpu")
+    cout, _ = parallel.fit_batch_device_converged(cstate, cdata, config,
+                                                  MAX_ITER, CHECK_EVERY)
+    rel = np.abs(cout.last_loss.numpy() - final[sel]) / np.abs(final[sel])
+    its = out.it.cpu().numpy()
+    summary = dict(blends_per_min=len(final) / wall * 60.0, wall_s=wall,
+                   median_iterations=float(np.median(its)), worse=worse,
+                   cpu_max_rel=float(rel.max()))
+    log(f"FISTA host path, {len(final)} blends: {summary['blends_per_min']:.1f}"
+        f" blends/min ({wall:.3f} s), median iterations "
+        f"{summary['median_iterations']}, logL not above its start for "
+        f"{worse}; CPU refit of blends {sel}: max rel diff {rel.max():.3g} "
+        f"(limit {CPU_RTOL}); launches {counts} on {card}")
+    if not rel.max() <= CPU_RTOL:
+        raise AssertionError("CPU and card FISTA logL disagree")
+    return counts, summary
+
+
 def main():
     import torch
 
@@ -1581,7 +2111,7 @@ def main():
             f"{info['smem_bytes']} B shared, {info['blocks_per_sm']} "
             f"blocks resident per SM")
 
-    single, setup, init_s = setup_blends(dev)
+    single, setup, init_s, seeds = setup_blends(dev)
     config = setup[0]
     log_gather_info(*setup[2].comp_active[0].shape, *config.scene_shape,
                     *config.box_shapes[0], config.pad, card)
@@ -1602,7 +2132,7 @@ def main():
         f"{k1_fit['bound_ops']} operations): "
         f"{100.0 * k1_fit['bound_ms'] / k1_fit_ms:.1f}% of the bound's "
         f"speed, on {card}")
-    del single, setup
+    del single
 
     het = make_het()
     kres.update(stream_kernel_phases(dev, card, het))
@@ -1627,6 +2157,16 @@ def main():
             stream_summary["device_resident_wall_s"])))
     log(f"wavelet summary: {json.dumps(wav_summary)}")
 
+    # the fit options, each path with the counts zeroed just before it
+    kres["monotonic_prox_tol_tensor"] = tol_tensor_phase(dev, card, het)
+    dft_summary = dft_phase(dev, card, setup, het)
+    log(f"dft summary: {json.dumps(dft_summary)}")
+    opt_counts, opt_summary = grow_schedule_phase(dev, card, het)
+    opt_summary["oversized"] = oversized_growth(dev, card)
+    fista_counts, opt_summary["fista"] = fista_host_path(dev, card, seeds)
+    log(f"fit options summary: {json.dumps(opt_summary)}")
+    del setup, seeds
+
     # each kernel's launches from the run of the path that drives it:
     # K1, K3 and K4 from one device-stream run, K5 and K6 from the fit of
     # their configuration
@@ -1635,9 +2175,13 @@ def main():
     launches["fused_morph_update"] = \
         fused_counts["fuse_morph"]["fused_morph_update"]
     launches["mono_pass_variant"] = t1_launches
+    launches["monotonic_prox_tol_tensor"] = \
+        opt_counts["schedule"]["monotonic_prox_tol_tensor"]
     path = dict(prox_chain="fit, packed_prox_chain",
                 fused_morph_update="fit, fuse_morph",
-                mono_pass_variant="tools.mono_pass_attrib")
+                mono_pass_variant="tools.mono_pass_attrib",
+                monotonic_prox_tol_tensor="device stream, mono_tol_early/"
+                "mono_tol_switch")
     # no one PyTorch call computes any of them (PERF.md): library_ms null
     main_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     kernels = [
@@ -1645,7 +2189,7 @@ def main():
              replaces=REPLACES[name], launches=int(launches[name]),
              **{k: res[k] for k in main_keys}, library_ms=None,
              path=path.get(name, "device stream"),
-             launches_host_path=int(host_counts[name]),
+             launches_host_path=int(host_counts.get(name, 0)),
              **{k: v for k, v in res.items() if k not in main_keys})
         for name, res in kres.items()]
     log(f"CPU rerun max rel logL diff {cpu_rel:.3g}")

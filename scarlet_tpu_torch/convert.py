@@ -21,7 +21,7 @@ import torch
 
 from .device import default_device
 from .lite import engine
-from .optim import AdaproxState
+from .optim import AdaproxState, FistaState
 
 __all__ = ["from_jax"]
 
@@ -55,10 +55,19 @@ def _complex(split, device):
     return torch.complex(t.select(-4, 0), t.select(-4, 1)).contiguous()
 
 
+def _fields(obj):
+    return tuple(obj) if isinstance(obj, Mapping) else obj._fields
+
+
 def _opt(opts, device):
-    return tuple(AdaproxState(*(_tensor(_get(o, f), device)
-                                for f in AdaproxState._fields))
-                 for o in opts)
+    """Per bucket, the AdaproxState or FistaState (told apart by its
+    fields) of the JAX package as the port's."""
+    out = []
+    for o in opts:
+        kind = FistaState if "z" in _fields(o) else AdaproxState
+        out.append(kind(*(_tensor(_get(o, f), device)
+                          for f in kind._fields)))
+    return tuple(out)
 
 
 def from_jax(config, data, state, device=None):
@@ -67,10 +76,6 @@ def from_jax(config, data, state, device=None):
     device = default_device(device)
     engine.pin_float32(device)
     cfg = engine.LiteFitConfig(**dict(config))
-    if _get(data, "fista_step") is not None:
-        raise NotImplementedError("FISTA states are not ported")
-    if _get(state, "box_half") is not None:
-        raise NotImplementedError("box-growth states are not ported")
     mask = _get(data, "scene_mask")
     out_data = engine.BlendData(
         images=_tensor(_get(data, "images"), device),
@@ -81,6 +86,7 @@ def from_jax(config, data, state, device=None):
         sed_step_min=_tensor(_get(data, "sed_step_min"), device),
         mono_weights=_buckets(_get(data, "mono_weights"), device),
         mono_keep=_buckets(_get(data, "mono_keep"), device),
+        fista_step=_buckets(_get(data, "fista_step"), device),
         box_masks=_buckets(_get(data, "box_masks"), device),
         scene_mask=None if mask is None else _tensor(mask, device),
     )
@@ -94,5 +100,7 @@ def from_jax(config, data, state, device=None):
         active=_tensor(_get(state, "active"), device),
         it=_tensor(_get(state, "it"), device),
         last_loss=_tensor(_get(state, "last_loss"), device),
+        box_half=_buckets(_get(state, "box_half"), device),
+        step_scale=_buckets(_get(state, "step_scale"), device),
     )
     return cfg, out_data, out_state

@@ -11,7 +11,11 @@ from .utils import (  # noqa: F401
     integrated_circular_gaussian,
     get_circle_mask,
 )
-from .parameters import LiteParameter, AdaproxParameter  # noqa: F401
+from .parameters import (  # noqa: F401
+    LiteParameter,
+    FistaParameter,
+    AdaproxParameter,
+)
 from .models import (  # noqa: F401
     LiteComponent,
     LiteFactorizedComponent,
@@ -25,6 +29,7 @@ from .initialization import (  # noqa: F401
     multifit_seds,
     init_main_parameters,
     init_adaprox_component,
+    init_fista_component,
     init_all_sources_main,
     WaveletInitParameters,
     init_wavelet_source,

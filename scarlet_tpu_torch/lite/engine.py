@@ -4,17 +4,21 @@ batch of blends, on torch tensors.
 Port of ``scarlet_tpu/lite/engine.py``.  Per iteration (``fit_step``):
 
 1. assemble the scene from the components (kernel ``scene_assembly``);
-2. convolve with the PSF difference kernel (``torch.fft``);
+2. convolve with the PSF difference kernel (``torch.fft``, or the folded
+   matmul DFT with ``conv_mode="dft"``);
 3. weighted residual and logL;
 4. convolve the residual with the flipped kernel;
 5. gather per-component SED and morphology gradients (kernel
    ``grad_gather``) -- the gradients are analytic, no autograd;
-6. adaprox steps;
-7. the morphology prox chain: box mask, candidate-center pick,
-   monotonicity (kernel ``monotonic_prox``), background threshold, center
-   floor, max-normalization (kernel ``prox_chain`` for the whole chain,
-   or ``fused_morph_update`` for step and chain, where the config asks);
-8. the per-blend convergence mask.
+6. adaprox (or FISTA) steps;
+7. the morphology prox chain: box mask (grown with ``box_grow``),
+   candidate-center pick, monotonicity (kernel ``monotonic_prox``, at a
+   static tolerance or at one per blend read on the device from the
+   schedule ``mono_tol_early``/``mono_tol_switch``/``mono_every``),
+   background threshold, center floor, max-normalization (kernel
+   ``prox_chain`` for the whole chain, or ``fused_morph_update`` for step
+   and chain, where the config asks);
+8. box growth (``box_grow``) and the per-blend convergence mask.
 
 A batch is a leading axis on every per-blend tensor of ``BlendData`` and
 ``BlendState`` (the monotonicity tables are shared and unbatched); one
@@ -28,8 +32,9 @@ the layout stays, but the config takes the same branch of the morphology
 update as the JAX ``fit_step`` (:func:`_morph_update`): the packed
 branch's per-slot threshold cutoff, its one-pass prox chain
 (``packed_prox_chain``, kernel ``prox_chain``) and the fused update
-(``fuse_morph``, kernel ``fused_morph_update``).  Options the port does
-not run yet raise ``NotImplementedError`` (see :func:`check_supported`).
+(``fuse_morph``, kernel ``fused_morph_update``).  The band axis and the
+bf16 matmul tiers of the DFT convolution raise ``NotImplementedError``
+(see :func:`check_supported`).
 """
 from __future__ import annotations
 
@@ -43,13 +48,15 @@ from ..device import default_device
 from ..ops import fft as fft_ops
 from ..ops import kernels
 from ..ops import prox as prox_ops
-from ..optim import AdaproxState, init_adaprox_state, adaprox_step
+from ..optim import (AdaproxState, FistaState, init_adaprox_state,
+                     adaprox_step, fista_step)
 
 __all__ = [
     "LiteFitConfig",
     "BlendData",
     "BlendState",
     "AdaproxState",
+    "FistaState",
     "init_adaprox_state",
     "map_tree",
     "pin_float32",
@@ -75,15 +82,16 @@ class LiteFitConfig:
     ``packed_prox_chain`` and ``fuse_morph`` select the branch of the
     morphology update as in the JAX package (:func:`packed_morphs_ok`);
     the tensors' device picks kernel or plain version, and the layout is
-    always (…, K, hb, wb).  ``pallas_interpret`` and ``conv_precision``
-    are carried for the conversion and change nothing here.
+    always (…, K, hb, wb).  ``pallas_interpret`` is carried for the
+    conversion and changes nothing here; ``conv_precision`` must stay
+    "float32" (the JAX package's bf16 tiers have no exact counterpart).
     """
     scene_shape: tuple            # (C, H, W)
     box_shapes: tuple             # ((hb, wb), ...) per bucket
     bucket_counts: tuple          # (Kb, ...) per bucket
     fft_shape: Optional[tuple]    # spatial FFT shape; None = no convolution
     mono_n_iters: tuple = ()      # per bucket; from monotonicity_tables
-    optimizer: str = "adaprox"    # only "adaprox" is ported
+    optimizer: str = "adaprox"    # "adaprox" | "fista"
     scheme: str = "amsgrad"
     b1: float = 0.9
     b2: float = 0.999
@@ -102,10 +110,19 @@ class LiteFitConfig:
     # fixed point; > 0 exits once a 4-pass block moves no pixel by more
     # than mono_tol (morphs are unit-peak)
     mono_tol: float = 0.0
-    mono_tol_early: float = 0.0   # not ported: must stay off
-    mono_tol_switch: int = 0      # not ported: must stay 0
-    mono_every: int = 1           # not ported: must stay 1
-    box_grow: Optional[float] = None  # not ported: must stay None
+    # the scheduled tolerance (under use_pallas, read per blend on the
+    # device): mono_tol_early before iteration mono_tol_switch, mono_tol
+    # after, and no blend freezes before the switch; 0/0 = off
+    mono_tol_early: float = 0.0
+    mono_tol_switch: int = 0
+    # the full projection only every N-th iteration (skip iterations exit
+    # after one 4-pass block); measured negative in the JAX package
+    # (scarlet_tpu/lite/engine.py:111-123): keep 1
+    mono_every: int = 1
+    # logical box growth: a slot whose next update pulls flux onto its box
+    # edge by more than box_grow grows its mask by box_grow_step within
+    # the physical box and halves its step; None = off
+    box_grow: Optional[float] = None
     box_grow_step: int = 5
     neighbor_weight: str = "angle"
     use_pallas: bool = False
@@ -113,8 +130,8 @@ class LiteFitConfig:
     fuse_morph: bool = False      # fused morphology update (K6)
     packed_morphs: bool = False   # the packed branch (packed_morphs_ok)
     packed_prox_chain: bool = False  # its one-pass prox chain (K5)
-    conv_mode: str = "fft"        # only "fft" is ported
-    conv_precision: str = "float32"
+    conv_mode: str = "fft"        # "fft" | "dft" (the folded matmul DFT)
+    conv_precision: str = "float32"   # of the DFT: only "float32"
     pallas_interpret: bool = False
     scene_pad: int = -1           # -1: one full (largest) box
     band_axis: Optional[str] = None   # not ported: must stay None
@@ -143,6 +160,8 @@ class BlendData(NamedTuple):
     sed_step_min: torch.Tensor       # (…, C) minimum SED step
     mono_weights: tuple              # per bucket: (ncand, 8, hb, wb), shared
     mono_keep: tuple                 # per bucket: (ncand, hb, wb), shared
+    fista_step: Optional[tuple] = None  # per bucket: (…, Kb) base FISTA
+    # steps (optimizer "fista")
     box_masks: Optional[tuple] = None   # per bucket: (…, Kb, hb, wb), 1
     # inside each component's logical box
     scene_mask: Optional[torch.Tensor] = None  # (…, H, W), 1 on real
@@ -155,11 +174,16 @@ class BlendState(NamedTuple):
     morphs: tuple                # per bucket: (…, Kb, hb, wb)
     origins: tuple               # per bucket: (…, Kb, 2) int32
     comp_active: tuple           # per bucket: (…, Kb) bool
-    sed_opt: tuple               # per bucket: AdaproxState
-    morph_opt: tuple             # per bucket: AdaproxState
+    sed_opt: tuple               # per bucket: AdaproxState | FistaState
+    morph_opt: tuple             # per bucket: AdaproxState | FistaState
     active: torch.Tensor         # (…) bool: blend still iterating
     it: torch.Tensor             # (…) int32: iterations executed
     last_loss: torch.Tensor      # (…) float: previous logL
+    # box growth (config.box_grow; None when off), per bucket:
+    box_half: Optional[tuple] = None    # (…, Kb) int32 grown logical
+    # half-size; -1 = still the init box (data.box_masks alone)
+    step_scale: Optional[tuple] = None  # (…, Kb) float morphology step
+    # multiplier, halved on each growth
 
 
 def map_tree(fn, tree, *rest):
@@ -176,14 +200,20 @@ def map_tree(fn, tree, *rest):
 
 
 def check_supported(config):
-    """Raise ``NotImplementedError`` for options the port does not run."""
+    """Raise ``ValueError`` for an unknown optimizer or convolution mode,
+    and ``NotImplementedError`` for the options the port does not run:
+    the band axis (more than one device) and the bf16 matmul tiers of the
+    DFT convolution."""
+    for name, known in (("optimizer", ("adaprox", "fista")),
+                        ("conv_mode", ("fft", "dft"))):
+        if getattr(config, name) not in known:
+            raise ValueError(f"LiteFitConfig.{name}="
+                             f"{getattr(config, name)!r}: one of {known}")
     off = {
-        "optimizer": (config.optimizer != "adaprox", "'adaprox'"),
-        "box_grow": (config.box_grow is not None, "None"),
         "band_axis": (config.band_axis is not None, "None"),
-        "mono_tol_switch": (config.mono_tol_switch > 0, "0"),
-        "mono_every": (config.mono_every > 1, "1"),
-        "conv_mode": (config.conv_mode != "fft", "'fft'"),
+        "conv_precision": (config.conv_mode == "dft"
+                           and config.conv_precision != "float32",
+                           "'float32'"),
     }
     for name, (bad, want) in off.items():
         if bad:
@@ -205,12 +235,14 @@ def packed_morphs_ok(config):
     return config.bucket_counts[0] * wb <= 4096
 
 
-def _fused_ok(config):
+def _fused_ok(config, grow):
     """Whether the JAX ``fit_step`` takes the fused morphology update
-    (scarlet_tpu/lite/engine.py:939-943; box growth is not ported)."""
+    (scarlet_tpu/lite/engine.py:937-943): adaprox only, and not while
+    boxes grow."""
     return (config.use_pallas and config.fuse_morph
-            and config.scheme == "amsgrad" and config.max_prox_iter <= 1
-            and config.band_axis is None)
+            and config.optimizer == "adaprox" and config.scheme == "amsgrad"
+            and config.max_prox_iter <= 1 and config.band_axis is None
+            and not grow)
 
 
 # ---------------------------------------------------------------------------
@@ -399,6 +431,10 @@ def make_scene(state, config):
 def _convolve(scene, kernel_rfft, config):
     if kernel_rfft is None:
         return scene
+    if config.conv_mode == "dft":
+        ops = fft_ops.dft_conv_operators(scene.shape[-2:], config.fft_shape,
+                                         scene.dtype, scene.device)
+        return fft_ops.convolve_dft(scene, kernel_rfft, ops)
     return fft_ops.convolve_fft(scene, kernel_rfft, config.fft_shape,
                                 (-2, -1))
 
@@ -412,34 +448,157 @@ def render(state, data, config):
 
 
 # ---------------------------------------------------------------------------
+# Logical box growth (config.box_grow)
+# ---------------------------------------------------------------------------
+def _grow_enabled(config, state):
+    return (config.box_grow is not None and state.box_half is not None
+            and config.optimizer == "adaprox")
+
+
+def _box_offsets(hb, wb, bc, device):
+    """(|dy| (hb, 1), |dx| (1, wb)) from the box center ``bc``."""
+    dy = (torch.arange(hb, device=device) - bc[0]).abs()[:, None]
+    dx = (torch.arange(wb, device=device) - bc[1]).abs()[None, :]
+    return dy, dx
+
+
+def _base_half(base_mask, bc):
+    """Per slot, the logical half-size of the init box mask (…, K, hb, wb):
+    the largest |offset| from the box center with mask support, (…, K)
+    int32."""
+    hb, wb = base_mask.shape[-2:]
+    dy, dx = _box_offsets(hb, wb, bc, base_mask.device)
+    on = base_mask > 0.5
+    ry = torch.where(on.any(dim=-1), dy[:, 0], 0).amax(dim=-1)
+    rx = torch.where(on.any(dim=-2), dx[0], 0).amax(dim=-1)
+    return torch.maximum(ry, rx).to(torch.int32)
+
+
+def _grown_mask_stack(base_mask, box_half, bc):
+    """The effective logical mask: the init mask grown to the centered
+    square of half-size ``box_half`` (…, K) (-1: the init mask alone)."""
+    hb, wb = base_mask.shape[-2:]
+    dy, dx = _box_offsets(hb, wb, bc, base_mask.device)
+    h = box_half[..., None, None]
+    inside = (dy <= h) & (dx <= h)
+    return torch.maximum(base_mask, inside.to(base_mask.dtype))
+
+
+def _edge_pull(x, m, v, step_k, h_eff, bc):
+    """The reference's box-grow test (ref morphology.py:163-177) on
+    (…, K, hb, wb) stacks: the magnitude of the next Adam update
+    ``-m / v^(1/4) * step`` where the model has flux, averaged over each
+    of the 4 edges of the current logical box (half-size ``h_eff``);
+    returns each slot's largest edge mean (…, K).  As in the JAX package,
+    pixels with v == 0 add 0 to the mean instead of leaving it (their m
+    is 0 too)."""
+    hb, wb = x.shape[-2:]
+    dev = x.device
+    dy = (torch.arange(hb, device=dev) - bc[0])[:, None]
+    dx = (torch.arange(wb, device=dev) - bc[1])[None, :]
+    h = h_eff[..., None, None]
+    denom = torch.sqrt(torch.sqrt(torch.clamp_min(v, 0.0)))
+    gu = torch.where(v > 0, -m / torch.clamp_min(denom, 1e-30), 0.0)
+    pull = gu * step_k[..., None, None] * (x > 0)
+    in_y = dy.abs() <= h
+    in_x = dx.abs() <= h
+    best = None
+    for mask in ((dy == -h) & in_x, (dy == h) & in_x,
+                 (dx == -h) & in_y, (dx == h) & in_y):
+        mf = mask.to(x.dtype)
+        e = (pull * mf).sum(dim=(-2, -1)) / torch.clamp_min(
+            mf.sum(dim=(-2, -1)), 1.0)
+        best = e if best is None else torch.maximum(best, e)
+    return best
+
+
+def _grow_update(config, b, morphs, mopt, base_h, box_half, step_scale,
+                 gate):
+    """The edge-pull trigger of one bucket after its update (the gated
+    morphologies and moments): returns (box_half', step_scale').  A slot
+    grows by ``box_grow_step`` and halves its step; growth stays inside
+    the physical box."""
+    hb, wb = config.box_shapes[b]
+    bc = (hb // 2, wb // 2)
+    h_eff = torch.maximum(base_h, box_half)
+    step_k = (config.morph_step * step_scale).to(morphs.dtype)
+    pull = _edge_pull(morphs, mopt.m, mopt.v, step_k, h_eff, bc)
+    can = (h_eff + config.box_grow_step) <= min(bc)
+    trig = (pull > config.box_grow) & can & gate
+    new_half = torch.where(trig, h_eff + config.box_grow_step, box_half)
+    new_scale = torch.where(trig, step_scale * 0.5, step_scale)
+    return new_half.to(box_half.dtype), new_scale
+
+
+# ---------------------------------------------------------------------------
+# The scheduled projection tolerance
+# ---------------------------------------------------------------------------
+def _mono_tol_arr(config, it):
+    """The scheduled exit tolerance of each blend (float32, the shape and
+    device of its iteration count ``it``), or None for the static
+    ``config.mono_tol`` alone: the looser ``mono_tol_early`` before
+    iteration ``mono_tol_switch``, ``mono_tol`` after; with ``mono_every >
+    1`` the skip iterations (``it % mono_every != 0``) get 1e6, so the
+    projection exits after one block.  Ref: scarlet_tpu/lite/engine.py:
+    573-589."""
+    def full(value):
+        return torch.full(it.shape, value, dtype=torch.float32,
+                          device=it.device)
+
+    tol = None
+    if config.mono_tol_switch > 0 and config.mono_tol_early > config.mono_tol:
+        tol = torch.where(it < config.mono_tol_switch,
+                          full(config.mono_tol_early), full(config.mono_tol))
+    if config.mono_every > 1:
+        base = full(config.mono_tol) if tol is None else tol
+        # morphs are unit-peak, so 1e6 exceeds any possible |delta|
+        tol = torch.where(it % config.mono_every == 0, base, full(1e6))
+    return tol
+
+
+def _projection_tol(config, it):
+    """The projection's exit tolerance this iteration: under
+    ``use_pallas``, the schedule's per-blend tensor or the static
+    ``mono_tol``; the plain branch ignores both and runs at 0, as in
+    scarlet_tpu/lite/engine.py:627-647."""
+    if not config.use_pallas:
+        return 0.0
+    tol = _mono_tol_arr(config, it)
+    return config.mono_tol if tol is None else tol
+
+
+# ---------------------------------------------------------------------------
 # Morphology prox chain (one bucket, all components at once)
 # ---------------------------------------------------------------------------
-def _prox_morph_bucket(morphs, seds, data, config, b):
+def _prox_morph_bucket(morphs, seds, data, config, b, tol, box_half=None):
     """Box mask -> monotonicity -> background threshold (or positivity)
     -> center floor -> max normalization over bucket ``b``'s
     (…, Kb, hb, wb) stack.  Ref: lite/models.py:224-244.
 
-    The projection's exit tolerance is ``config.mono_tol`` only under
-    ``use_pallas``, as in scarlet_tpu/lite/engine.py:627-647; the plain
-    branch there ignores it and so runs at tol 0 here.  Both branches run
-    whole 4-pass blocks (the kernel's exit rule), where the JAX plain
-    branch stops after exactly ``n_iter`` passes: at tol 0 the two agree
-    whenever ``n_iter`` is at least the table's DAG depth (every config
-    ``engine.monotonicity_tables`` builds) or a multiple of 4, so one
-    kernel and one plain version serve both configs."""
+    ``tol`` is the projection's exit tolerance (:func:`_projection_tol`:
+    0 on the plain branch, as the JAX plain branch ignores it).  Both
+    branches run whole 4-pass blocks (the kernel's exit rule), where the
+    JAX plain branch stops after exactly ``n_iter`` passes: at tol 0 the
+    two agree whenever ``n_iter`` is at least the table's DAG depth (every
+    config ``engine.monotonicity_tables`` builds) or a multiple of 4, so
+    one kernel and one plain version serve both configs.  ``box_half``
+    (…, Kb): the grown logical boxes (``box_grow``)."""
     hb, wb = config.box_shapes[b]
     bc = (hb // 2, wb // 2)
 
     if data.box_masks is not None:
-        # confine each morphology to its logical (reference) box
-        morphs = morphs * data.box_masks[b]
+        # confine each morphology to its logical (reference) box, grown
+        # to the state's half-size with box_grow
+        mask = data.box_masks[b]
+        if box_half is not None:
+            mask = _grown_mask_stack(mask, box_half, bc)
+        morphs = morphs * mask
 
     # table of the brightest pixel near each center (first maximum wins)
     idx = kernels.candidate_index(morphs, config.fit_center_radius)
     morphs = kernels.monotonic_prox(
         morphs, idx, data.mono_weights[b], data.mono_keep[b],
-        config.mono_n_iters[b], config.min_gradient,
-        tol=config.mono_tol if config.use_pallas else 0.0)
+        config.mono_n_iters[b], config.min_gradient, tol=tol)
 
     if config.bg_thresh is not None:
         model = seds[..., :, None, None] * morphs[..., None, :, :]
@@ -469,16 +628,24 @@ def _cutoff(seds, data, config):
 
 
 def _morph_update(morphs, grads, opt, seds, gate, it, data, config, b,
-                  hyper):
-    """One bucket's morphology update: adaprox step, prox chain with the
-    *new* SEDs ``seds`` (lite/models.py:246-252), slot gate ``gate``
-    (…, K).  The branch is the JAX ``fit_step``'s for the same config
-    (scarlet_tpu/lite/engine.py:842-1019).  Returns (morphs, moments)."""
+                  hyper, tol, box_half=None, step_scale=None):
+    """One bucket's adaprox morphology update: adaprox step, prox chain
+    with the *new* SEDs ``seds`` (lite/models.py:246-252), slot gate
+    ``gate`` (…, K).  The branch is the JAX ``fit_step``'s for the same
+    config (scarlet_tpu/lite/engine.py:842-1019).  ``tol``: the
+    projection's exit tolerance (the K5 chain keeps the static
+    ``mono_tol``, as the JAX package's); ``box_half``/``step_scale``
+    (…, K): box growth's masks and per-slot step scales.  Returns
+    (morphs, moments)."""
     n_iter = config.mono_n_iters[b]
     tables = (data.mono_weights[b], data.mono_keep[b])
     masks = None if data.box_masks is None else data.box_masks[b]
+    grow = box_half is not None
+    if grow:
+        hb, wb = config.box_shapes[b]
+        masks = _grown_mask_stack(masks, box_half, (hb // 2, wb // 2))
     packed = packed_morphs_ok(config)
-    if not packed and _fused_ok(config):
+    if not packed and _fused_ok(config, grow):
         damp = torch.where(it > 0, 1.0, 0.1).to(morphs.dtype)
         return kernels.fused_morph_update(
             morphs, grads, opt, gate, *tables, masks,
@@ -486,13 +653,17 @@ def _morph_update(morphs, grads, opt, seds, gate, it, data, config, b,
             config.min_gradient, config.fit_center_radius, config.b1,
             config.b2, config.eps, config.floor)
 
+    # the morphology step, per slot while boxes grow
+    mstep = (config.morph_step * step_scale[..., None, None] if grow
+             else config.morph_step)
     stepped, mopt = adaprox_step(morphs, grads, it[..., None, None, None],
-                                 opt, config.morph_step, prox=None, **hyper)
+                                 opt, mstep, prox=None, **hyper)
     gate3 = gate[..., None, None]
     mopt = AdaproxState(*(torch.where(gate3, new, old)
                           for new, old in zip(mopt, opt)))
     if not packed:
-        proxed = _prox_morph_bucket(stepped, seds, data, config, b)
+        proxed = _prox_morph_bucket(stepped, seds, data, config, b, tol,
+                                    box_half)
         return torch.where(gate3, proxed, morphs), mopt
 
     if masks is not None:
@@ -504,17 +675,40 @@ def _morph_update(morphs, grads, opt, seds, gate, it, data, config, b,
                                   n_iter, config.min_gradient, config.floor,
                                   tol=config.mono_tol), mopt
     proxed = kernels.monotonic_prox(stepped, idx, *tables, n_iter,
-                                    config.min_gradient, tol=config.mono_tol)
+                                    config.min_gradient, tol=tol)
     return kernels.chain_epilogue(proxed, thr, gate, morphs,
                                   config.floor), mopt
+
+
+def _fista_bucket(seds_b, morphs_b, g_seds, g_morphs, sed_opt, morph_opt,
+                  base, gate, it, data, config, b, tol):
+    """One bucket's FISTA update (scarlet_tpu/lite/engine.py:796-819,
+    992-1011, in that order): the SEDs step by ``base / |morph|^2`` of the
+    old morphologies, floored; the morphologies' extrapolation ``y = z -
+    step g`` steps by ``base / |sed|^2`` of the old SEDs, its prox is the
+    bucket's chain with the new SEDs, and the acceleration starts from
+    the morphologies before the step; slots off ``gate`` keep every
+    field.  Returns (seds, sed_opt, morphs, morph_opt)."""
+    floor = config.floor
+    step = base / torch.clamp_min((morphs_b * morphs_b).sum(dim=(-2, -1)),
+                                  1e-12)
+    sb, sopt = fista_step(seds_b, g_seds, it, sed_opt, step[..., None],
+                          prox=lambda x, s: torch.clamp_min(x, floor),
+                          active=gate)
+    mstep = base / torch.clamp_min((seds_b * seds_b).sum(dim=-1), 1e-12)
+    mb, mopt = fista_step(
+        morphs_b, g_morphs, it, morph_opt, mstep[..., None, None],
+        prox=lambda y, s: _prox_morph_bucket(y, sb, data, config, b, tol),
+        active=gate)
+    return sb, sopt, mb, mopt
 
 
 # ---------------------------------------------------------------------------
 # One fit iteration
 # ---------------------------------------------------------------------------
 def fit_step(state, data, config):
-    """One adaprox iteration over all components of one blend, or of each
-    blend of a batch.
+    """One adaprox (or FISTA) iteration over all components of one blend,
+    or of each blend of a batch.
 
     Returns (new_state, logL) with logL = -0.5 sum(w (model - img)^2) per
     blend (lite/models.py:541).
@@ -544,8 +738,12 @@ def fit_step(state, data, config):
     hyper = dict(scheme=config.scheme, b1=config.b1, b2=config.b2,
                  eps=config.eps, p=config.p,
                  max_prox_iter=config.max_prox_iter)
+    fista = config.optimizer == "fista"
+    grow = _grow_enabled(config, state) and data.box_masks is not None
+    tol = _projection_tol(config, it)
 
     new_seds, new_sed_opts, new_morphs, new_morph_opts = [], [], [], []
+    new_halves, new_scales = [], []
     for b in range(config.n_buckets):
         seds_b = state.seds[b]
         morphs_b = state.morphs[b]
@@ -555,27 +753,50 @@ def fit_step(state, data, config):
         g_seds, g_morphs = kernels.grad_gather(
             grad_scene, seds_b, morphs_b, state.origins[b], 0)
 
-        # SED: relative step with a noise-floor minimum
-        # (lite/initialization.py:275-279), floored by the prox
-        sed_step = torch.maximum(
-            data.sed_step_min[..., None, :],
-            config.sed_step_factor * seds_b.sum(dim=-1, keepdim=True)
-            / n_bands)
-        sb, sopt = adaprox_step(
-            seds_b, g_seds, it[..., None, None], state.sed_opt[b], sed_step,
-            prox=lambda x, s: torch.clamp_min(x, floor),
-            active=gate[..., None], param_dims=(-1,), **hyper)
-
-        mb, mopt = _morph_update(morphs_b, g_morphs, state.morph_opt[b],
-                                 sb, gate, it, data, config, b, hyper)
+        if fista:
+            sb, sopt, mb, mopt = _fista_bucket(
+                seds_b, morphs_b, g_seds, g_morphs, state.sed_opt[b],
+                state.morph_opt[b], data.fista_step[b], gate, it, data,
+                config, b, tol)
+        else:
+            # SED: relative step with a noise-floor minimum
+            # (lite/initialization.py:275-279), floored by the prox
+            sed_step = torch.maximum(
+                data.sed_step_min[..., None, :],
+                config.sed_step_factor * seds_b.sum(dim=-1, keepdim=True)
+                / n_bands)
+            sb, sopt = adaprox_step(
+                seds_b, g_seds, it[..., None, None], state.sed_opt[b],
+                sed_step, prox=lambda x, s: torch.clamp_min(x, floor),
+                active=gate[..., None], param_dims=(-1,), **hyper)
+            mb, mopt = _morph_update(
+                morphs_b, g_morphs, state.morph_opt[b], sb, gate, it, data,
+                config, b, hyper, tol,
+                box_half=state.box_half[b] if grow else None,
+                step_scale=state.step_scale[b] if grow else None)
+        if grow:
+            hb, wb = config.box_shapes[b]
+            nh, ns = _grow_update(
+                config, b, mb, mopt,
+                _base_half(data.box_masks[b], (hb // 2, wb // 2)),
+                state.box_half[b], state.step_scale[b], gate)
+            new_halves.append(nh)
+            new_scales.append(ns)
         new_morphs.append(mb)
         new_morph_opts.append(mopt)
         new_seds.append(sb)
         new_sed_opts.append(sopt)
 
-    # convergence: |dL| < e_rel |L| after min_iter (lite/models.py:618)
-    converged = (it > config.min_iter) & (
+    # convergence: |dL| < e_rel |L| after min_iter (lite/models.py:618);
+    # with the scheduled tolerance no blend freezes before the switch,
+    # and with mono_every only on a full-projection iteration
+    min_it = config.min_iter
+    if config.mono_tol_switch > 0 and config.mono_tol_early > config.mono_tol:
+        min_it = max(min_it, config.mono_tol_switch)
+    converged = (it > min_it) & (
         (logL - state.last_loss).abs() < config.e_rel * logL.abs())
+    if config.mono_every > 1:
+        converged = converged & (it % config.mono_every == 0)
     new_state = BlendState(
         seds=tuple(new_seds),
         morphs=tuple(new_morphs),
@@ -586,6 +807,8 @@ def fit_step(state, data, config):
         active=active & ~converged,
         it=it + active.to(it.dtype),
         last_loss=torch.where(active, logL, state.last_loss),
+        box_half=tuple(new_halves) if grow else state.box_half,
+        step_scale=tuple(new_scales) if grow else state.step_scale,
     )
     return new_state, logL
 

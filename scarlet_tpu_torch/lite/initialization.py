@@ -14,14 +14,14 @@ from functools import partial
 import numpy as np
 import torch
 
-from ..bbox import Box
+from ..bbox import Box, overlapped_slices
 from ..detect import bounds_to_bbox, get_detect_wavelets
 from ..ops import prox as prox_ops
 from ..initialization import trim_morphology
 from ..models.parameter import relative_step
 from .measure import calculate_snr
 from .models import LiteSource, LiteFactorizedComponent, LiteComponent
-from .parameters import AdaproxParameter
+from .parameters import AdaproxParameter, FistaParameter
 from .utils import (insert_image, host_convolve as _host_convolve,
                     project_morph_to_center, to_numpy)
 
@@ -32,6 +32,7 @@ __all__ = [
     "multifit_seds",
     "init_main_parameters",
     "init_adaprox_component",
+    "init_fista_component",
     "init_all_sources_main",
     "WaveletInitParameters",
     "init_wavelet_source",
@@ -173,6 +174,22 @@ def init_adaprox_component(center, bbox, sed, morph, observation, factor=10,
     return LiteFactorizedComponent(
         sed, morph, center, bbox, observation.bbox,
         to_numpy(observation.noise_rms), bg_thresh=bg_thresh,
+    )
+
+
+def init_fista_component(center, bbox, sed, morph, observation,
+                         bg_thresh=None):
+    """Wrap seeds as a FISTA-optimized component: both factors step at
+    ``1 / (2 mean(w))`` over the box's positive weights.
+    Ref: lite/initialization.py:287-318."""
+    slices = overlapped_slices(bbox, observation.bbox)
+    w = to_numpy(observation.weights)[slices[1]]
+    step = 2 * np.mean(w[w > 0])
+    return LiteFactorizedComponent(
+        FistaParameter(sed, step=1 / step), FistaParameter(morph,
+                                                           step=1 / step),
+        center, bbox, observation.bbox, to_numpy(observation.noise_rms),
+        bg_thresh=bg_thresh,
     )
 
 

@@ -10,12 +10,13 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..bbox import Box, overlapped_slices
 from ..device import default_device
 from ..ops import fft as fft_ops
 from ..initialization import get_minimal_boxsize
-from .parameters import LiteParameter, AdaproxParameter
+from .parameters import LiteParameter, AdaproxParameter, FistaParameter
 from .utils import insert_image, to_numpy
 from . import engine
 
@@ -203,8 +204,9 @@ class LiteObservation:
 
     Tensors live on ``device`` (default: the CUDA card, or the device of
     ``images`` if it is a tensor; ``"cpu"`` for the host); the
-    initialization reads them on the host.  Only the ``"fft"``
-    convolution mode is ported.
+    initialization reads them on the host.  ``convolution_mode``: "fft"
+    (centered FFT) or "real" (a per-band true convolution with the odd
+    difference kernel, :func:`_depthwise_convolve`).
     """
 
     def __init__(self, images, variance, weights, psfs, model_psf=None,
@@ -221,10 +223,9 @@ class LiteObservation:
         self.variance = tensor(variance)
         self.weights = tensor(weights)
         self.psfs = tensor(psfs, self.images.dtype)
-        if convolution_mode != "fft":
-            raise NotImplementedError(
-                f"convolution_mode {convolution_mode!r} is not ported; "
-                "only 'fft' is")
+        if convolution_mode not in ("fft", "real"):
+            raise ValueError("convolution_mode must be either 'fft' or "
+                             f"'real', got {convolution_mode!r}")
         self.mode = convolution_mode
         if noise_rms is None:
             noise_rms = torch.sqrt(self.variance).mean(dim=(1, 2))
@@ -247,17 +248,20 @@ class LiteObservation:
         return self.images.device
 
     def convolve(self, image, mode=None, grad=False):
-        """Convolve a (C, H, W) image to the observed seeing.
-        Ref: lite/models.py:376-410."""
-        if mode not in (None, "fft"):
-            raise NotImplementedError(f"convolution mode {mode!r} is not "
-                                      "ported; only 'fft' is")
+        """Convolve a (C, H, W) image to the observed seeing, in ``mode``
+        (default: the observation's).  Ref: lite/models.py:376-410."""
         kernel = self.grad_kernel if grad else self.diff_kernel
         if kernel is None:
             return image
+        if mode is None:
+            mode = self.mode
         image = torch.as_tensor(image, device=self.device)
-        return fft_ops.convolve(fft_ops.Fourier(image), kernel, axes=(1, 2),
-                                return_fourier=False)
+        if mode == "fft":
+            return fft_ops.convolve(fft_ops.Fourier(image), kernel,
+                                    axes=(1, 2), return_fourier=False)
+        if mode == "real":
+            return _depthwise_convolve(image, kernel.image)
+        raise ValueError(f"mode must be 'fft' or 'real', got {mode!r}")
 
     def render(self, model):
         return self.convolve(model)
@@ -277,6 +281,40 @@ class LiteObservation:
     @property
     def dtype(self):
         return self.images.dtype
+
+    def __getitem__(self, i):
+        """The observation of band(s) ``i``, with the same model PSF,
+        bounding box, padding and convolution mode."""
+        images = self.images[i]
+        variance = self.variance[i]
+        weights = self.weights[i]
+        psfs = self.psfs[i]
+        noise_rms = self.noise_rms[i]
+        if images.ndim == 2:
+            images, variance, weights, psfs = (
+                a[None] for a in (images, variance, weights, psfs))
+            noise_rms = noise_rms.reshape(1)
+        return LiteObservation(
+            images, variance, weights, psfs, model_psf=self.model_psf,
+            noise_rms=noise_rms, bbox=self.bbox, padding=self.padding,
+            convolution_mode=self.mode, device=self.device)
+
+
+def _depthwise_convolve(image, kernel):
+    """True (flipped-kernel) per-band convolution of (C, H, W) ``image``
+    with the odd (C, kh, kw) ``kernel``, "same" size: a grouped
+    ``F.conv2d`` (cross-correlation) with the flipped kernel, which
+    centers like the FFT convention for odd kernels (ref
+    scarlet_tpu/lite/models.py:350-365).  Float32 in full float32 on the
+    card (``engine.pin_float32`` turns cuDNN's TF32 off)."""
+    C = image.shape[0]
+    kh, kw = kernel.shape[-2:]
+    if kh % 2 == 0 or kw % 2 == 0:
+        raise ValueError(f"the kernel must be odd-sized, got {(kh, kw)}")
+    engine.pin_float32(image.device)
+    k = torch.flip(kernel, (-2, -1)).to(device=image.device)
+    return F.conv2d(image[None].to(k.dtype), k[:, None], padding="same",
+                    groups=C)[0]
 
 
 class LiteBlend:
@@ -408,6 +446,8 @@ class LiteBlend:
         first = comps[0]
         fc_radius = getattr(first, "fit_center_radius", 1) or 1
         floor = getattr(first, "floor", 1e-20)
+        # FISTA when every SED is a FistaParameter (as the JAX package's)
+        use_fista = all(isinstance(c._sed, FistaParameter) for c in comps)
 
         # --- per-bucket state arrays ---
         counts = [sizes.count(s) for s in bucket_sizes]
@@ -431,6 +471,11 @@ class LiteBlend:
         m_mor = [np.zeros_like(a) for a in morphs]
         v_mor = [np.zeros_like(a) for a in morphs]
         vhat_mor = [np.zeros_like(a) for a in morphs]
+        z_sed = [np.zeros_like(a) for a in seds]
+        z_mor = [np.zeros_like(a) for a in morphs]
+        t_sed = [np.ones((k,), dtype=dtype) for k in counts]
+        t_mor = [np.ones((k,), dtype=dtype) for k in counts]
+        fista_steps = [np.zeros((k,), dtype=dtype) for k in counts]
         box_masks = [np.zeros((k, s, s), dtype=dtype)
                      for k, s in zip(counts, bucket_sizes)]
 
@@ -473,6 +518,14 @@ class LiteBlend:
                 v_mor[b][k, dy:dy + h, dx:dx + w] = to_numpy(st.v)[crop]
                 vhat_mor[b][k, dy:dy + h, dx:dx + w] = np.maximum(
                     to_numpy(st.vhat)[crop], 0)
+            if use_fista:
+                crop = (slice(cy, cy + h), slice(cx, cx + w))
+                z_sed[b][k] = to_numpy(c._sed.state.z)
+                t_sed[b][k] = float(c._sed.state.t)
+                z_mor[b][k, dy:dy + h, dx:dx + w] = \
+                    to_numpy(c._morph.state.z)[crop]
+                t_mor[b][k] = float(c._morph.state.t)
+                fista_steps[b][k] = float(c._sed.step)
         self._engine_placements = placements
 
         # exact scene padding: the largest box overhang past the scene
@@ -514,6 +567,7 @@ class LiteBlend:
             use_pallas_scene=accel,
             packed_morphs=accel,
             scene_pad=scene_pad,
+            optimizer="fista" if use_fista else "adaprox",
         )
 
         data = engine.make_blend_data(
@@ -525,13 +579,24 @@ class LiteBlend:
             data = data._replace(
                 scene_mask=torch.from_numpy(scene_mask).to(device))
 
-        def opt(x, m, v, vh):
-            return engine.init_adaprox_state(
-                torch.from_numpy(x).to(device), m=m, v=v, vhat=vh)
+        def dev(a):
+            return torch.from_numpy(a).to(device)
 
-        sed_opt = tuple(opt(*a) for a in zip(seds, m_sed, v_sed, vhat_sed))
-        morph_opt = tuple(opt(*a)
-                          for a in zip(morphs, m_mor, v_mor, vhat_mor))
+        if use_fista:
+            data = data._replace(fista_step=tuple(dev(f)
+                                                  for f in fista_steps))
+            sed_opt = tuple(engine.FistaState(dev(z), dev(t))
+                            for z, t in zip(z_sed, t_sed))
+            morph_opt = tuple(engine.FistaState(dev(z), dev(t))
+                              for z, t in zip(z_mor, t_mor))
+        else:
+            def opt(x, m, v, vh):
+                return engine.init_adaprox_state(dev(x), m=m, v=v, vhat=vh)
+
+            sed_opt = tuple(opt(*a)
+                            for a in zip(seds, m_sed, v_sed, vhat_sed))
+            morph_opt = tuple(opt(*a)
+                              for a in zip(morphs, m_mor, v_mor, vhat_mor))
         comp_active = [
             np.arange(k) < slots[b] for b, k in enumerate(counts)
         ]
@@ -561,20 +626,31 @@ class LiteBlend:
             sl = (slice(dy, dy + h), slice(dx, dx + w))
             sed = torch.from_numpy(np.array(host.seds[b][k]))
             morph = embed(host.morphs[b][k][sl], cy, cx, h, w, h0, w0)
+            fista = isinstance(host.sed_opt[b], engine.FistaState)
             if isinstance(c._sed, LiteParameter):
                 c._sed.x = sed
-                if isinstance(c._sed, AdaproxParameter):
+                if isinstance(c._sed, AdaproxParameter) and not fista:
                     c._sed.state = engine.AdaproxState(*(
                         torch.from_numpy(np.array(a[k]))
                         for a in host.sed_opt[b]))
+                elif isinstance(c._sed, FistaParameter) and fista:
+                    opt = host.sed_opt[b]
+                    c._sed.state = engine.FistaState(
+                        z=torch.from_numpy(np.array(opt.z[k])),
+                        t=torch.from_numpy(np.array(opt.t[k])))
             else:
                 c._sed = sed
             if isinstance(c._morph, LiteParameter):
                 c._morph.x = morph
-                if isinstance(c._morph, AdaproxParameter):
+                if isinstance(c._morph, AdaproxParameter) and not fista:
                     c._morph.state = engine.AdaproxState(*(
                         embed(a[k][sl], cy, cx, h, w, h0, w0)
                         for a in host.morph_opt[b]))
+                elif isinstance(c._morph, FistaParameter) and fista:
+                    opt = host.morph_opt[b]
+                    c._morph.state = engine.FistaState(
+                        z=embed(opt.z[k][sl], cy, cx, h, w, h0, w0),
+                        t=torch.from_numpy(np.array(opt.t[k])))
             else:
                 c._morph = morph
 

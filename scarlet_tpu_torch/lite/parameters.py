@@ -11,10 +11,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..optim import AdaproxState, init_adaprox_state, adaprox_step
+from ..optim import (AdaproxState, FistaState, init_adaprox_state,
+                     init_fista_state, adaprox_step, fista_step)
 from .utils import to_numpy
 
-__all__ = ["LiteParameter", "AdaproxParameter"]
+__all__ = ["LiteParameter", "FistaParameter", "AdaproxParameter"]
 
 
 def _grow_array(x, new_shape, dist):
@@ -48,6 +49,44 @@ class LiteParameter:
 
     def shrink(self, dist):
         raise NotImplementedError
+
+
+class FistaParameter(LiteParameter):
+    """Beck & Teboulle 2009 accelerated proximal gradient parameter.
+    Ref: lite/parameters.py:91-156."""
+
+    def __init__(self, x, step, grad=None, prox=None, t0=1, z0=None):
+        self.x = torch.as_tensor(x)
+        self.step = step
+        self.grad = grad
+        self.prox = prox
+        self.state = init_fista_state(self.x, z=z0, t=float(t0))
+
+    @property
+    def z(self):
+        return self.state.z
+
+    @property
+    def t(self):
+        return float(self.state.t)
+
+    def update(self, it, input_grad, *args):
+        # step scaled by 1/|args[0]|^2 as in the reference (the Lipschitz
+        # proxy of the other factor, lite/parameters.py:138)
+        step = self.step / (torch.as_tensor(args[0]) ** 2).sum()
+        g = self.grad(input_grad, self.x, *args)
+        self.x, self.state = fista_step(self.x, g, it, self.state, step,
+                                        self.prox)
+
+    def grow(self, new_shape, dist):
+        self.x = _grow_array(self.x, new_shape, dist)
+        self.state = FistaState(z=_grow_array(self.state.z, new_shape, dist),
+                                t=self.state.t)
+
+    def shrink(self, dist):
+        s = (slice(dist, -dist), slice(dist, -dist))
+        self.x = self.x[s]
+        self.state = FistaState(z=self.state.z[s], t=self.state.t)
 
 
 class AdaproxParameter(LiteParameter):

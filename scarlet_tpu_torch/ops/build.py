@@ -108,7 +108,7 @@ def load():
     # kernels.mono_geometry and the stream
     geom = [i] * 5 + [p]
     lib.scarlet_mono_prox.argtypes = [p] * 6 + [i] * 5 + [ll] * 4 + \
-        [i, f, f] + geom
+        [i, f, f, p] + geom
     lib.scarlet_prox_chain.argtypes = [p] * 9 + [i] * 5 + [f] * 3 + geom
     lib.scarlet_fused_morph.argtypes = [p] * 12 + [i] * 6 + [f, i] + \
         [f] * 6 + [p] * 4 + geom

@@ -20,7 +20,11 @@
 // the depth-n_iter DAG) or moves no pixel by more than tol (tol > 0), or
 // until n_iter passes have run.  The convergence test compares the last
 // two passes of a block, as the TPU kernel does, so exits fall on the
-// same 4-pass boundaries.
+// same 4-pass boundaries.  K1/K2 take the tolerance as a float or, for
+// the scheduled tolerance (the TPU kernel's `dynamic_tol` mode, a traced
+// SMEM scalar per call), from a device array with one value per blend:
+// each block reads its blend's, so a schedule that switches needs no
+// host read and no other build.
 //
 // The chain's epilogue (K5, K6), per morphology: x < thr -> 0, the center
 // pixel raised to at least `floor`, division by the morphology's max, and
@@ -316,7 +320,7 @@ mono_kernel(const float* __restrict__ x, float* __restrict__ out,
             const int* __restrict__ tcode, const int* __restrict__ centers,
             int ncand, int K, int hb, int wb, long long sb, long long sk,
             long long sy, long long sx, int n_iter, float scale, float tol,
-            int ny, int tr) {
+            const float* __restrict__ tols, int ny, int tr) {
   extern __shared__ float smem[];
   const Geom g = geometry(hb, wb, ny, tr);
   const int plane = ((tr ? wb : hb) + 2) * g.W2;
@@ -325,6 +329,8 @@ mono_kernel(const float* __restrict__ x, float* __restrict__ out,
   const long long k = bk - b * K;
   // an out-of-range index is clamped, never read out of bounds
   const long long ci = min(max(idx[bk], 0), ncand - 1);
+  // the blend's own exit tolerance where the caller gives one per blend
+  const float tb = tols != nullptr ? tols[b] : tol;
 
   Taps<T, P> tp;
   load_taps(tp, g, tw, tcode, centers, ci, hb, wb);
@@ -332,7 +338,7 @@ mono_kernel(const float* __restrict__ x, float* __restrict__ out,
   __syncthreads();
 
   const float* res = mono_passes(tp, g, smem, smem + plane, smem + 2 * plane,
-                                 n_iter, scale, tol);
+                                 n_iter, scale, tb);
 
   float* xo = out + b * sb + k * sk;
   for (int j = 0; j < g.n; ++j) {
@@ -489,13 +495,14 @@ struct MonoLaunch {
                  const int* tcode, const int* centers, int ncand, int B,
                  int K, int hb, int wb, long long sb, long long sk,
                  long long sy, long long sx, int n_iter, float scale,
-                 float tol, int ny, int tr, int threads, void* stream) {
+                 float tol, const float* tols, int ny, int tr, int threads,
+                 void* stream) {
     const int smem = smem_bytes(hb, wb);
     const int err = set_smem(mono_kernel<T, P>, smem);
     if (err != 0) return err;
     mono_kernel<T, P><<<B * K, threads, smem, (cudaStream_t)stream>>>(
         x, out, idx, tw, tcode, centers, ncand, K, hb, wb, sb, sk, sy, sx,
-        n_iter, scale, tol, ny, tr);
+        n_iter, scale, tol, tols, ny, tr);
     return (int)cudaGetLastError();
   }
 };
@@ -552,18 +559,19 @@ struct Info {
 
 // x, out: B*K morphologies at element strides (sb, sk, sy, sx); idx: (B*K,)
 // int32 table index; tw (ncand, hb, wb, T), tcode (ncand, hb, wb),
-// centers (ncand,): kernels.mono_taps; T, P, ny, tr, threads:
-// kernels.mono_geometry.
+// centers (ncand,): kernels.mono_taps; tols: (B,) float exit tolerance per
+// blend, or null for `tol`; T, P, ny, tr, threads: kernels.mono_geometry.
 extern "C" int scarlet_mono_prox(const float* x, float* out, const int* idx,
                                  const float* tw, const int* tcode,
                                  const int* centers, int ncand, int B, int K,
                                  int hb, int wb, long long sb, long long sk,
                                  long long sy, long long sx, int n_iter,
-                                 float scale, float tol, int T, int P, int ny,
-                                 int tr, int threads, void* stream) {
+                                 float scale, float tol, const float* tols,
+                                 int T, int P, int ny, int tr, int threads,
+                                 void* stream) {
   return dispatch<MonoLaunch>(T, P, x, out, idx, tw, tcode, centers, ncand,
                               B, K, hb, wb, sb, sk, sy, sx, n_iter, scale,
-                              tol, ny, tr, threads, stream);
+                              tol, tols, ny, tr, threads, stream);
 }
 
 // xorig, x, out: (N, hb, wb) contiguous, N = B*K; idx (N,) int32; thr (N,)

@@ -12,10 +12,14 @@ Conventions (behavioral reference: scarlet/fft.py:9-167):
   is ``(curr - new + 1) // 2`` and pad left width is
   ``(new - curr + 1) // 2``.
 
-Kernel transforms are complex tensors.  The matmul-DFT convolution mode
-of the JAX package is not ported yet.
+Kernel transforms are complex tensors.  :func:`convolve_dft` computes the
+same convolution as :func:`convolve_fft` by four matrix products with the
+pad, shift and crop folded into the DFT matrices
+(:func:`dft_conv_matrices`): the JAX package's ``conv_mode="dft"``.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -34,6 +38,10 @@ __all__ = [
     "Fourier",
     "convolve",
     "convolve_fft",
+    "dft_conv_matrices",
+    "DftOperators",
+    "dft_conv_operators",
+    "convolve_dft",
     "match_psf",
 ]
 
@@ -243,6 +251,114 @@ def convolve_fft(image, kernel_rfft, fft_shape, axes=(-2, -1),
     kimage = transform(image, fft_shape, axes)
     return inverse_transform(kimage * kernel_rfft, fft_shape, real_shape,
                              axes)
+
+
+def dft_conv_matrices(in_shape, fft_shape, dtype=np.float32):
+    """Folded matmul-DFT operators for :func:`convolve_dft` (host numpy,
+    cached per shape and dtype): four (re, im) stacks ``A`` (2, Hf, Hs),
+    ``B`` (2, Ws, Wh), ``iA`` (2, Hs, Hf), ``iB`` (2, Wh, Ws) with
+    ``Y = A @ X @ B`` equal to :func:`transform` of ``X`` (zero pad,
+    ifftshift, rfft2) and ``Re(iA @ (Y K) @ iB)`` to
+    :func:`inverse_transform` (irfft2, fftshift, center crop back to
+    ``in_shape``).  The pad, shift and crop index maps are folded into the
+    matrices, so the products touch only the ``in_shape`` pixels.
+    Ref: scarlet_tpu/ops/fft.py:312-366 (the same arrays)."""
+    from ..cache import Cache
+
+    Hs, Ws = int(in_shape[0]), int(in_shape[1])
+    Hf, Wf = int(fft_shape[0]), int(fft_shape[1])
+    key = (Hs, Ws, Hf, Wf, str(np.dtype(dtype)))
+    try:
+        return Cache.check("dft_conv_matrices", key)
+    except KeyError:
+        pass
+    cdtype = np.complex128 if np.dtype(dtype) == np.float64 else np.complex64
+    Wh = Wf // 2 + 1
+    f_y = np.arange(Hf)
+    f_x = np.arange(Wh)
+
+    # forward: input row r sits at padded index r + left, then ifftshift
+    # rolls by -(Hf//2)
+    left_y = (Hf - Hs + 1) // 2
+    col_y = (np.arange(Hs) + left_y - Hf // 2) % Hf
+    A = np.exp(-2j * np.pi * np.outer(f_y, col_y) / Hf)          # (Hf, Hs)
+    left_x = (Wf - Ws + 1) // 2
+    col_x = (np.arange(Ws) + left_x - Wf // 2) % Wf
+    B = np.exp(-2j * np.pi * np.outer(col_x, f_x) / Wf)          # (Ws, Wh)
+
+    # inverse: output pixel i reads shifted index start + i, i.e. raw
+    # index (start + i - n//2) % n; hermitian weights double the
+    # non-endpoint rfft bins
+    start_y = (Hf - Hs + 1) // 2
+    row_y = (np.arange(Hs) + start_y - Hf // 2) % Hf
+    iA = np.exp(2j * np.pi * np.outer(row_y, f_y) / Hf) / Hf     # (Hs, Hf)
+    start_x = (Wf - Ws + 1) // 2
+    row_x = (np.arange(Ws) + start_x - Wf // 2) % Wf
+    wgt = np.full(Wh, 2.0)
+    wgt[0] = 1.0
+    if Wf % 2 == 0:
+        wgt[-1] = 1.0
+    iB = (np.exp(2j * np.pi * np.outer(f_x, row_x) / Wf)
+          * wgt[:, None]) / Wf                                   # (Wh, Ws)
+
+    def split(m):
+        return np.stack([m.real, m.imag]).astype(dtype)
+
+    out = tuple(split(m.astype(cdtype)) for m in (A, B, iA, iB))
+    Cache.set("dft_conv_matrices", key, out)
+    return out
+
+
+class DftOperators(NamedTuple):
+    """:func:`dft_conv_matrices` on a device for :func:`convolve_dft`:
+    complex ``A``, ``B``, ``iA``, and ``iB_il`` (2 Wh, Ws), the rows
+    Re iB[j] and -Im iB[j] interleaved, so that ``Re(Q @ iB)`` is the real
+    product of Q's interleaved (re, im) view with it."""
+    A: torch.Tensor
+    B: torch.Tensor
+    iA: torch.Tensor
+    iB_il: torch.Tensor
+
+
+def dft_conv_operators(in_shape, fft_shape, dtype, device):
+    """:class:`DftOperators` of :func:`dft_conv_matrices` on ``device``,
+    built and uploaded once per (shapes, dtype, device) and shared by every
+    caller."""
+    from ..cache import Cache
+
+    key = (tuple(in_shape), tuple(fft_shape), dtype, torch.device(device))
+    try:
+        return Cache.check("dft_conv_operators", key)
+    except KeyError:
+        pass
+    A, B, iA, iB = dft_conv_matrices(
+        in_shape, fft_shape, torch.empty(0, dtype=dtype).numpy().dtype)
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    out = DftOperators(
+        *(torch.complex(up(m[0]), up(m[1])) for m in (A, B, iA)),
+        up(np.stack([iB[0], -iB[1]], 1).reshape(-1, iB.shape[-1])))
+    Cache.set("dft_conv_operators", key, out)
+    return out
+
+
+def convolve_dft(image, kernel_rfft, ops):
+    """Centered convolution by the folded matmul DFT: ``Y = (A @ X) @ B``,
+    then ``Re((iA @ (Y K)) @ iB)`` (:func:`dft_conv_matrices`, ``ops`` from
+    :func:`dft_conv_operators`), each a matrix product in that fixed
+    order, complex64, the last one as the real product of the interleaved
+    (re, im) view of ``iA @ (Y K)`` with ``iB_il`` (the real part alone,
+    contiguous); leading batch axes broadcast.  The same function as
+    :func:`convolve_fft` with ``real_shape == image.shape``, to float32
+    roundoff.  Ref: scarlet_tpu/ops/fft.py:369-392 at its
+    ``precision="float32"``; the products run in float32 (TF32 stays off
+    on the card: ``lite.engine.pin_float32``, which governs complex
+    products too)."""
+    y = torch.matmul(torch.matmul(ops.A, image.to(ops.A.dtype)), ops.B)
+    q = torch.matmul(ops.iA, y * kernel_rfft)              # (..., Hs, Wh)
+    return torch.matmul(torch.view_as_real(q).flatten(-2), ops.iB_il)
 
 
 def convolve(image, kernel, padding=3, axes=(-2, -1), return_fourier=True):

@@ -133,11 +133,26 @@ def _mono_pass(x, x0, w, keep, scale):
     return torch.where(keep, x0, torch.minimum(x0, ref * scale))
 
 
+def _block_changed(new, x, tol):
+    """Per morphology of (..., K, hb, wb): whether the block's last pass
+    moved a pixel by more than ``tol`` (``tol > 0``) or changed one
+    (``tol == 0``).  ``tol`` is a float or a tensor of the leading
+    (blend) shape ``new.shape[:-3]``, one tolerance per blend."""
+    if isinstance(tol, torch.Tensor):
+        t = tol[..., None]                       # per blend -> per morph
+        moved = (new - x).abs().amax(dim=(-2, -1)) > t
+        return torch.where(t > 0, moved, (new != x).any(dim=-1).any(dim=-1))
+    if tol > 0.0:
+        return (new - x).abs().amax(dim=(-2, -1)) > tol
+    return (new != x).any(dim=-1).any(dim=-1)
+
+
 def _mono_blocks(morphs, n_iter, tol, one_pass):
     """The kernel's exit rule around ``one_pass(x)``: Jacobi passes in
     blocks of ``MONO_UNROLL``; a morphology stops after the block whose
     last pass changed nothing (``tol == 0``) or moved no pixel by more
-    than ``tol``, or once ``n_iter`` passes have run."""
+    than ``tol``, or once ``n_iter`` passes have run.  ``tol``: a float,
+    or one per blend (:func:`_block_changed`)."""
     x = morphs
     running = torch.ones(morphs.shape[:-2], dtype=torch.bool,
                          device=morphs.device)
@@ -147,10 +162,7 @@ def _mono_blocks(morphs, n_iter, tol, one_pass):
         for _ in range(MONO_UNROLL - 1):
             x = one_pass(x)
         new = one_pass(x)
-        if tol > 0.0:
-            changed = (new - x).abs().amax(dim=(-2, -1)) > tol
-        else:
-            changed = (new != x).any(dim=-1).any(dim=-1)
+        changed = _block_changed(new, x, tol)
         x = torch.where(running[..., None, None], new, start)
         running = running & changed
         t += MONO_UNROLL
@@ -324,8 +336,11 @@ def monotonic_prox(morphs, idx, weights_table, keep_table, n_iter,
     morphs: (..., K, hb, wb) float32; idx: (..., K) integer table index
     (candidate center) per morphology; weights_table: (ncand, 8, hb, wb);
     keep_table: (ncand, hb, wb), 1.0 at the never-updated center;
-    n_iter: the DAG depth (``monotonic_depth``); tol: static exit
-    tolerance (0 = exact).
+    n_iter: the DAG depth (``monotonic_depth``); tol: the exit tolerance
+    (0 = exact), a float or a float32 tensor of one value per blend
+    (shape ``morphs.shape[:-3]``, ``()`` for one blend) on the morphs'
+    device, which the kernel reads there: a schedule of tolerances needs
+    no host read (the TPU kernel's ``tol_arr``).
 
     Exits per morphology (the TPU kernel exits per group of lane-packed
     morphologies; the two agree exactly at ``tol == 0`` and with a group
@@ -336,7 +351,8 @@ def monotonic_prox(morphs, idx, weights_table, keep_table, n_iter,
     candidate needs exactly one keep pixel, and a neighbour with weight 0
     is never read (inf/NaN: :func:`monotonic_prox_plain`).
     """
-    if _is_cpu(morphs, idx, weights_table, keep_table):
+    _check_tol("monotonic_prox", tol, morphs.shape[:-3])
+    if _is_cpu(morphs, idx, weights_table, keep_table, *_tol_tensor(tol)):
         return monotonic_prox_plain(morphs, idx, weights_table, keep_table,
                                     n_iter, min_gradient, tol)
     K, hb, wb = morphs.shape[-3:]
@@ -366,7 +382,8 @@ def monotonic_prox_packed(packed, idx, weights_table, keep_table, wb,
     """:func:`monotonic_prox` on the lane-packed (..., hb, K*wb) layout
     (slot k in columns [k*wb, (k+1)*wb)), read and written in place by
     strides: no pack/unpack copies."""
-    if _is_cpu(packed, idx, weights_table, keep_table):
+    _check_tol("monotonic_prox_packed", tol, packed.shape[:-2])
+    if _is_cpu(packed, idx, weights_table, keep_table, *_tol_tensor(tol)):
         return monotonic_prox_packed_plain(packed, idx, weights_table,
                                            keep_table, wb, n_iter,
                                            min_gradient, tol)
@@ -412,13 +429,30 @@ def _taps_args(taps, geom):
             (taps.T, geom.P, geom.ny, int(geom.transposed), geom.threads))
 
 
+def _tol_tensor(tol):
+    """``(tol,)`` for a tensor tolerance, else ``()``."""
+    return (tol,) if isinstance(tol, torch.Tensor) else ()
+
+
+def _check_tol(name, tol, lead):
+    """A tensor tolerance holds one float32 value per blend (``lead``)."""
+    if not isinstance(tol, torch.Tensor):
+        return
+    if tuple(tol.shape) != tuple(lead):
+        raise ValueError(f"{name}: tol {tuple(tol.shape)} is not one value "
+                         f"per blend {tuple(lead)}")
+    if tol.dtype != torch.float32:
+        raise TypeError(f"{name}: tol must be float32, got {tol.dtype}")
+
+
 def _mono_launch(name, x, idx, weights_table, keep_table, K, hb, wb, strides,
                  n_iter, min_gradient, tol):
-    _require_cuda(name, x, idx, weights_table, keep_table)
+    _require_cuda(name, x, idx, weights_table, keep_table, *_tol_tensor(tol))
     lib, ncand, taps, geom = _tables_lib(name, weights_table, keep_table,
                                          hb, wb)
     idx32 = idx.to(torch.int32).contiguous()
     B = x.numel() // (K * hb * wb)
+    tols = tol.contiguous() if isinstance(tol, torch.Tensor) else None
     out = torch.empty_like(x)
     if B * K == 0:
         return out
@@ -427,13 +461,18 @@ def _mono_launch(name, x, idx, weights_table, keep_table, K, hb, wb, strides,
         err = lib.scarlet_mono_prox(
             x.data_ptr(), out.data_ptr(), idx32.data_ptr(), *tables, ncand,
             B, K, hb, wb, *strides, int(n_iter), 1.0 - float(min_gradient),
-            float(tol), *launch, _stream(x))
+            0.0 if tols is not None else float(tol),
+            0 if tols is None else tols.data_ptr(), *launch, _stream(x))
     _check(name, err)
     monotonic_prox.launches += 1
+    if tols is not None:
+        monotonic_prox.tol_tensor_launches += 1
     return out
 
 
 monotonic_prox.launches = 0
+# the launches among them that read a tolerance per blend
+monotonic_prox.tol_tensor_launches = 0
 
 _MONO_KERNELS = ("monotonic_prox", "prox_chain", "fused_morph_update")
 
@@ -1112,10 +1151,15 @@ _COUNTED = (monotonic_prox, prox_chain, fused_morph_update, scene_assembly,
 
 def launch_counts():
     """Kernel launches since the last :func:`reset_launch_counts`
-    (``monotonic_prox`` counts both of its layouts)."""
-    return {f.__name__: f.launches for f in _COUNTED}
+    (``monotonic_prox`` counts both of its layouts;
+    ``monotonic_prox_tol_tensor`` those of its launches that read one
+    tolerance per blend)."""
+    out = {f.__name__: f.launches for f in _COUNTED}
+    out["monotonic_prox_tol_tensor"] = monotonic_prox.tol_tensor_launches
+    return out
 
 
 def reset_launch_counts():
     for f in _COUNTED:
         f.launches = 0
+    monotonic_prox.tol_tensor_launches = 0

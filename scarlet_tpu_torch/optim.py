@@ -1,10 +1,12 @@
-"""Proximal Adam (adaprox) on torch tensors.
+"""Proximal Adam (adaprox) and FISTA on torch tensors.
 
 The adaptive-moment ``phi/psi`` rules {adam, nadam, amsgrad, padam, adamx,
 radam} and the proximal sub-iteration of lite ``AdaproxParameter``
 (scarlet/lite/parameters.py:159-305; Kingma & Ba 2015; Dozat 2016; Reddi,
 Kale & Kumar 2018; Chen & Gu 2018; Phuong & Phong 2019; Liu et al. 2019;
-Melchior et al. 2019 "Proximal Adam").
+Melchior et al. 2019 "Proximal Adam"), and the accelerated proximal
+gradient of lite ``FistaParameter`` (lite/parameters.py:91-156; Beck &
+Teboulle 2009).
 
 Every update returns new tensors ``(x', state')``; nothing is updated in
 place.  ``it`` is the 0-based iteration: a Python number or a tensor that
@@ -18,9 +20,12 @@ import torch
 
 __all__ = [
     "AdaproxState",
+    "FistaState",
     "init_adaprox_state",
+    "init_fista_state",
     "phi_psi",
     "adaprox_step",
+    "fista_step",
     "SCHEMES",
 ]
 
@@ -31,6 +36,22 @@ class AdaproxState(NamedTuple):
     m: torch.Tensor      # first moment
     v: torch.Tensor      # second moment
     vhat: torch.Tensor   # running max of the second moment
+
+
+class FistaState(NamedTuple):
+    z: torch.Tensor      # extrapolation point, the shape of x
+    t: torch.Tensor      # acceleration scalar, one per parameter
+
+
+def init_fista_state(x, z=None, t=1.0):
+    """The FISTA state of ``x``: ``z = x`` (or ``z``), ``t`` in ``x``'s
+    dtype."""
+    x = torch.as_tensor(x)
+    return FistaState(
+        z=x if z is None else torch.as_tensor(z, dtype=x.dtype,
+                                              device=x.device),
+        t=torch.as_tensor(t, dtype=x.dtype, device=x.device),
+    )
 
 
 def init_adaprox_state(x, m=None, v=None, vhat=None):
@@ -160,3 +181,34 @@ def adaprox_step(x, g, it, state, step, prox=None, scheme="amsgrad",
         new_state = AdaproxState(*(torch.where(active, new, old)
                                    for new, old in zip(new_state, state)))
     return x_new, new_state
+
+
+def _per_param(a, x):
+    """``a`` of one value per parameter, with trailing unit dims so that
+    it broadcasts against the stacked parameters ``x``."""
+    return a.reshape(a.shape + (1,) * (x.ndim - a.ndim))
+
+
+def fista_step(x, g, it, state, step, prox=None, active=None):
+    """One FISTA (Beck & Teboulle 2009) accelerated PGM update
+    (lite/parameters.py:91-156): ``y = z - step g``, ``x' = prox(y)``,
+    ``t' = (1 + sqrt(1 + 4 t^2)) / 2``, ``z' = x + (1 + (t - 1)/t')
+    (x' - x)``.
+
+    ``state.t`` holds one value per parameter: the leading dims of a stack
+    of parameters ``x`` (a scalar for one).  ``step`` broadcasts against
+    ``x``.  ``active`` (bool, the shape of ``state.t``) freezes x, z and t
+    where False.  ``it`` is unused (the rule has no bias terms).
+    """
+    y = state.z - step * g
+    x_new = prox(y, step) if prox is not None else y
+    t_new = 0.5 * (1 + torch.sqrt(1 + 4 * state.t ** 2))
+    omega = 1 + (state.t - 1) / t_new
+    z_new = x + _per_param(omega, x) * (x_new - x)
+
+    if active is not None:
+        a = _per_param(active, x)
+        x_new = torch.where(a, x_new, x)
+        z_new = torch.where(a, z_new, state.z)
+        t_new = torch.where(active, t_new, state.t)
+    return x_new, FistaState(z=z_new, t=t_new)

@@ -21,16 +21,20 @@ from ..lite.utils import to_numpy
 from ..ops import fft as fft_ops
 
 __all__ = [
+    "BatchConfig",
     "pack_batch",
     "pack_blends",
     "unpack_blends",
     "replicate_blend",
     "select_blends",
     "fit_batch",
+    "fit_batch_converged",
     "fit_batch_device_converged",
     "fit_batch_device_dispatch",
     "fit_batch_device_collect",
 ]
+
+BatchConfig = engine.LiteFitConfig
 
 # BlendData fields shared (unbatched) across a batch
 _SHARED_FIELDS = ("mono_weights", "mono_keep")
@@ -171,6 +175,27 @@ def fit_batch(state, data, config, n_iter):
     """``n_iter`` iterations of every blend of the batch.  Returns
     (final_state, losses (n_iter, B))."""
     return engine.fit_scan(state, data, config, n_iter)
+
+
+def fit_batch_converged(state, data, config, max_iter, segment=10):
+    """Fit until every blend of the batch has converged, or ``max_iter``
+    iterations, reading ``state.active.any()`` on the host after each
+    segment of ``segment`` iterations (scarlet_tpu/parallel/batch.py:
+    323-346).  Works on a copy of ``state``.  Returns (final_state,
+    losses (n_run, B))."""
+    state = engine.map_tree(lambda x: x.clone(), state)
+    losses = []
+    done = 0
+    while done < max_iter:
+        n = min(segment, max_iter - done)
+        state, seg = engine.fit_scan(state, data, config, n)
+        losses.append(seg)
+        done += n
+        if not bool(state.active.any()):
+            break
+    if not losses:
+        return state, state.last_loss.new_zeros((0,) + state.active.shape)
+    return state, torch.cat(losses)
 
 
 def fit_batch_device_converged(state, data, config, max_iter,

@@ -26,9 +26,12 @@ With ``centers=None`` the catalogs are detected on the stream's device
 ``redetect=N`` adds N passes of detection on the fit's residuals, each
 followed by a cold refit with the grown catalog.
 
-Options of the JAX stream that the port does not run yet raise
-``NotImplementedError``: quantized uploads (``upload_dtype``), the upload
-bandwidth probe (``upload="auto"``) and box growth.
+The fit options of the engine pass through: logical box growth
+(``box_grow``) and the scheduled projection tolerance
+(``mono_tol_early``, ``mono_tol_switch``, ``mono_every``).  Options of
+the JAX stream that the port does not run raise ``NotImplementedError``:
+quantized uploads (``upload_dtype``) and the upload bandwidth probe
+(``upload="auto"``).
 """
 from __future__ import annotations
 
@@ -490,6 +493,7 @@ def stream_setup(images, variance, psfs, centers, model_psf, weights=None,
                  use_mask=False, recipe="main", grow=5, wavelet_scales=5,
                  bulge_scales=2, use_psf=True, max_peaks=None,
                  detect_scales=3, box_grow=None, mono_tol=None,
+                 mono_tol_early=0.0, mono_tol_switch=0, mono_every=1,
                  morph_step=None, min_gradient=0.0):
     """Batched device-side initialization of a chunk of blends.
 
@@ -521,6 +525,14 @@ def stream_setup(images, variance, psfs, centers, model_psf, weights=None,
     ``packed_morphs``) and ``mono_tol = 1e-3``; on the CPU none of them
     and ``mono_tol = 0``; ``conv_mode`` stays "fft" on both.
 
+    Fit options (``engine.LiteFitConfig``): ``box_grow`` (the edge-pull
+    threshold of logical box growth; the state then carries ``box_half``
+    = -1 and ``step_scale`` = 1 per slot); ``mono_tol_early`` before
+    iteration ``mono_tol_switch``, ``mono_tol`` after (no blend freezes
+    before the switch); ``mono_every`` (the full projection only every
+    N-th iteration; measured negative in the JAX package: keep 1).  The
+    scheduled tolerance applies where the accelerator branches run.
+
     Returns (config, data, state, aux) for ``fit_batch_device_converged``,
     with aux the per-blend diagnostics ``n_active``, ``overflow``,
     ``slot_source``, ``snr``, ``split``, ``psf_fallback`` (and the
@@ -528,8 +540,6 @@ def stream_setup(images, variance, psfs, centers, model_psf, weights=None,
     """
     if recipe not in ("main", "wavelets"):
         raise ValueError(f"unknown recipe {recipe!r}")
-    if box_grow is not None:
-        raise NotImplementedError("box_grow is not ported yet")
     detect = centers is None
     if detect and center_active is not None:
         raise ValueError(
@@ -640,7 +650,13 @@ def stream_setup(images, variance, psfs, centers, model_psf, weights=None,
         morph_opt=(AdaproxState(zero_mor, zero_mor, zero_mor),),
         active=torch.ones(B, dtype=torch.bool, device=device),
         it=torch.zeros(B, dtype=torch.int32, device=device),
-        last_loss=torch.full((B,), float("inf"), device=device))
+        last_loss=torch.full((B,), float("inf"), device=device),
+        # box growth: -1 = still the init box
+        box_half=None if box_grow is None else (
+            torch.full((B, int(n_slots)), -1, dtype=torch.int32,
+                       device=device),),
+        step_scale=None if box_grow is None else (
+            torch.ones((B, int(n_slots)), device=device),))
 
     config = engine.LiteFitConfig(
         scene_shape=(C, H, W), box_shapes=((S, S),),
@@ -651,6 +667,10 @@ def stream_setup(images, variance, psfs, centers, model_psf, weights=None,
         # max|delta| < 1e-3 (peak units); 0 = the exact fixed point
         mono_tol=(1e-3 if cuda else 0.0) if mono_tol is None
         else float(mono_tol),
+        mono_tol_early=float(mono_tol_early),
+        mono_tol_switch=int(mono_tol_switch),
+        mono_every=int(mono_every),
+        box_grow=None if box_grow is None else float(box_grow),
         morph_step=1e-2 if morph_step is None else float(morph_step),
         min_gradient=float(min_gradient),
         use_pallas=cuda, use_pallas_scene=cuda, packed_morphs=cuda,

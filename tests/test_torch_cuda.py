@@ -7,6 +7,8 @@ tests' conftest imports JAX, so skip it there):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -423,3 +425,133 @@ def test_stream_setup_on_card_matches_cpu(cuda, kw):
     for f in ("seds", "morphs"):
         torch.testing.assert_close(getattr(sc, f)[0].cpu(),
                                    getattr(sp, f)[0], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("box", [21, 59])
+def test_monotonic_prox_tensor_tol_matches_plain(cuda, box):
+    """K1 and K2 with one exit tolerance per blend, read on the card,
+    mixing 0, 1e-3 and 1e6, bit for bit against the plain version; a
+    tensor filled with the static tolerance gives the float launch's
+    bits."""
+    w, keep, n_iter = _tables(box)
+    m, idx = _morphs(4, 16, box)
+    args = [x.to(cuda) for x in (m, idx, w, keep)]
+    tols = torch.tensor([0.0, 1e-3, 1e6, 1e-3], device=cuda)
+    before = kn.launch_counts()
+    got = kn.monotonic_prox(*args, n_iter, tol=tols)
+    after = kn.launch_counts()
+    assert after["monotonic_prox"] == before["monotonic_prox"] + 1
+    assert after["monotonic_prox_tol_tensor"] == \
+        before["monotonic_prox_tol_tensor"] + 1
+    assert torch.equal(got, kn.monotonic_prox_plain(*args, n_iter, tol=tols))
+    packed = args[0].transpose(-3, -2).reshape(4, box, 16 * box).contiguous()
+    got_p = kn.monotonic_prox_packed(packed, *args[1:], box, n_iter,
+                                     tol=tols)
+    assert torch.equal(got_p.reshape(4, box, 16, box).transpose(-3, -2),
+                       got)
+    for tol in (0.0, 1e-3):
+        assert torch.equal(
+            kn.monotonic_prox(*args, n_iter, tol=torch.full((4,), tol,
+                                                            device=cuda)),
+            kn.monotonic_prox(*args, n_iter, tol=tol))
+    with pytest.raises(ValueError, match="on mixed devices|tensors on"):
+        kn.monotonic_prox(*args, n_iter, tol=tols.cpu())
+
+
+@pytest.mark.cuda
+def test_dft_matches_fft_on_card(cuda):
+    """The matmul-DFT convolution on the card against cuFFT and against a
+    float64 reference: within 1e-5 of the largest output (a TF32 product
+    keeps ~3 digits and would be off by ~1e-3)."""
+    from scarlet_tpu_torch.ops import fft
+
+    engine.pin_float32(cuda)
+    rng = np.random.default_rng(5)
+    img = torch.from_numpy(rng.normal(size=(8, 5, 58, 48)).astype(
+        np.float32))
+    kern = torch.from_numpy(rng.normal(size=(5, 21, 21)).astype(np.float32))
+    shape = fft.minimal_same_fft_shape((5, 58, 48), tuple(kern.shape),
+                                       axes=(1, 2))
+    ref64 = fft.convolve_fft(img.double(), fft.transform(kern.double(),
+                                                         shape), shape)
+    kr = fft.transform(kern, shape).to(cuda)
+    ops = fft.dft_conv_operators((58, 48), shape, torch.float32, cuda)
+    got = fft.convolve_dft(img.to(cuda), kr, ops).cpu()
+    assert got.is_contiguous()
+    viafft = fft.convolve_fft(img.to(cuda), kr, shape).cpu()
+    scale = float(ref64.abs().max())
+    assert float((got.double() - ref64).abs().max()) <= 1e-5 * scale
+    assert float((got - viafft).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+def test_fit_options_on_card_match_cpu(cuda):
+    """Chunk of 4 generated blends (seeds 0, 1, 2, 4) with box growth and
+    the scheduled tolerance, fitted with the card's config on the card and
+    on the CPU (plain versions at the same tolerances): the same grown
+    boxes and iterations, logL rtol 1e-4; the DFT convolution as well."""
+    from scarlet_tpu_torch.parallel import batch, stream
+
+    blends = [generate_blend(np.random.default_rng(s)) for s in (0, 1, 2, 4)]
+    K = max(len(b["catalog"]) for b in blends)
+    centers = np.zeros((4, K, 2), np.int32)
+    active = np.zeros((4, K), bool)
+    for i, b in enumerate(blends):
+        k = len(b["catalog"])
+        centers[i, :k] = np.round(np.stack([b["catalog"]["y"],
+                                            b["catalog"]["x"]], -1))
+        active[i, :k] = True
+    args = [np.stack([b[k] for b in blends])
+            for k in ("images", "variance", "psfs")]
+    mp = lite.integrated_circular_gaussian(sigma=0.8)[None].astype(
+        np.float32)
+    kw = dict(center_active=active, box_size=BOX, n_slots=16, box_grow=0.1,
+              mono_tol_early=1e-2, mono_tol_switch=10, e_rel=0.0)
+    cfg, dc, sc, _ = stream.stream_setup(*args, centers, mp, device=cuda,
+                                         **kw)
+    _, dp, sp, _ = stream.stream_setup(*args, centers, mp, device="cpu",
+                                       mono_tol=cfg.mono_tol, **kw)
+    for conf in (cfg, dataclasses.replace(cfg, conv_mode="dft")):
+        kn.reset_launch_counts()
+        oc, _ = batch.fit_batch_device_converged(sc, dc, conf, 30, 10)
+        assert kn.launch_counts()["monotonic_prox_tol_tensor"] > 0
+        op, _ = batch.fit_batch_device_converged(sp, dp, conf, 30, 10)
+        assert torch.equal(oc.box_half[0].cpu(), op.box_half[0])
+        assert torch.equal(oc.it.cpu(), op.it)
+        np.testing.assert_allclose(oc.last_loss.cpu().numpy(),
+                                   op.last_loss.numpy(), rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_fista_and_real_mode_on_card_match_cpu(cuda):
+    """A FISTA ``LiteBlend`` (seed 1) fitted 20 iterations on the card and
+    on the CPU: logL rtol 1e-4; the real-space convolution mode on the
+    card against the CPU's, within 1e-5 of its largest value (cuDNN
+    without TF32)."""
+    d = generate_blend(np.random.default_rng(1))
+
+    def blend(dev, mode="fft"):
+        weights = (1.0 / d["variance"]).astype(np.float32)
+        mpsf = lite.integrated_circular_gaussian(sigma=0.8)[None].astype(
+            np.float32)
+        obs = lite.LiteObservation(d["images"], d["variance"], weights,
+                                   d["psfs"], model_psf=mpsf, device=dev,
+                                   convolution_mode=mode)
+        centers = [(int(np.round(r["y"])), int(np.round(r["x"])))
+                   for r in d["catalog"]]
+        src = lite.parameterize_sources(
+            lite.init_all_sources_main(obs, centers), obs,
+            lite.init_fista_component)
+        return lite.LiteBlend(src, obs)
+
+    card, cpu = blend(cuda), blend("cpu")
+    card.fit(20, e_rel=0.0, resize=None, reweight=False)
+    cpu.fit(20, e_rel=0.0, resize=None, reweight=False)
+    np.testing.assert_allclose(card.loss, cpu.loss, rtol=1e-4)
+    oc, op = blend(cuda, "real").observation, blend("cpu", "real").observation
+    img = torch.from_numpy(np.random.default_rng(2).normal(
+        size=oc.shape).astype(np.float32))
+    ref = op.convolve(img)
+    got = oc.convolve(img.to(cuda)).cpu()
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())

@@ -149,13 +149,81 @@ def graft_psfs():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("optimizer", "fista"), ("box_grow", 0.1), ("band_axis", "bands"),
-    ("mono_tol_switch", 5), ("mono_every", 2), ("conv_mode", "dft")])
+    ("band_axis", "bands"), ("conv_precision", "high")])
 def test_unported_options_raise(field, value):
+    """The band axis waits for more than one device; the bf16 matmul tiers
+    of the DFT convolution have no exact counterpart in torch."""
     config, data, state = graft._demo_setup()
     cfg, d, s = _port(config, data, state)
+    cfg = dataclasses.replace(cfg, conv_mode="dft", **{field: value})
     with pytest.raises(NotImplementedError, match=field):
-        teng.fit_step(s, d, dataclasses.replace(cfg, **{field: value}))
+        teng.fit_step(s, d, cfg)
+
+
+def _with_option(field, value, config, data, state):
+    """The demo blend set up for one fit option, on the JAX side: FISTA
+    states and base steps; growth's box masks (half-size 5) and state;
+    the accelerator configuration (the JAX kernels in interpret mode) for
+    the tolerance schedule, on one component so that the TPU kernel's
+    group exits are the port's."""
+    from scarlet_tpu import optim as jopt
+
+    config = dataclasses.replace(config, mono_n_iters=(32,),
+                                 **{field: value})
+    K, box = config.bucket_counts[0], config.box_shapes[0][0]
+    if field == "optimizer":
+        data = data._replace(fista_step=(jnp.full((K,), 0.5, jnp.float32),))
+        # one t per component, as LiteBlend.engine_setup stacks them
+        state = state._replace(
+            sed_opt=tuple(jopt.FistaState(x, jnp.ones((K,), jnp.float32))
+                          for x in state.seds),
+            morph_opt=tuple(jopt.FistaState(x, jnp.ones((K,), jnp.float32))
+                            for x in state.morphs))
+    elif field == "box_grow":
+        mask = np.zeros((K, box, box), np.float32)
+        c = box // 2
+        mask[:, c - 5:c + 6, c - 5:c + 6] = 1.0
+        data = data._replace(box_masks=(jnp.asarray(mask),))
+        state = state._replace(box_half=(jnp.full((K,), -1, jnp.int32),),
+                               step_scale=(jnp.ones((K,), jnp.float32),))
+    elif field in ("mono_tol_switch", "mono_every"):
+        config = dataclasses.replace(
+            config, bucket_counts=(1,), mono_tol_early=1e-2,
+            use_pallas=True, use_pallas_scene=True, packed_morphs=True,
+            pallas_interpret=True)
+        state = jeng.make_blend_state(
+            np.asarray(state.seds[0][:1]), np.asarray(state.morphs[0][:1]),
+            np.asarray(state.origins[0][:1]))
+    return config, data, state
+
+
+@pytest.mark.parametrize("field,value", [
+    ("optimizer", "fista"), ("box_grow", 0.1), ("mono_tol_switch", 5),
+    ("mono_every", 2), ("conv_mode", "dft")])
+def test_ported_options_run_like_jax(field, value):
+    """Each option that once raised runs: one fit_step with the option
+    after a first one (the logL of a step is that of the state it
+    starts from), against the JAX package's with the same option: logL
+    finite and within rtol 1e-5, the state's fields as close."""
+    config, data, state = _with_option(field, value,
+                                       *graft._demo_setup())
+    out_j, loss_j = jeng.fit_scan(state, data, config, 2)
+    cfg, d, s = _port(config, data, state)
+    assert getattr(cfg, field) == value
+    s1, _ = teng.fit_step(s, d, cfg)
+    out_t, logl = teng.fit_step(s1, d, cfg)
+    assert np.isfinite(float(logl))
+    assert_allclose(float(logl), float(loss_j[1]), rtol=1e-5)
+    _assert_states_close(out_t, out_j)
+    if field == "optimizer":
+        for a, b in zip(out_t.morph_opt[0], out_j.morph_opt[0]):
+            assert_allclose(to_numpy(a), np.asarray(b), rtol=1e-5,
+                            atol=1e-5)
+    if field == "box_grow":
+        assert_array_equal(to_numpy(out_t.box_half[0]),
+                           np.asarray(out_j.box_half[0]))
+        assert_array_equal(to_numpy(out_t.step_scale[0]),
+                           np.asarray(out_j.step_scale[0]))
 
 
 def test_static_mono_tol_runs_close_to_exact():

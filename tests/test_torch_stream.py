@@ -258,15 +258,48 @@ def test_dispatch_collect_equals_converged(het):
 
 
 @pytest.mark.parametrize("option", [
-    dict(upload_dtype="bfloat16"), dict(upload="auto"),
-    dict(box_grow=0.1)], ids=lambda o: next(iter(o)))
+    dict(upload_dtype="bfloat16"), dict(upload="auto")],
+    ids=lambda o: next(iter(o)))
 def test_unported_stream_options_raise(het, option):
     """Device detection (``centers=None``) and ``redetect`` are ported:
     tests/test_torch_detection.py; the wavelet recipe and ``use_mask``:
-    tests/test_torch_wavelets.py."""
+    tests/test_torch_wavelets.py; box growth and the tolerance schedule:
+    test_stream_fit_options_run_like_jax below."""
     kw = dict(center_active=het["active"][:1], box_size=BOX, n_slots=12,
               max_iter=2, device="cpu")
     with pytest.raises(NotImplementedError):
         tstream.deblend_device_stream(
             het["images"][:1], het["variance"][:1], het["psfs"][:1],
             het["centers"][:1], MODEL_PSF, **kw, **option)
+
+
+@pytest.mark.parametrize("option,extra", [
+    (dict(box_grow=0.1), dict(max_iter=3, check_every=3)),
+    (dict(box_grow=0.1), dict(max_iter=6, check_every=2, chunk=1,
+                              compact=2)),
+    (dict(mono_tol_early=1e-2, mono_tol_switch=10),
+     dict(max_iter=14, check_every=7))],
+    ids=["box_grow", "box_grow-compact", "mono_tol_switch"])
+def test_stream_fit_options_run_like_jax(het, option, extra):
+    """One stream call with a fit option, against the JAX stream with the
+    same option: finite logL within rtol 1e-5, the same iterations, the
+    growth state carried through compaction as the JAX stream carries
+    it, and under the schedule no blend frozen before the switch."""
+    args = (het["images"][:2], het["variance"][:2], het["psfs"][:2],
+            het["centers"][:2], MODEL_PSF)
+    kw = dict(center_active=het["active"][:2], box_size=BOX, n_slots=12,
+              e_rel=1e-2, **option, **extra)
+    rec_j, state_j = jstream.deblend_device_stream(*args, **kw)[:2]
+    rec_t, state_t = tstream.deblend_device_stream(*args, device="cpu",
+                                                   **kw)[:2]
+    for a, b in zip(rec_t, rec_j):
+        assert np.isfinite(a["logL"])
+        assert a["iterations"] == b["iterations"]
+        assert_allclose(a["logL"], b["logL"], rtol=1e-5)
+    if "box_grow" in option:
+        assert_array_equal(state_t.box_half[0].numpy(),
+                           np.asarray(state_j.box_half[0]))
+        assert_array_equal(state_t.step_scale[0].numpy(),
+                           np.asarray(state_j.step_scale[0], np.float32))
+    else:
+        assert all(r["iterations"] > 10 for r in rec_t)
