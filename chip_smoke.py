@@ -75,7 +75,20 @@ Run from the repository root, with one CUDA card:
    the card and the CPU; FISTA on the host path (the host init's seeds
    through ``init_fista_component``, ``pack_blends``,
    ``fit_batch_device_converged``, 4 blends refitted on the CPU).
-9. Prints one JSON line with the kernels, the card's name and power
+9. The multi-resolution fit (``parallel.MultiResFitter``) on the
+   synthetic HR + LR pair at tools/multires_bench.py's widths (HR 64 x 64
+   at 0.1", LR 24 x 24 at 0.3"; B = 64 flux-scaled blends, box 31, 3
+   slots): aligned (100 iterations) and rotated by 28 degrees (120), each
+   one warm-up and three timed fits (blends/min, ms per iteration, median
+   iterations, peak memory, K1/K3/K4 launches of one fit), a profile of
+   20 iterations (device busy share, launches and device ms per iteration
+   by K1, K3, K4, cuFFT and matmul), every blend's HR and LR SDR, and
+   blend 0's renders against a float64 CPU render (and with TF32
+   allowed); 4 aligned blends over 30 iterations on the card and the
+   CPU; K1, K3 and K4 against their plain versions at the fit's shapes;
+   ``deblend_multires(centers=None)`` on 64 aligned blends (4 slots, 60
+   iterations), with the detection's own time.
+10. Prints one JSON line with the kernels, the card's name and power
    limit, then, last, the device line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without a CUDA device, or outside
@@ -132,6 +145,20 @@ DET_CPU_BLENDS = 32
 REDETECT_BLENDS = 128
 # iterations of the wavelet stream's card-vs-CPU rerun (e_rel 0)
 WAVELET_CPU_ITERS = 50
+
+# the multi-resolution phase: tools/multires_bench.py's configuration (HR
+# 64 x 64 at 0.1", LR 24 x 24 at 0.3", B = 64, box 31, 3 slots) and its
+# 28-degree rotated form (tests/test_multires_batch.py:177-196)
+MR_B, MR_BOX, MR_SLOTS, MR_RUNS = 64, 31, 3, 3
+MR_ITERS, MR_ROT_ITERS = 100, 120
+MR_ROTATION = np.deg2rad(28)
+MR_CPU_BLENDS, MR_CPU_ITERS = 4, 30
+MR_DETECT_SLOTS, MR_DETECT_ITERS = 4, 60
+MR_F64_RTOL = 1e-5   # a float32 render (TF32 off) against float64
+# the aligned batch's blend that the reference's own stop rule freezes
+# below 10 dB HR, and its iteration (tests/test_torch_multires.py::
+# test_stop_rule_freezes_like_jax)
+MR_SDR_FROZEN = {40: 25}
 
 REPLACES = {
     "monotonic_prox": "scarlet_tpu/ops/pallas_kernels.py:204",
@@ -2074,6 +2101,383 @@ def fista_host_path(dev, card, seeds):
     return counts, summary
 
 
+# ---------------------------------------------------------------------------
+# The multi-resolution fit (tools/multires_bench.py's configuration)
+# ---------------------------------------------------------------------------
+def sdr(truth, model):
+    """Source distortion ratio in dB (tests/test_multiresolution.py:28)."""
+    return 10 * np.log10(np.sum(truth ** 2) ** 0.5
+                         / np.sum((truth - model) ** 2) ** 0.5)
+
+
+def multires_setup(dev, rotation, B=MR_B):
+    """The synthetic HR + LR pair at full width on ``dev``: observations
+    (hr, lr), the model frame, B flux-scaled stacks (``default_rng(0)``,
+    as tools/multires_bench.py:36-41), weights 400 and the host init of
+    the three blobs' sky positions."""
+    from scarlet_tpu_torch import models, parallel
+    from scarlet_tpu_torch.testing import blob_centers, make_pair
+
+    obs_hr, obs_lr, data_hr, data_lr = make_pair(rotation_lr=rotation,
+                                                 device=dev)
+    frame = models.Frame.from_observations([obs_lr, obs_hr], obs_id=1)
+    rng = np.random.default_rng(0)
+    sc = (0.8 + 0.4 * rng.random(B).astype(np.float32))[:, None, None, None]
+    datas = (np.repeat(data_hr[None][None], B, 0) * sc,
+             np.repeat(data_lr[None][None], B, 0) * sc)
+    weights = tuple(np.full_like(d, 400.0) for d in datas)
+    obs = (obs_hr, obs_lr)
+    init = parallel.multires_init(obs, datas, blob_centers(frame, B),
+                                  box_size=MR_BOX, n_slots=MR_SLOTS)
+    return obs, frame, datas, weights, init
+
+
+def cpu_pair(rotation, dtype=np.float32):
+    """The pair's observations (hr, lr) on the CPU, matched to their model
+    frame in ``dtype``."""
+    from scarlet_tpu_torch import models
+    from scarlet_tpu_torch.testing import make_pair
+
+    obs_hr, obs_lr, _, _ = make_pair(rotation_lr=rotation, device="cpu")
+    frame = models.Frame.from_observations([obs_lr, obs_hr], obs_id=1)
+    if dtype != np.float32:
+        frame.dtype = dtype
+        for o in (obs_hr, obs_lr):
+            o.match(frame)
+    return (obs_hr, obs_lr), frame
+
+
+def multires_profile(fit, n_iter=20):
+    """Device time by kernel group over an ``n_iter``-iteration fit
+    (``torch.profiler``): K1, K3, K4, cuFFT, matmul and the rest, per
+    iteration, launches per iteration and the device's busy share of the
+    wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fit(2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fit(n_iter)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern, busy_us, _ = device_busy(prof)
+    groups = {"K1": ("mono_kernel",), "K3": ("scene_kernel",),
+              "K4": ("grad_kernel",), "cuFFT": ("fft",),
+              "matmul": ("gemm", "xmma", "cutlass")}
+    ms = {k: 0.0 for k in (*groups, "other")}
+    for e in kern:
+        name = e.name.lower()
+        key = next((k for k, keys in groups.items()
+                    if any(s in name for s in keys)), "other")
+        ms[key] += e.time_range.elapsed_us() / n_iter / 1e3
+    return dict(device_ms_per_iteration=ms,
+                launches_per_iteration=len(kern) / n_iter,
+                busy_share=busy_us / 1e6 / wall, profiled_wall_s=wall)
+
+
+def multires_fit_runs(fitter, datas, weights, init, n_iter, label, card):
+    """One warm-up fit, then MR_RUNS timed fits (host clock, ending at
+    ``torch.cuda.synchronize()``), the kernel counts zeroed just before
+    the first and read just after it.  Returns (output, counts, summary)."""
+    import torch
+    from scarlet_tpu_torch.ops import kernels as kn
+
+    def fit(n=n_iter):
+        return fitter.fit(datas, weights, *init, n_iter=n)
+
+    fit()
+    torch.cuda.synchronize()
+    walls, counts = [], None
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(MR_RUNS):
+        if counts is None:
+            kn.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fit()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if counts is None:
+            counts = kn.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for name in PATH_KERNELS:
+        if counts[name] <= 0:
+            raise AssertionError(f"{name} was not launched by the {label} "
+                                 f"multi-resolution fit")
+    B = out[0].shape[0]
+    med = float(np.median(walls))
+    its = out[3].cpu().numpy()
+    losses = out[4].cpu().numpy()
+    if not np.isfinite(losses).all() or not (out[2].cpu().numpy()
+                                             < losses[0]).all():
+        raise AssertionError(f"{label} multi-resolution fit: non-finite "
+                             f"or not improving losses")
+    ran = fitter.iterations_run_
+    prof = multires_profile(fit)
+    summary = dict(blends_per_min=B / med * 60.0, wall_s=walls,
+                   ms_per_iteration=med / ran * 1e3, iterations_run=ran,
+                   median_iterations=float(np.median(its)),
+                   peak_memory_bytes=int(peak), launches=counts, **prof)
+    dm = prof["device_ms_per_iteration"]
+    log(f"multi-resolution {label} pair, B={B} box {MR_BOX} {MR_SLOTS} slots"
+        f", cap {n_iter}: {summary['blends_per_min']:.1f} blends/min "
+        f"(walls {[round(w, 4) for w in walls]} s), "
+        f"{summary['ms_per_iteration']:.4f} ms/iteration over "
+        f"{ran} iterations run, median iterations "
+        f"{summary['median_iterations']}; peak memory "
+        f"{peak / 2 ** 20:.1f} MiB; profiled 20 iterations: device busy "
+        f"{100 * prof['busy_share']:.1f}% of the wall, "
+        f"{prof['launches_per_iteration']:.1f} launches/iteration, device "
+        f"ms/iteration " + ", ".join(f"{k} {v:.4f}" for k, v in dm.items())
+        + f"; launches in one fit {counts} on {card}")
+    return out, counts, summary
+
+
+def multires_sdr(fitter, datas, out, init, label, lr_min, frozen):
+    """Every blend's HR and LR renders against its data: SDR above 10 dB
+    (HR) and ``lr_min`` (LR), the JAX tests' limits.  ``frozen`` maps the
+    one blend the reference itself leaves below a limit to the iteration
+    at which its stop rule ``|dL| < e_rel |L|`` fires, on a plateau of
+    adaprox's non-monotone trajectory (tests/test_torch_multires.py::
+    test_stop_rule_freezes_like_jax): that blend passes only if the card
+    freezes it at that iteration too.  Any other blend below a limit
+    fails."""
+    def sdrs(renders):
+        return np.asarray([[sdr(d[b, 0], r[b, 0].cpu().numpy())
+                            for b in range(len(d))]
+                           for d, r in zip(datas, renders)])
+
+    B = len(datas[0])
+    got = sdrs(fitter.render_batch(out[0], out[1], init[2], init[3]))
+    low = np.flatnonzero((got[0] <= 10) | (got[1] <= lr_min))
+    its = out[3].cpu().numpy()
+    lo = [float(got[0].min()), float(got[1].min())]
+    log(f"multi-resolution {label}: SDR over {B} blends HR "
+        f"{lo[0]:.2f}..{float(got[0].max()):.2f} dB (limit 10), LR "
+        f"{lo[1]:.2f}..{float(got[1].max()):.2f} dB (limit {lr_min}); "
+        f"below a limit: blends {low.tolist()} (SDR HR "
+        f"{np.round(got[0, low], 2).tolist()}, LR "
+        f"{np.round(got[1, low], 2).tolist()}) at iterations "
+        f"{its[low].tolist()}; the reference's own {frozen}")
+    bad = [int(b) for b in low if frozen.get(int(b)) != its[b]]
+    if bad:
+        raise AssertionError(f"{label}: blends {bad} are below their SDR "
+                             f"limit")
+    return dict(hr_min=lo[0], lr_min=lo[1], below=low.tolist(),
+                below_iterations=its[low].tolist())
+
+
+def multires_render_error(fitter, rotation, out, init, label, card):
+    """Blend 0's card renders (float32, TF32 off) against a float64 CPU
+    render of the same scene (the renderers rebuilt in float64), and the
+    LR render with TF32 allowed for contrast: the largest error over the
+    largest value."""
+    import torch
+    from scarlet_tpu_torch.parallel import multires
+
+    (obs_hr, obs_lr), frame = cpu_pair(rotation, np.float64)
+    scene = multires.assemble_scene(
+        *(t[:1].cpu().double() for t in out[:2]),
+        torch.from_numpy(init[2][:1]), torch.from_numpy(init[3][:1]),
+        frame.shape)
+    refs = [o.render(scene)[0].numpy() for o in (obs_hr, obs_lr)]
+
+    def err(r, ref):
+        return float(np.abs(r - ref).max() / np.abs(ref).max())
+
+    renders = fitter.render_batch(out[0][:1], out[1][:1], init[2][:1],
+                                  init[3][:1])
+    errs = [err(r[0].cpu().numpy(), ref) for r, ref in zip(renders, refs)]
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = fitter.render_batch(out[0][:1], out[1][:1], init[2][:1],
+                                   init[3][:1])[1][0].cpu().numpy()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    tf32_err = err(tf32, refs[1])
+    log(f"multi-resolution {label}: blend 0's card render against a float64 "
+        f"CPU render, largest error / largest value: HR {errs[0]:.3g}, LR "
+        f"{errs[1]:.3g} with TF32 off (limit {MR_F64_RTOL}); LR "
+        f"{tf32_err:.3g} with TF32 allowed, on {card}")
+    if max(errs) > MR_F64_RTOL:
+        raise AssertionError(f"{label}: the card's render is off the "
+                             f"float64 render by {max(errs)}")
+    return dict(hr=errs[0], lr=errs[1], lr_tf32_allowed=tf32_err)
+
+
+def multires_cpu_rerun(obs, datas, weights, init, card):
+    """MR_CPU_BLENDS blends over MR_CPU_ITERS iterations on the card and
+    on the CPU (plain versions): the loss histories within CPU_RTOL."""
+    from scarlet_tpu_torch import parallel
+
+    sel = slice(0, MR_CPU_BLENDS)
+    part = lambda xs: tuple(x[sel] for x in xs)  # noqa: E731
+    hists = []
+    for observations in (obs, cpu_pair(0.0)[0]):
+        fitter = parallel.MultiResFitter(observations, box_size=MR_BOX)
+        out = fitter.fit(part(datas), part(weights), *part(init),
+                         n_iter=MR_CPU_ITERS)
+        hists.append(out[4].cpu().numpy())
+    rel = float((np.abs(hists[0] - hists[1]) / np.abs(hists[1])).max())
+    log(f"multi-resolution card vs CPU, {MR_CPU_BLENDS} blends x "
+        f"{MR_CPU_ITERS} iterations: loss histories max rel diff "
+        f"{rel:.3g} (limit {CPU_RTOL}), final {hists[0][-1]} vs "
+        f"{hists[1][-1]} on {card}")
+    if rel > CPU_RTOL:
+        raise AssertionError("card and CPU multi-resolution fits disagree")
+    return rel
+
+
+def multires_kernel_checks(fitter, seds, morphs, origins, on, label, card):
+    """K1, K3 and K4 against their plain versions at one multi-resolution
+    path's shapes: its fitted seds, morphologies, origins and slots; K1 on
+    the morphologies plus noise (a prox input), with the fit's centred
+    table at tol 0; K4 on a contiguous gradient of the scene's shape (as
+    the renderers' backward gives it) at pad 0."""
+    import torch
+    from scarlet_tpu_torch.ops import kernels as kn
+
+    seds, morphs = seds.contiguous(), morphs.contiguous()
+    dev = seds.device
+    origins = torch.from_numpy(origins).to(dev)
+    on = torch.from_numpy(on).to(dev)
+    B, K, S, _ = morphs.shape
+    C, H, W = fitter.scene_shape
+    shape = f"{label}: B={B} K={K} C={C} {H}x{W} box={S} pad=0"
+    res = {"scene_assembly": scene_check(seds, morphs, origins, on,
+                                         (C, H, W), 0),
+           "grad_gather": grad_check(strided_gradient(B, C, H, W, (H, W),
+                                                      dev),
+                                     seds, morphs, origins, 0)}
+    w8, keep, depth = fitter._mono
+    gen = torch.Generator().manual_seed(SEED)
+    x = (morphs + 0.05 * torch.randn(morphs.shape, generator=gen).to(dev)
+         ).clamp_min(0.0).contiguous()
+    idx = torch.zeros((B, K), dtype=torch.int32, device=dev)
+
+    def k1(f):
+        return f(x, idx, w8, keep, depth, 0.0, tol=0.0)
+
+    passes = mono_passes_run(x, idx, w8, keep, depth, 0.0)
+    res["monotonic_prox"] = dict(
+        **bound(2 * nbytes(x) + nbytes(idx, w8, keep),
+                mono_ops(passes, idx, w8)),
+        mean_passes=float(passes.double().mean()),
+        max_abs_err=float((k1(kn.monotonic_prox)
+                           - k1(kn.monotonic_prox_plain)).abs().max()),
+        limit=0.0, ms=device_ms(lambda: k1(kn.monotonic_prox),
+                                "mono_kernel"),
+        plain_ms=time_ms(lambda: k1(kn.monotonic_prox_plain), 5))
+    for name, r in res.items():
+        err = r["g_morph_err"] if name == "grad_gather" else r["max_abs_err"]
+        if err != 0.0:
+            raise AssertionError(f"{name} at the multi-resolution shapes "
+                                 f"differs from its plain version by {err}")
+        r["shape"] = shape
+        log(f"kernel {name} at the multi-resolution shapes: max_abs_err "
+            f"{r['max_abs_err']:.3g}, kernel {r['ms']:.4f} ms device, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']} [{shape}] on {card}")
+    return res
+
+
+def multires_detect(dev, card):
+    """``deblend_multires(centers=None)`` on the aligned pair: detection on
+    the HR stack, MR_DETECT_SLOTS slots, MR_DETECT_ITERS iterations; every
+    blend gets its three blobs near their true positions.  The detection
+    alone is timed on the same stack (median of 3 after a warm-up)."""
+    import torch
+    from scarlet_tpu_torch import parallel
+    from scarlet_tpu_torch.ops import kernels as kn
+    from scarlet_tpu_torch.testing import blob_centers
+
+    obs, frame, datas, weights, _ = multires_setup(dev, 0.0)
+    kn.reset_launch_counts()
+    t0 = time.perf_counter()
+    recs, seds, morphs, origins, active, losses = parallel.deblend_multires(
+        obs, datas, weights, centers=None, box_size=MR_BOX,
+        n_slots=MR_DETECT_SLOTS, n_iter=MR_DETECT_ITERS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kn.launch_counts()
+    checks = multires_kernel_checks(
+        parallel.MultiResFitter(obs, box_size=MR_BOX), seds, morphs,
+        origins, active, "deblend_multires", card)
+    found = active.sum(1)
+    true = blob_centers(frame, 1)[0]
+    far = max(float(np.linalg.norm(
+        np.asarray(r["centroid"])[active[b]][:, None] - true[None],
+        axis=-1).min(1).max()) for b, r in enumerate(recs))
+    img = torch.from_numpy(datas[0]).to(dev)
+    var = torch.full_like(img, 1 / 400.0)
+    det = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        parallel.detect_peaks_device(img, var, max_peaks=MR_DETECT_SLOTS)
+        torch.cuda.synchronize()
+        det.append(time.perf_counter() - t0)
+    summary = dict(wall_s=wall, blends=len(recs),
+                   blends_per_min=len(recs) / wall * 60.0,
+                   detect_s=float(np.median(det[1:])),
+                   min_found=int(found.min()), max_found=int(found.max()),
+                   farthest_centroid_px=far, launches=counts,
+                   logL_finite=bool(all(np.isfinite(r["logL"])
+                                        for r in recs)))
+    log(f"deblend_multires(centers=None) on {len(recs)} aligned blends, "
+        f"{MR_DETECT_SLOTS} slots, {MR_DETECT_ITERS} iterations: "
+        f"{wall:.3f} s ({summary['blends_per_min']:.1f} blends/min), "
+        f"detection alone {summary['detect_s']:.4f} s; sources per blend "
+        f"{int(found.min())}..{int(found.max())}, farthest centroid "
+        f"{far:.2f} px from its blob; launches {counts} on {card}")
+    if not (found == 3).all() or far >= 5.0 or not summary["logL_finite"]:
+        raise AssertionError("deblend_multires missed a blob")
+    for name in PATH_KERNELS:
+        if counts[name] <= 0:
+            raise AssertionError(f"{name} was not launched by "
+                                 "deblend_multires")
+    return summary, checks
+
+
+def multires_phase(dev, card):
+    """The multi-resolution path on the card: the aligned and the rotated
+    pair at full width, the card against the CPU, the kernels at each
+    path's shapes, and ``deblend_multires(centers=None)``.  Returns (the
+    aligned fit's launch counts, kernel checks by path, summary)."""
+    import torch
+    from scarlet_tpu_torch import parallel
+
+    summary, checks = {}, {}
+    for label, rotation, n_iter, lr_min, frozen in (
+            ("aligned", 0.0, MR_ITERS, 10, MR_SDR_FROZEN),
+            ("rotated", MR_ROTATION, MR_ROT_ITERS, 8, {})):
+        obs, frame, datas, weights, init = multires_setup(dev, rotation)
+        if obs[1].renderer.isrot != (label == "rotated"):
+            raise AssertionError(f"the {label} pair got the wrong renderer")
+        fitter = parallel.MultiResFitter(obs, box_size=MR_BOX, e_rel=E_REL)
+        dd = tuple(torch.from_numpy(d).to(dev) for d in datas)
+        ww = tuple(torch.from_numpy(w).to(dev) for w in weights)
+        out, path_counts, summary[label] = multires_fit_runs(
+            fitter, dd, ww, init, n_iter, label, card)
+        if label == "aligned":
+            counts = path_counts
+        summary[label]["sdr"] = multires_sdr(
+            fitter, datas, out, init, label, lr_min, frozen)
+        summary[label]["f64_render_error"] = multires_render_error(
+            fitter, rotation, out, init, label, card)
+        if label == "aligned":
+            summary[label]["cpu_rerun_max_rel"] = multires_cpu_rerun(
+                obs, datas, weights, init, card)
+        checks[label] = multires_kernel_checks(
+            fitter, out[0], out[1], init[2], init[3], label, card)
+        del fitter, out, dd, ww
+    summary["detect"], checks["deblend_multires"] = multires_detect(
+        dev, card)
+    return counts, checks, summary
+
+
 def main():
     import torch
 
@@ -2166,6 +2570,14 @@ def main():
     fista_counts, opt_summary["fista"] = fista_host_path(dev, card, seeds)
     log(f"fit options summary: {json.dumps(opt_summary)}")
     del setup, seeds
+
+    # the multi-resolution fit: K1, K3 and K4 counted over one aligned fit
+    mr_counts, mr_checks, mr_summary = multires_phase(dev, card)
+    log(f"multi-resolution summary: {json.dumps(mr_summary)}")
+    for name in PATH_KERNELS:
+        kres[name]["multires_shapes"] = {
+            label: res[name] for label, res in mr_checks.items()}
+        kres[name]["launches_multires"] = int(mr_counts[name])
 
     # each kernel's launches from the run of the path that drives it:
     # K1, K3 and K4 from one device-stream run, K5 and K6 from the fit of

@@ -1,5 +1,6 @@
-"""scarlet_tpu_torch: the lite deblender of ``scarlet_tpu`` in PyTorch,
-with hand-written CUDA kernels for NVIDIA Hopper (H100).
+"""scarlet_tpu_torch: the lite deblender and the batched multi-resolution
+fitter of ``scarlet_tpu`` in PyTorch, with hand-written CUDA kernels for
+NVIDIA Hopper (H100).
 
 The JAX package ``scarlet_tpu`` is the reference this port is tested
 against; this package imports neither it nor JAX.  On CPU tensors every
@@ -22,8 +23,11 @@ Main path::
     records, state, losses, aux = parallel.deblend_device_stream(
         images, variance, psfs, centers, model_psf, box_size=59,
         n_slots=16, chunk=128, compact=50, device="cuda")
+    # several instruments at different resolutions (models.Observation
+    # with a WCS each, models.Frame.from_observations):
+    fitter = parallel.MultiResFitter(observations, box_size=31)
 """
-from . import lite, parallel, testing  # noqa: F401
+from . import lite, models, parallel, testing, utils  # noqa: F401
 from .bbox import Box  # noqa: F401
 
 __version__ = "0.1.0"

@@ -11,6 +11,11 @@ tables stay unbatched.
 Floating arrays become float32 (the JAX side may run with 64-bit mode
 on), integer arrays int32.  Kernel transforms stored as stacked
 (re, im) float pairs become complex tensors.
+
+``observations_from_jax`` takes the JAX package's ``Observation`` objects
+and gives the port's, with the same data, weights, channels, WCS and PSF
+image, so that both packages' multi-resolution fitters can run on the
+same observations.
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ from .device import default_device
 from .lite import engine
 from .optim import AdaproxState, FistaState
 
-__all__ = ["from_jax"]
+__all__ = ["from_jax", "observations_from_jax"]
 
 
 def _get(obj, name):
@@ -104,3 +109,31 @@ def from_jax(config, data, state, device=None):
         step_scale=_buckets(_get(state, "step_scale"), device),
     )
     return cfg, out_data, out_state
+
+
+def observations_from_jax(observations, device=None):
+    """The port's ``models.Observation`` of each of the JAX package's
+    observations (read by duck typing from their host fields: ``data``,
+    ``weights``, ``channels``, the WCS's crpix/crval/pc/cdelt/ctype and
+    ``array_shape``, and the PSF's image), on ``device`` (default: the
+    CUDA card).  The port's observations are not matched to a frame yet:
+    ``models.Frame.from_observations`` does that."""
+    from .models import ImagePSF, Observation
+    from .utils import AffineWCS
+
+    device = default_device(device)
+    out = []
+    for obs in observations:
+        wcs = None
+        if obs.wcs is not None:
+            p = obs.wcs.wcs
+            wcs = AffineWCS(crpix=np.array(p.crpix), crval=np.array(p.crval),
+                            pc=np.array(p.pc), cdelt=np.array(p.cdelt),
+                            ctype=tuple(p.ctype),
+                            array_shape=getattr(obs.wcs, "array_shape", None))
+        psf = None if obs.psf is None else ImagePSF(
+            np.array(obs.psf.get_model()))
+        out.append(Observation(np.array(obs.data), list(obs.channels),
+                               psf=psf, weights=np.array(obs.weights),
+                               wcs=wcs, device=device))
+    return out

@@ -43,6 +43,8 @@ __all__ = [
     "dft_conv_operators",
     "convolve_dft",
     "match_psf",
+    "mk_shifter",
+    "shift",
 ]
 
 
@@ -75,7 +77,9 @@ def centered(arr, newshape, axes=None):
 
 
 def zero_pad(arr, newshape, axes=None):
-    """Zero-pad ``arr`` to ``newshape`` (inverse of :func:`centered`).
+    """Zero-pad ``arr`` to ``newshape`` (inverse of :func:`centered`); a
+    ``newshape`` smaller than ``arr`` raises, as ``jnp.pad`` does (a
+    negative ``F.pad`` width would crop instead).
     Ref: scarlet/fft.py:82-113."""
     axes = _normalize_axes(arr.ndim, axes)
     if len(newshape) == arr.ndim and len(axes) != arr.ndim:
@@ -83,6 +87,10 @@ def zero_pad(arr, newshape, axes=None):
     widths = [(0, 0)] * arr.ndim
     for a, new in zip(axes, newshape):
         ds = new - arr.shape[a]
+        if ds < 0:
+            raise ValueError(
+                f"arr must be smaller than newshape, got {tuple(arr.shape)} "
+                f"-> {tuple(newshape)}")
         left = (ds + 1) // 2
         widths[a] = (left, ds - left)
     # F.pad takes (last_lo, last_hi, second_to_last_lo, ...)
@@ -385,6 +393,45 @@ def match_psf(psf1, psf2, padding=3, axes=(-2, -1), return_fourier=True):
     axes_n = _normalize_axes(psf1.image.ndim, axes)
     kimage = psf1.fft(fft_shape, axes_n) / psf2.fft(fft_shape, axes_n)
     result = Fourier.from_fft(kimage, fft_shape, shape, axes_n)
+    if return_fourier:
+        return result
+    return result.image
+
+
+def mk_shifter(shape, real=False, device=None):
+    """Fourier-domain shift phase gradients ``(-2*pi*i*freq_y,
+    -2*pi*i*freq_x)`` of an FFT ``shape``, complex128 (on ``device``, the
+    CPU by default); ``real``: rFFT frequencies on both axes.
+    Ref: scarlet/interpolation.py:341-375."""
+    freq_x = np.fft.rfftfreq(shape[-1])
+    freq_y = np.fft.rfftfreq(shape[-2]) if real else np.fft.fftfreq(shape[-2])
+    return tuple(torch.from_numpy(-1j * 2 * np.pi * f).to(device)
+                 for f in (freq_y, freq_x))
+
+
+def shift(image, shift_yx, fft_shape=None, axes=(-2, -1),
+          return_fourier=True):
+    """Sub-pixel shift of ``image`` by ``(dy, dx)`` through Fourier
+    phasors.  The phasors are complex128, so the product and the result
+    promote to float64 (as the JAX package's do with 64-bit mode on).
+    ``shift_yx`` may be a tensor (autograd flows through it).
+    Ref: scarlet/fft.py:399-428."""
+    image = _as_fourier(image)
+    if fft_shape is None:
+        fft_shape = good_fft_shape(image.image, image.image, padding=10,
+                                   axes=axes)
+    axes_n = _normalize_axes(image.image.ndim, axes)
+    image_fft = image.fft(fft_shape, axes_n)
+    shifter_y, shifter_x = mk_shifter(fft_shape, device=image_fft.device)
+    shift_yx = torch.as_tensor(shift_yx, device=image_fft.device)
+    shifter = (torch.exp(shifter_y[:, None] * shift_yx[0])
+               * torch.exp(shifter_x[None, :] * shift_yx[1]))
+    ndim = image.image.ndim
+    # the phasor over the transformed axes, unit dims elsewhere
+    view = [1] * ndim
+    view[axes_n[0]], view[axes_n[1]] = shifter.shape
+    result_fft = image_fft * shifter.reshape(view)
+    result = Fourier.from_fft(result_fft, fft_shape, image.shape, axes_n)
     if return_fourier:
         return result
     return result.image

@@ -868,6 +868,15 @@ def scene_assembly_plain(seds, morphs, origins, comp_active, scene_shape,
 SCENE_THREADS = 128       # most threads of a scene-assembly block
 
 
+def _check_bands(name, C):
+    """Raise before a launch with more bands than the gather kernels take
+    (kMaxC, the same in csrc/scene.cu and csrc/grad.cu)."""
+    most = build.load().scarlet_grad_max_bands()
+    if C > most:
+        raise ValueError(f"{name}: {C} bands; the kernel takes at most "
+                         f"{most}")
+
+
 class SceneGeometry(NamedTuple):
     """How the scene-assembly kernel covers a batch of (C, H, W) scenes
     (csrc/scene.cu): block (b, band, tile) takes blend b, rows
@@ -926,6 +935,7 @@ def scene_assembly(seds, morphs, origins, comp_active, scene_shape, pad):
                          f"{tuple(comp_active.shape)}")
     _f32(name, seds, "seds")
     _f32(name, morphs, "morphs")
+    _check_bands(name, C)
     org = origins.to(torch.int32).contiguous()
     act = comp_active.to(torch.bool).contiguous()
     out = torch.empty(lead + (C, H, W), dtype=seds.dtype, device=seds.device)
@@ -1090,10 +1100,8 @@ def grad_gather(grad, seds, morphs, origins, pad):
                          f"into one stride {tuple(grad.stride())}") from None
     _f32(name, seds, "seds")
     _f32(name, morphs, "morphs")
+    _check_bands(name, C)
     lib = build.load()
-    if C > lib.scarlet_grad_max_bands():
-        raise ValueError(f"{name}: {C} bands; the kernel takes at most "
-                         f"{lib.scarlet_grad_max_bands()}")
     org = origins.to(torch.int32).contiguous()
     g_seds = torch.empty_like(seds)
     g_morphs = torch.empty_like(morphs)

@@ -1,5 +1,6 @@
 """Batched fitting of many blends on one device, the device stream
-(init, fit and records of raw pixel stacks) and device peak detection."""
+(init, fit and records of raw pixel stacks), device peak detection and
+the batched multi-resolution fitter."""
 from .batch import (  # noqa: F401
     BatchConfig,
     pack_batch,
@@ -22,4 +23,10 @@ from .stream import (  # noqa: F401
     stream_setup,
     stream_records,
     deblend_device_stream,
+)
+from .multires import (  # noqa: F401
+    MultiResFitter,
+    multires_init,
+    multires_records,
+    deblend_multires,
 )

@@ -1,2 +1,3 @@
 """Generated test material (no dataset needed)."""
 from .blendsets import FILTERS, generate_blend  # noqa: F401
+from .multires import blob_centers, make_pair  # noqa: F401

@@ -555,3 +555,93 @@ def test_fista_and_real_mode_on_card_match_cpu(cuda):
     ref = op.convolve(img)
     got = oc.convolve(img.to(cuda)).cpu()
     assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# The multi-resolution fit (K1, K3 and K4 through parallel.multires)
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+def test_band_limit_matches_the_kernels(cuda):
+    """Both gather wrappers raise before a launch with more bands than
+    the kernels take, the library's own kMaxC."""
+    from scarlet_tpu_torch.ops import build
+
+    most = build.load().scarlet_grad_max_bands()
+    assert most == 8
+    seds, morphs, origins, on = (x.to(cuda) for x in _bucket(
+        2, 4, C=most + 1))
+    with pytest.raises(ValueError, match="bands"):
+        kn.scene_assembly(seds, morphs, origins, on, (most + 1, 58, 48), 61)
+    grad = torch.zeros((2, most + 1, 58, 48), device=cuda)
+    with pytest.raises(ValueError, match="bands"):
+        kn.grad_gather(grad, seds, morphs, origins, 0)
+
+
+@pytest.mark.cuda
+def test_assemble_scene_on_card_matches_cpu(cuda):
+    """The scene Function at the smoke's shapes (64 blends, 3 slots, box
+    31, a (2, 84, 84) frame), one slot off: forward bit for bit, seds' and
+    morphologies' gradients against the CPU's plain versions (g_morph bit
+    for bit, g_sed within 1e-5 of sum |g * morph|), each once per launch."""
+    from scarlet_tpu_torch.parallel import multires
+
+    B, K, C, S, H = 64, 3, 2, 31, 84
+    rng = np.random.default_rng(5)
+    seds = torch.from_numpy(rng.uniform(0.1, 2, (B, K, C)).astype(
+        np.float32))
+    morphs = torch.from_numpy(rng.uniform(0, 1, (B, K, S, S)).astype(
+        np.float32))
+    origins = torch.from_numpy(rng.integers(0, H - S + 1, (B, K, 2)).astype(
+        np.int32))
+    active = torch.ones(B, K, dtype=torch.bool)
+    active[3, 1] = False
+    G = torch.randn(B, C, H, H, generator=torch.Generator().manual_seed(6))
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        s = seds.to(dev).requires_grad_()
+        m = morphs.to(dev).requires_grad_()
+        kn.reset_launch_counts()
+        scene = multires.assemble_scene(s, m, origins.to(dev),
+                                        active.to(dev), (C, H, H))
+        (scene * G.to(dev)).sum().backward()
+        counts = kn.launch_counts()
+        out[dev.type] = [t.detach().cpu() for t in (scene, s.grad, m.grad)]
+        if dev.type == "cuda":
+            assert counts["scene_assembly"] == counts["grad_gather"] == 1
+    card, cpu = out["cuda"], out["cpu"]
+    assert torch.equal(card[0], cpu[0])
+    assert torch.equal(card[2], cpu[2])
+    scale = kn.grad_gather_plain(G.abs(), seds, morphs, origins, 0)[0]
+    assert bool(((card[1] - cpu[1]).abs() <= 1e-5 * scale).all())
+    assert not card[1][3, 1].any() and not card[2][3, 1].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rotation", [0.0, np.deg2rad(28)])
+def test_multires_fit_on_card_matches_cpu(cuda, rotation):
+    """10 iterations of the full-width pair (4 blends) on the card and the
+    CPU: the loss histories within rtol 1e-4; K1, K3 and K4 launched."""
+    from scarlet_tpu_torch import models
+    from scarlet_tpu_torch.parallel import MultiResFitter, multires_init
+    from scarlet_tpu_torch.testing import blob_centers, make_pair
+
+    hist = {}
+    for dev in (cuda, torch.device("cpu")):
+        hr, lr, dh, dl = make_pair(rotation_lr=rotation, device=dev)
+        frame = models.Frame.from_observations([lr, hr], obs_id=1)
+        sc = np.asarray([1.0, 0.8, 1.2, 0.9], np.float32)[:, None, None,
+                                                          None]
+        datas = (dh[None, None] * sc, dl[None, None] * sc)
+        weights = tuple(np.full_like(d, 400.0) for d in datas)
+        init = multires_init((hr, lr), datas, blob_centers(frame, 4),
+                             box_size=31, n_slots=3)
+        kn.reset_launch_counts()
+        fit = MultiResFitter((hr, lr), box_size=31)
+        hist[dev.type] = fit.fit(datas, weights, *init, n_iter=10)[4].cpu()
+        if dev.type == "cuda":
+            counts = kn.launch_counts()
+            assert all(counts[n] >= 10 for n in
+                       ("monotonic_prox", "scene_assembly", "grad_gather"))
+            assert not torch.backends.cuda.matmul.allow_tf32
+    np.testing.assert_allclose(hist["cuda"].numpy(), hist["cpu"].numpy(),
+                               rtol=1e-4)

@@ -3,12 +3,13 @@ the CPU: with ``device=None`` and numpy inputs they put their tensors on
 the card, or raise where there is none; a tensor argument keeps its own
 device; ``device="cpu"`` runs on the host."""
 import dataclasses
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
 
-from scarlet_tpu_torch import convert, lite
+from scarlet_tpu_torch import convert, lite, models
 from scarlet_tpu_torch.device import default_device
 from scarlet_tpu_torch.lite import engine
 from scarlet_tpu_torch.parallel import stream
@@ -59,6 +60,12 @@ ENTRY_POINTS = {
     "make_blend_state": lambda d: engine.make_blend_state(
         np.ones((2, 5), np.float32), np.ones((2, BOX, BOX), np.float32),
         np.zeros((2, 2), np.int32)).seds[0],
+    "Observation": lambda d: models.Observation(
+        d["images"], channels=list("grizy")).data,
+    "observations_from_jax": lambda d: convert.observations_from_jax(
+        [SimpleNamespace(data=d["images"], weights=np.ones_like(d["images"]),
+                         channels=list("grizy"), wcs=None, psf=None)])[0]
+    .weights,
     "from_jax": lambda d: convert.from_jax(
         dataclasses.asdict(_config()),
         dict(images=d["images"], weights=np.ones_like(d["images"]),
@@ -119,3 +126,23 @@ def test_default_device_rule():
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             default_device(None, np.zeros(1))
+
+
+def test_multires_fitter_runs_where_its_observations_live():
+    """The fitter takes its device from its observations (made on the CPU
+    here); numpy stacks given to ``fit`` go there."""
+    from scarlet_tpu_torch.parallel import MultiResFitter, multires_init
+    from scarlet_tpu_torch.testing import blob_centers, make_pair
+
+    hr, lr, dh, dl = make_pair(device="cpu", shape_hr=(32, 32),
+                               shape_lr=(12, 12))
+    frame = models.Frame.from_observations([lr, hr], obs_id=1)
+    assert hr.data.device.type == lr.renderer.device.type == "cpu"
+    fitter = MultiResFitter((hr, lr), box_size=15)
+    assert fitter.device.type == "cpu"
+    datas = (dh[None, None], dl[None, None])
+    weights = tuple(np.ones_like(d) for d in datas)
+    init = multires_init((hr, lr), datas, blob_centers(frame, 1),
+                         box_size=15, n_slots=3)
+    out = fitter.fit(datas, weights, *init, n_iter=2)
+    assert all(t.device.type == "cpu" for t in out)
