@@ -88,7 +88,25 @@ Run from the repository root, with one CUDA card:
    CPU; K1, K3 and K4 against their plain versions at the fit's shapes;
    ``deblend_multires(centers=None)`` on 64 aligned blends (4 slots, 60
    iterations), with the detection's own time.
-10. Prints one JSON line with the kernels, the card's name and power
+10. The object tree, scarlet's quickstart (``examples/quickstart.py``) on
+   the port: K1 against its plain version at the tree's shapes ((1, 1,
+   S, S), S = 21, 31, 41 and, on its wide kernel, 81, 128 and 150;
+   "angle" and "flat" tables, min_gradient 0 and 0.1, the
+   fit_center_radius=1 candidate table), bit for bit; 16
+   generated blends of (5, 58, 48) with 7 sources (``default_rng(11)``)
+   through ``models.Frame``, ``Observation.match``,
+   ``initialization.init_all_sources`` and ``Blend.fit(100, e_rel=1e-4)``
+   in turn after a warm-up (blends/min, init s, iterations, ms per
+   iteration, chi2/dof, logL, K1's launches); a profile of 20 iterations
+   (device busy share, launches and K1 per iteration); a (5, 128, 128)
+   scene with 24 sources (100 iterations, ms per iteration, peak memory;
+   busy share over 5 more); two blends on the card and the CPU (init
+   decisions, the first loss, 20 iterations' losses from the quickstart's
+   start against the CPU's own spread on perturbed images, and from the
+   init without the spectrum solve), the CPU's runs in worker processes;
+   a large galaxy whose box grows past 73 pixels (K1's wide kernel) on
+   the card and the CPU (boxes, losses).
+11. Prints one JSON line with the kernels, the card's name and power
    limit, then, last, the device line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without a CUDA device, or outside
@@ -159,6 +177,30 @@ MR_F64_RTOL = 1e-5   # a float32 render (TF32 off) against float64
 # below 10 dB HR, and its iteration (tests/test_torch_multires.py::
 # test_stop_rule_freezes_like_jax)
 MR_SDR_FROZEN = {40: 25}
+
+# the object tree: scarlet's quickstart recipe (examples/quickstart.py:
+# 22-36) on generated blends of hsc_cosmos_35's size (5 bands, 58 x 48, 7
+# sources), OT_BLENDS in turn after a warm-up; a large scene; the card
+# against the CPU on two of them (losses over OT_CPU_ITERS iterations)
+OT_BLENDS, OT_SEED, OT_SHAPE, OT_SOURCES = 16, 11, (5, 58, 48), 7
+OT_MAX_ITER, OT_E_REL, OT_PROFILE_ITERS = 100, 1e-4, 20
+OT_LARGE_SHAPE, OT_LARGE_SOURCES, OT_LARGE_ITERS = (5, 128, 128), 24, 100
+# the large scene's busy share from a short window: the profiler's own
+# cost grows with its ~6,000 launches per iteration
+OT_LARGE_PROFILE_ITERS = 5
+OT_BOXES = (21, 31, 41)
+# boxes beyond the register-tap kernel (mono_kernel_wide): a grown fit box
+# (81), the large scene's whole-frame seed projections (128), and planes
+# that do not fit in shared memory (150: the workspace route)
+OT_WIDE_BOXES = (81, 128, 150)
+OT_CPU_BLENDS, OT_CPU_ITERS = (1, 2), 20
+OT_CPU_RTOL = 1e-4      # losses, card vs CPU
+OT_START_RTOL = 1e-5    # the first loss: the init's spectra (renders)
+# the CPU's own spread from the quickstart's start: the largest difference
+# between any two of its runs on the images and on the images times
+# (1 + OT_PERTURB * N(0, 1)), one run per seed; the card may part from the
+# CPU by OT_WITNESS_FACTOR times that spread where it exceeds OT_CPU_RTOL
+OT_PERTURB, OT_WITNESS_SEEDS, OT_WITNESS_FACTOR = 1e-7, (0, 1, 2, 3), 3.0
 
 REPLACES = {
     "monotonic_prox": "scarlet_tpu/ops/pallas_kernels.py:204",
@@ -265,27 +307,47 @@ def time_ms(fn, reps):
     return float(np.median(times))
 
 
-def device_ms_all(fn, reps=20):
-    """Device ms per call of all the kernels ``fn`` launches, summed, over
-    ``reps`` calls (``torch.profiler``), after a warm-up call; and the
-    kernels per call.  For calls of several short kernels, whose CUDA
-    event times the host's launch gaps swing."""
+# attempts of a profiled window: the profiler has come back without any
+# kernel event (CUDA activity alone) now and then
+PROFILE_TRIES = 5
+
+
+def kernel_events(fn, reps, key=None):
+    """Device kernel events of ``reps`` calls of ``fn`` under
+    ``torch.profiler`` (host and device activity), after a warm-up call;
+    with ``key``, those whose name holds it.  Raises if the profiler
+    records none in PROFILE_TRIES windows."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):     # the profiler has come back empty-handed once
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        kern = [e.time_range.elapsed_us() for e in prof.events()
-                if e.device_type == DeviceType.CUDA]
+        kern = [e for e in prof.events()
+                if e.device_type == DeviceType.CUDA
+                and not e.is_user_annotation
+                and (key is None or key in e.name)]
         if kern:
-            return sum(kern) / reps / 1e3, len(kern) / reps
-    raise AssertionError("the profiler recorded no kernel")
+            return kern
+        time.sleep(1.0)
+    raise AssertionError(f"the profiler recorded no {key or 'kernel'} "
+                         f"launch in {PROFILE_TRIES} windows")
+
+
+def device_ms_all(fn, reps=20):
+    """Device ms per call of all the kernels ``fn`` launches, summed, over
+    ``reps`` calls (``torch.profiler``), after a warm-up call; and the
+    kernels per call.  For calls of several short kernels, whose CUDA
+    event times the host's launch gaps swing."""
+    kern = kernel_events(fn, reps)
+    return (sum(e.time_range.elapsed_us() for e in kern) / reps / 1e3,
+            len(kern) / reps)
 
 
 def device_ms(fn, key, reps=20):
@@ -293,22 +355,8 @@ def device_ms(fn, key, reps=20):
     over ``reps`` runs of ``fn`` (``torch.profiler``), after a warm-up run:
     the kernel's own time, without the host's launch gaps that CUDA events
     around a call of a few tens of microseconds also count."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):     # the profiler has come back empty-handed once
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        times = [e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA and key in e.name]
-        if times:
-            return float(np.median(times)) / 1e3
-    raise AssertionError(f"the profiler recorded no {key} launch")
+    kern = kernel_events(fn, reps, key)
+    return float(np.median([e.time_range.elapsed_us() for e in kern])) / 1e3
 
 
 def in_scene_pixels(origins, on, hb, wb, H, W):
@@ -2478,6 +2526,464 @@ def multires_phase(dev, card):
     return counts, checks, summary
 
 
+# ---------------------------------------------------------------------------
+# the object tree: scarlet's quickstart (examples/quickstart.py:22-36)
+# ---------------------------------------------------------------------------
+def ot_blends(n=OT_BLENDS, seed=OT_SEED, shape=OT_SHAPE, n_sources=OT_SOURCES):
+    from scarlet_tpu_torch.testing import generate_blend
+
+    rng = np.random.default_rng(seed)
+    return [generate_blend(rng, shape=shape, n_sources=n_sources)
+            for _ in range(n)]
+
+
+def ot_setup(d, dev, set_spectra=True, perturb=None):
+    """The quickstart's frame, observation and ``init_all_sources`` on
+    ``dev``; with ``perturb`` (a seed), the images times (1 + OT_PERTURB
+    * N(0, 1)).  Returns a dict with the init's seconds (host clock,
+    synchronized)."""
+    import torch
+    from scarlet_tpu_torch import initialization, models
+
+    ch = list(d["filters"])
+    images = d["images"].astype(np.float64)
+    if perturb is not None:
+        images *= 1 + OT_PERTURB * np.random.default_rng(
+            perturb).standard_normal(images.shape)
+    images = images.astype(np.float32)
+    frame = models.Frame(images.shape, channels=ch,
+                         psf=models.GaussianPSF(sigma=0.8, boxsize=15))
+    obs = models.Observation(
+        images, ch, psf=models.ImagePSF(d["psfs"]),
+        weights=(1 / d["variance"]).astype(np.float32),
+        device=dev).match(frame)
+    centers = [(float(r["y"]), float(r["x"])) for r in d["catalog"]]
+    t0 = time.perf_counter()
+    sources, skipped = initialization.init_all_sources(
+        frame, centers, obs, max_components=2, min_snr=30, silent=True,
+        set_spectra=set_spectra)
+    if obs.device.type == "cuda":
+        torch.cuda.synchronize()
+    return dict(frame=frame, obs=obs, sources=sources, skipped=skipped,
+                init_s=time.perf_counter() - t0)
+
+
+def ot_decisions(s):
+    """The init's discrete decisions: source kinds, component counts,
+    boxes and skipped centers."""
+    return ([type(x).__name__ for x in s["sources"]],
+            [len(x.children) if type(x).__name__ == "MultiExtendedSource"
+             else 1 for x in s["sources"]],
+            [(tuple(x.bbox.shape), tuple(x.bbox.origin))
+             for x in s["sources"]], list(s["skipped"]))
+
+
+def ot_fit(s, n_iter=OT_MAX_ITER, e_rel=OT_E_REL):
+    """``Blend(sources, obs).fit``; returns the blend and its seconds."""
+    import torch
+    from scarlet_tpu_torch import models
+
+    blend = models.Blend(s["sources"], s["obs"])
+    t0 = time.perf_counter()
+    blend.fit(n_iter, e_rel=e_rel)
+    if s["obs"].device.type == "cuda":
+        torch.cuda.synchronize()
+    return blend, time.perf_counter() - t0
+
+
+def ot_chi2(s, blend):
+    """chi2 per pixel of the fitted model rendered into the observation."""
+    obs = s["obs"]
+    model = obs.render(blend.get_model())
+    return float((obs.weights * (obs.data - model) ** 2).mean())
+
+
+def ot_profile(blend, n_iter=OT_PROFILE_ITERS):
+    """``n_iter`` more iterations of ``blend``'s fit under
+    ``torch.profiler``: device busy share of the wall, kernel launches per
+    iteration, K1's device ms and launches per iteration."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    start = len(blend.loss)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        blend.fit(start + n_iter, e_rel=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n = len(blend.loss) - start
+    kern, busy_us, window_us = device_busy(prof)
+    k1 = [e for e in kern if "mono_kernel" in e.name]
+    return dict(iterations=n, wall_ms_per_iteration=wall * 1e3 / n,
+                busy_share=busy_us / 1e6 / wall,
+                idle_share_of_span=1.0 - busy_us / window_us,
+                device_ms_per_iteration=busy_us / 1e3 / n,
+                launches_per_iteration=len(kern) / n,
+                k1_launches_per_iteration=len(k1) / n,
+                k1_ms_per_iteration=sum(e.time_range.elapsed_us()
+                                        for e in k1) / 1e3 / n)
+
+
+def ot_kernel_checks(dev, card):
+    """K1 against its plain version at the object tree's shapes: one
+    (1, 1, S, S) morphology per call, S in OT_BOXES, "angle" and "flat"
+    tables at min_gradient 0 and 0.1, and the fit_center_radius=1
+    candidate table (its index picked on the device); bit for bit; S in
+    OT_WIDE_BOXES on ``mono_kernel_wide``.  The angle table at 0 and, for
+    S in OT_BOXES, the candidate table are timed (profiler device time;
+    the plain version with CUDA events)."""
+    import torch
+    from scarlet_tpu_torch import models
+    from scarlet_tpu_torch.ops import kernels as kn
+    from scarlet_tpu_torch.ops import prox
+
+    gen = torch.Generator().manual_seed(SEED)
+    out = []
+    for S in OT_BOXES + OT_WIDE_BOXES:
+        yy, xx = torch.meshgrid(torch.arange(S), torch.arange(S),
+                                indexing="ij")
+        c = S // 2
+        prof = torch.exp(-((yy - c) ** 2 + (xx - c + 1) ** 2) / (S / 3.0))
+        x = (prof + 0.05 * torch.randn((S, S), generator=gen)).float()
+        x[c - 1, c + 1] = 2.0                 # the peak on the window's edge
+        x = x.to(dev)[None, None].contiguous()
+        fc = models.MonotonicityConstraint("angle", 0.0, fit_center_radius=1)
+        cases = [(nw, mg, [(c, c)], None) for nw in ("angle", "flat")
+                 for mg in (0.0, 0.1)]
+        cases.append(("angle", 0.0, fc.candidates((S, S)),
+                      fc.candidate_index(x[0, 0])))
+        for nw, mg, centers, idx in cases:
+            wt, kt, depth, idx0 = prox.device_tables(
+                (S, S), nw, centers, dev, torch.float32)
+            idx = idx0 if idx is None else idx.to(torch.int32)
+
+            def k1(f):
+                return f(x, idx, wt, kt, depth, mg, tol=0.0)
+
+            wide = kn.launch_counts()["monotonic_prox_wide"]
+            err = float((k1(kn.monotonic_prox)
+                         - k1(kn.monotonic_prox_plain)).abs().max())
+            wide = kn.launch_counts()["monotonic_prox_wide"] > wide
+            if wide != (S in OT_WIDE_BOXES):
+                raise AssertionError(f"K1 at ({S}, {S}) ran the "
+                                     f"{'wide' if wide else 'register'} "
+                                     "kernel")
+            table = nw if len(centers) == 1 else \
+                f"{nw}, {len(centers)} candidates"
+            rec = dict(S=S, table=table, min_gradient=mg, n_iter=depth,
+                       max_abs_err=err,
+                       kernel="mono_kernel_wide" if wide else "mono_kernel",
+                       workspace=bool(wide and kn.mono_wide_workspace(S, S)))
+            if err != 0.0:
+                raise AssertionError(f"K1 at ({S}, {S}) {table} mg {mg} "
+                                     f"differs from its plain version by "
+                                     f"{err}")
+            # timed: the angle table at 0, and on the register kernel the
+            # candidate table too (each timing runs the profiler anew)
+            if mg == 0.0 and nw == "angle" and (len(centers) == 1
+                                                or S in OT_BOXES):
+                passes = mono_passes_run(x, idx, wt, kt, depth, 0.0)
+                rec.update(
+                    **bound(2 * nbytes(x) + nbytes(idx, wt, kt),
+                            mono_ops(passes, idx, wt)),
+                    passes=int(passes.max()),
+                    ms=device_ms(lambda: k1(kn.monotonic_prox),
+                                 "mono_kernel"),
+                    plain_ms=time_ms(lambda: k1(kn.monotonic_prox_plain), 5))
+                log(f"kernel monotonic_prox at the object tree's shapes "
+                    f"(1, 1, {S}, {S}) {table} ({rec['kernel']}"
+                    f"{', planes in device memory' if rec['workspace'] else ''}"
+                    f"): bit for bit, kernel "
+                    f"{rec['ms']:.4f} ms device, plain {rec['plain_ms']:.4f} "
+                    f"ms, bound {rec['bound_ms']:.6f} ms by "
+                    f"{rec['bound_by']} at {rec['passes']} passes, on {card}")
+            out.append(rec)
+    log(f"K1 at the object tree's shapes: {len(out)} cases bit for bit "
+        f"(S {OT_BOXES} and, on mono_kernel_wide, {OT_WIDE_BOXES}; "
+        f"angle/flat, min_gradient 0/0.1, 9-candidate table)")
+    return out
+
+
+def ot_cpu_run(job):
+    """One CPU run for :func:`ot_card_vs_cpu`, in a worker process (one
+    thread): ``("blend", i, set_spectra, n_iter, perturb)`` gives the
+    init decisions and losses of blend ``i`` of the cell; ``("galaxy",)``
+    the losses and boxes of ``testing.large_galaxy_fit``."""
+    import torch
+
+    torch.set_num_threads(1)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if job[0] == "galaxy":
+        from scarlet_tpu_torch.testing import large_galaxy_fit
+
+        blend, boxes = large_galaxy_fit("cpu")
+        return boxes, np.array(blend.loss)
+    _, i, set_spectra, n_iter, perturb = job
+    s = ot_setup(ot_blends(i + 1)[i], "cpu", set_spectra, perturb)
+    blend, _ = ot_fit(s, n_iter, e_rel=0)
+    return ot_decisions(s), np.array(blend.loss)
+
+
+def ot_card_vs_cpu(dev, blends, card):
+    """OT_CPU_BLENDS of the cell and the large galaxy on the card and the
+    CPU (the CPU runs in worker processes while the card runs).
+
+    Per blend: the init decisions equal and the first loss within
+    OT_START_RTOL.  From the quickstart's start (spectra at their joint
+    least-squares optimum, where float32 roundoff is amplified), the
+    losses of OT_CPU_ITERS iterations, at each iteration, within the
+    larger of OT_CPU_RTOL and OT_WITNESS_FACTOR times the CPU's own
+    spread so far (the largest difference between two of its runs, on
+    the images and on the images perturbed with each of
+    OT_WITNESS_SEEDS): before the amplification begins this is
+    OT_CPU_RTOL.  From the init without the spectrum solve the losses
+    within OT_CPU_RTOL.  The large galaxy (``testing.large_galaxy_fit``,
+    its box grown past 73 pixels, K1 on ``mono_kernel_wide``): the boxes
+    after each step equal, the losses within OT_CPU_RTOL."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+    from scarlet_tpu_torch.ops import kernels as kn
+    from scarlet_tpu_torch.testing import large_galaxy_fit
+
+    jobs = [("galaxy",)]
+    for i in OT_CPU_BLENDS:
+        jobs += [("blend", i, True, OT_CPU_ITERS, None),
+                 ("blend", i, False, OT_CPU_ITERS, None)]
+        jobs += [("blend", i, True, OT_CPU_ITERS, p)
+                 for p in OT_WITNESS_SEEDS]
+    workers = max(1, min(len(jobs), (os.cpu_count() or 2) - 1))
+    with ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        futures = {job: pool.submit(ot_cpu_run, job) for job in jobs}
+        card_runs = {}
+        for i in OT_CPU_BLENDS:
+            for set_spectra in (True, False):
+                s = ot_setup(blends[i], dev, set_spectra=set_spectra)
+                blend, _ = ot_fit(s, OT_CPU_ITERS, e_rel=0)
+                card_runs[i, set_spectra] = (ot_decisions(s),
+                                             np.array(blend.loss))
+        kn.reset_launch_counts()
+        galaxy, galaxy_boxes = large_galaxy_fit(dev)
+        torch.cuda.synchronize()
+        galaxy_wide = kn.launch_counts()["monotonic_prox_wide"]
+        cpu = {job: f.result(timeout=900) for job, f in futures.items()}
+
+    out = dict(blends={})
+    for i in OT_CPU_BLENDS:
+        rec = out["blends"][i] = {}
+        for set_spectra in (True, False):
+            dc, lc = card_runs[i, set_spectra]
+            dh, lh = cpu["blend", i, set_spectra, OT_CPU_ITERS, None]
+            if dc != dh:
+                raise AssertionError(f"blend {i}: card and CPU init "
+                                     f"decisions differ: {dc} / {dh}")
+            if abs(lc[0] - lh[0]) > OT_START_RTOL * abs(lh[0]):
+                raise AssertionError(f"blend {i}: first loss card {lc[0]} "
+                                     f"CPU {lh[0]}")
+            rel = np.abs(lc - lh) / np.abs(lh)
+            if not set_spectra:
+                rec["no_solve_max_rel"] = float(rel.max())
+                if rel.max() > OT_CPU_RTOL:
+                    raise AssertionError(
+                        f"blend {i}: card and CPU losses part by "
+                        f"{rel.max()} (> {OT_CPU_RTOL}) from the init "
+                        "without the spectrum solve")
+                continue
+            runs = [lh] + [cpu["blend", i, True, OT_CPU_ITERS, p][1]
+                           for p in OT_WITNESS_SEEDS]
+            spread = np.zeros_like(rel)
+            for a in range(len(runs)):
+                for b in range(a):
+                    spread = np.maximum(
+                        spread, np.abs(runs[a] - runs[b]) / np.abs(lh))
+            rec["witness_max_rel"] = [float(np.max(np.abs(r - lh)
+                                                   / np.abs(lh)))
+                                      for r in runs[1:]]
+            rec["spread_iteration_1"] = float(spread[1])
+            rec["card_iteration_1"] = float(rel[1])
+            limit = np.maximum(OT_CPU_RTOL, OT_WITNESS_FACTOR
+                               * np.maximum.accumulate(spread))
+            over = np.flatnonzero(rel > limit)
+            amplified = np.flatnonzero(spread > OT_CPU_RTOL)
+            start = int(amplified[0]) if amplified.size else len(rel)
+            rec.update(quickstart_max_rel=float(rel.max()),
+                       quickstart_rel_before_amplification=float(
+                           rel[:start].max()) if start else None,
+                       amplification_iteration=start)
+            if over.size:
+                t = int(over[0])
+                raise AssertionError(
+                    f"blend {i}: card and CPU losses part by {rel[t]} at "
+                    f"iteration {t}, over {limit[t]} (the larger of "
+                    f"{OT_CPU_RTOL} and {OT_WITNESS_FACTOR} x the CPU's "
+                    f"own spread {spread[:t + 1].max()})")
+    boxes_h, loss_h = cpu["galaxy",]
+    rel = float(np.max(np.abs(np.array(galaxy.loss) - loss_h)
+                       / np.abs(loss_h)))
+    out["galaxy"] = dict(boxes=[list(b) for b in galaxy_boxes],
+                         k1_wide_launches=int(galaxy_wide), max_rel=rel)
+    if galaxy_boxes != boxes_h or max(galaxy_boxes[-1]) <= 73:
+        raise AssertionError(f"large galaxy boxes card {galaxy_boxes} CPU "
+                             f"{boxes_h}")
+    if galaxy_wide == 0:
+        raise AssertionError("the large galaxy's fit launched no "
+                             "mono_kernel_wide")
+    if rel > OT_CPU_RTOL:
+        raise AssertionError(f"large galaxy: card and CPU losses part by "
+                             f"{rel} (> {OT_CPU_RTOL})")
+    for i, rec in out["blends"].items():
+        log(f"object tree card vs CPU, blend {i}: init decisions equal, "
+            f"first loss within {OT_START_RTOL}; {OT_CPU_ITERS} iterations "
+            f"from the quickstart start: max rel "
+            f"{rec['quickstart_max_rel']:.3g} (the CPU against itself on "
+            f"perturbed images, seeds {list(OT_WITNESS_SEEDS)}: "
+            f"{[float(f'{w:.3g}') for w in rec['witness_max_rel']]}; at "
+            f"iteration 1 the card {rec['card_iteration_1']:.3g}, the "
+            f"CPU's runs {rec['spread_iteration_1']:.3g} apart at most; "
+            f"amplified past {OT_CPU_RTOL} from iteration "
+            f"{rec['amplification_iteration']}, card vs CPU before it "
+            f"{rec['quickstart_rel_before_amplification']}); from the init "
+            f"without the spectrum solve: max rel "
+            f"{rec['no_solve_max_rel']:.3g} (limit {OT_CPU_RTOL}), on {card}")
+    g = out["galaxy"]
+    log(f"object tree large galaxy (box grown past 73): boxes {g['boxes']} "
+        f"on the card and the CPU, {g['k1_wide_launches']} mono_kernel_wide "
+        f"launches, losses max rel {g['max_rel']:.3g} (limit {OT_CPU_RTOL}), "
+        f"on {card}")
+    return out
+
+
+def object_tree_phase(dev, card):
+    """The object tree on the card: K1 at its shapes, the quickstart cell
+    (OT_BLENDS blends in turn, one warm-up first), a profile of 20
+    iterations, the large scene, the card against the CPU.  Returns (the
+    cell's launch counts, K1's checks, summary)."""
+    import torch
+    from scarlet_tpu_torch import measure
+    from scarlet_tpu_torch.ops import kernels as kn
+
+    t_phase = time.perf_counter()
+    checks = ot_kernel_checks(dev, card)
+    parts = dict(kernel_checks=time.perf_counter() - t_phase)
+    blends = ot_blends()
+    ot_fit(ot_setup(blends[0], dev))           # warm-up
+
+    kn.reset_launch_counts()
+    t0 = time.perf_counter()
+    recs = []
+    for d in blends:
+        s = ot_setup(d, dev)
+        blend, fit_s = ot_fit(s)
+        flux = np.array([measure.flux(src) for src in s["sources"]])
+        recs.append(dict(
+            iterations=len(blend.loss), init_s=s["init_s"], fit_s=fit_s,
+            ms_per_iteration=fit_s * 1e3 / len(blend.loss),
+            logL_start=float(blend.log_likelihood[0]),
+            logL_end=float(blend.log_likelihood[-1]),
+            chi2_dof=ot_chi2(s, blend), sources=len(s["sources"]),
+            components=sum(ot_decisions(s)[1]), skipped=len(s["skipped"]),
+            flux_finite=bool(np.all(np.isfinite(flux)))))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kn.launch_counts()
+    bad = [i for i, r in enumerate(recs)
+           if not (r["flux_finite"] and np.isfinite(r["logL_end"])
+                   and r["logL_end"] > r["logL_start"])]
+    if bad:
+        raise AssertionError(f"object tree blends {bad}: flux or logL not "
+                             "finite, or logL not improved")
+    if counts["monotonic_prox"] == 0:
+        raise AssertionError("the object tree's fit launched no K1")
+    its = sum(r["iterations"] for r in recs)
+    chi2 = [r["chi2_dof"] for r in recs]
+    if np.median(chi2) > 2.0:
+        raise AssertionError(f"object tree chi2/dof median {np.median(chi2)}")
+    summary = dict(
+        blends=len(recs), blends_per_min=len(recs) * 60.0 / wall,
+        wall_s=wall, init_s_per_blend=float(np.mean(
+            [r["init_s"] for r in recs])),
+        median_iterations=float(np.median([r["iterations"] for r in recs])),
+        ms_per_iteration=float(np.median([r["ms_per_iteration"]
+                                          for r in recs])),
+        chi2_dof_median=float(np.median(chi2)),
+        chi2_dof_range=[float(min(chi2)), float(max(chi2))],
+        logL_start_median=float(np.median([r["logL_start"] for r in recs])),
+        logL_end_median=float(np.median([r["logL_end"] for r in recs])),
+        components=[r["components"] for r in recs],
+        k1_launches=int(counts["monotonic_prox"]),
+        k1_launches_per_iteration=counts["monotonic_prox"] / its)
+    log(f"object tree quickstart cell, {len(recs)} blends {OT_SHAPE} x "
+        f"{OT_SOURCES} sources: {summary['blends_per_min']:.1f} blends/min "
+        f"(wall {wall:.2f} s), init {summary['init_s_per_blend']:.3f} s per "
+        f"blend, median {summary['median_iterations']:.0f} iterations, "
+        f"{summary['ms_per_iteration']:.2f} ms per iteration, chi2/dof "
+        f"median {summary['chi2_dof_median']:.4f} "
+        f"({summary['chi2_dof_range'][0]:.4f}..{summary['chi2_dof_range'][1]:.4f}), "
+        f"logL median {summary['logL_start_median']:.1f} -> "
+        f"{summary['logL_end_median']:.1f}, K1 {counts['monotonic_prox']} "
+        f"launches ({summary['k1_launches_per_iteration']:.1f} per "
+        f"iteration), on {card}")
+
+    parts["cell"] = time.perf_counter() - t_phase - sum(parts.values())
+    s = ot_setup(blends[1], dev)
+    blend, _ = ot_fit(s, 2, e_rel=0)
+    summary["profile"] = ot_profile(blend)
+    p = summary["profile"]
+    log(f"object tree profile of {p['iterations']} iterations: "
+        f"{p['wall_ms_per_iteration']:.2f} ms per iteration, device busy "
+        f"{100 * p['busy_share']:.1f}% of the wall ({p['device_ms_per_iteration']:.3f} "
+        f"ms per iteration; idle {100 * p['idle_share_of_span']:.1f}% of "
+        f"the kernels' span), {p['launches_per_iteration']:.1f} launches "
+        f"per iteration, K1 {p['k1_launches_per_iteration']:.1f} launches "
+        f"and {p['k1_ms_per_iteration']:.4f} ms per iteration, on {card}")
+
+    large = ot_blends(1, OT_SEED + 1, OT_LARGE_SHAPE, OT_LARGE_SOURCES)[0]
+    kn.reset_launch_counts()
+    s = ot_setup(large, dev)
+    torch.cuda.reset_peak_memory_stats()
+    blend, fit_s = ot_fit(s, OT_LARGE_ITERS, e_rel=0)
+    large_counts = kn.launch_counts()
+    prof = ot_profile(blend, OT_LARGE_PROFILE_ITERS)
+    summary["large"] = dict(
+        shape=list(OT_LARGE_SHAPE), sources=len(s["sources"]),
+        components=sum(ot_decisions(s)[1]), init_s=s["init_s"],
+        iterations=OT_LARGE_ITERS,
+        ms_per_iteration=fit_s * 1e3 / OT_LARGE_ITERS,
+        busy_share=prof["busy_share"],
+        launches_per_iteration=prof["launches_per_iteration"],
+        peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20,
+        k1_launches=int(large_counts["monotonic_prox"]),
+        k1_wide_launches=int(large_counts["monotonic_prox_wide"]),
+        chi2_dof=ot_chi2(s, blend),
+        logL=[float(blend.log_likelihood[0]),
+              float(blend.log_likelihood[-1])])
+    lg = summary["large"]
+    if not (np.isfinite(lg["logL"][1]) and lg["logL"][1] > lg["logL"][0]):
+        raise AssertionError(f"large scene logL {lg['logL']}")
+    log(f"object tree large scene {OT_LARGE_SHAPE} x {lg['sources']} "
+        f"sources ({lg['components']} components): "
+        f"{lg['ms_per_iteration']:.2f} ms per iteration over "
+        f"{OT_LARGE_ITERS}, device busy {100 * lg['busy_share']:.1f}% (a "
+        f"profile of {OT_LARGE_PROFILE_ITERS} more), "
+        f"{lg['launches_per_iteration']:.1f} launches per iteration, K1 "
+        f"{lg['k1_launches']} launches over init and fit "
+        f"({lg['k1_wide_launches']} on mono_kernel_wide), peak "
+        f"{lg['peak_mib']:.1f} MiB, init {lg['init_s']:.2f} s, chi2/dof "
+        f"{lg['chi2_dof']:.4f}, on {card}")
+
+    parts["profile_and_large"] = time.perf_counter() - t_phase \
+        - sum(parts.values())
+    summary["card_vs_cpu"] = ot_card_vs_cpu(dev, blends, card)
+    parts["card_vs_cpu"] = time.perf_counter() - t_phase - sum(parts.values())
+    summary["phase_s"] = time.perf_counter() - t_phase
+    summary["phase_parts_s"] = parts
+    return counts, checks, summary
+
+
 def main():
     import torch
 
@@ -2578,6 +3084,13 @@ def main():
         kres[name]["multires_shapes"] = {
             label: res[name] for label, res in mr_checks.items()}
         kres[name]["launches_multires"] = int(mr_counts[name])
+
+    # the object tree (scarlet's quickstart): K1 counted over the cell
+    ot_counts, ot_checks, ot_summary = object_tree_phase(dev, card)
+    log(f"object tree summary: {json.dumps(ot_summary)}")
+    kres["monotonic_prox"]["object_tree_shapes"] = ot_checks
+    kres["monotonic_prox"]["launches_object_tree"] = \
+        int(ot_counts["monotonic_prox"])
 
     # each kernel's launches from the run of the path that drives it:
     # K1, K3 and K4 from one device-stream run, K5 and K6 from the fit of

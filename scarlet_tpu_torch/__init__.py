@@ -26,8 +26,20 @@ Main path::
     # several instruments at different resolutions (models.Observation
     # with a WCS each, models.Frame.from_observations):
     fitter = parallel.MultiResFitter(observations, box_size=31)
+
+The object tree (scarlet's quickstart)::
+
+    frame = models.Frame(images.shape, channels, psf=models.GaussianPSF(0.8))
+    obs = models.Observation(images, channels, psf=models.ImagePSF(psfs),
+                             weights=weights).match(frame)
+    sources, skipped = initialization.init_all_sources(
+        frame, centers, obs, max_components=2, min_snr=30, silent=True)
+    models.Blend(sources, obs).fit(100, e_rel=1e-4)
+    fluxes = [measure.flux(s) for s in sources]
 """
-from . import lite, models, parallel, testing, utils  # noqa: F401
+from . import (  # noqa: F401
+    initialization, lite, measure, models, operator, parallel, testing,
+    utils)
 from .bbox import Box  # noqa: F401
 
 __version__ = "0.1.0"

@@ -28,7 +28,7 @@ from .device import default_device
 from .lite import engine
 from .optim import AdaproxState, FistaState
 
-__all__ = ["from_jax", "observations_from_jax"]
+__all__ = ["from_jax", "observations_from_jax", "sources_from_jax"]
 
 
 def _get(obj, name):
@@ -137,3 +137,126 @@ def observations_from_jax(observations, device=None):
                                psf=psf, weights=np.array(obs.weights),
                                wcs=wcs, device=device))
     return out
+
+
+def _step(step):
+    """The port's step rule of a JAX package step: a number, the JAX
+    ``relative_step`` or a ``partial`` of it (its arrays as numpy)."""
+    from functools import partial
+
+    from .models.parameter import relative_step
+
+    if not callable(step):
+        return step if step is None else float(step)
+    if isinstance(step, partial):
+        assert step.func.__name__ == "relative_step", step
+        return partial(relative_step, *step.args, **{
+            k: np.array(v) if np.ndim(v) else v
+            for k, v in step.keywords.items()})
+    assert step.__name__ == "relative_step", step
+    return relative_step
+
+
+def _box(b):
+    from .bbox import Box
+
+    return Box(tuple(b.shape), origin=tuple(b.origin))
+
+
+def _copy_param(dst, src, device):
+    """Carry the JAX Parameter ``src``'s value, moments, fixed flag and
+    step onto the port's ``dst``."""
+    from .models.parameter import place
+
+    for key in ("value", "m", "v", "vhat"):
+        x = getattr(src, key)
+        setattr(dst, key, None if x is None else place(np.array(x), device))
+    dst.fixed = bool(src.fixed)
+    dst.step = _step(src.step)
+    return dst
+
+
+def _morphology(m, frame):
+    """The port's morphology of the JAX package's ``m`` (by class name)."""
+    from . import models
+
+    kind = type(m).__name__
+    p = {q.name: np.array(q.value) for q in m.parameters}
+    if kind == "ExtendedSourceMorphology":
+        chain = m.parameters[0].constraint.constraints
+        mono = next((c for c in chain
+                     if type(c).__name__ == "MonotonicityConstraint"), None)
+        symmetric = any(type(c).__name__ == "SymmetryConstraint"
+                        for c in chain)
+        center = np.asarray(m.pixel_center, float)
+        if m.shift is not None:
+            center = center + np.array(m.shift.value)
+        out = models.ExtendedSourceMorphology(
+            frame, center, p["image"], bbox=_box(m.bbox),
+            monotonic=None if mono is None else mono.neighbor_weight,
+            symmetric=symmetric,
+            min_grad=0 if mono is None else mono.min_gradient,
+            shifting=m.shifting, resizing=m.resizing)
+        if mono is not None:
+            port_mono = out.parameters[0].constraint.constraints[0]
+            port_mono.use_mask = mono.use_mask
+            port_mono.fit_center = mono.fit_center
+            port_mono.fit_center_radius = mono.fit_center_radius
+        return out
+    if kind == "ImageMorphology":
+        return models.ImageMorphology(
+            frame, p["image"], bbox=_box(m.bbox), shifting=m.shifting,
+            shift=p["shift"] if m.shifting else None, resizing=m.resizing)
+    if kind == "GaussianMorphology":
+        return models.GaussianMorphology(frame, p["center"], p["radius"],
+                                         ellipticity=p["ellipticity"],
+                                         boxsize=m.bbox.shape[-1])
+    if kind == "SpergelMorphology":
+        return models.SpergelMorphology(frame, p["center"], p["nu"],
+                                        p["radius"],
+                                        ellipticity=p["ellipticity"],
+                                        boxsize=m.bbox.shape[-1])
+    if kind == "PointSourceMorphology":
+        return models.PointSourceMorphology(frame, p["center"])
+    raise TypeError(f"sources_from_jax: no port of morphology {kind}")
+
+
+def _component(c, frame, device):
+    """The port's component of the JAX package's ``c``: a factorized
+    component (any source class of that kind) or a combined one."""
+    from .models import component, source, spectrum
+
+    kind = type(c).__name__
+    cls = getattr(source, kind, None) or getattr(component, kind)
+    obj = cls.__new__(cls)
+    if hasattr(c, "children") and type(c.children[0]).__name__ not in (
+            "TabulatedSpectrum",):
+        component.CombinedComponent.__init__(
+            obj, [_component(k, frame, device) for k in c.children],
+            operation=getattr(c, "operation", "add"))
+    else:
+        spec, morph = c.children
+        port_spec = spectrum.TabulatedSpectrum(
+            frame, np.array(spec.parameters[0].value))
+        port_morph = _morphology(morph, frame)
+        component.FactorizedComponent.__init__(obj, frame, port_spec,
+                                               port_morph)
+    for dst, src in zip(obj.parameters, c.parameters):
+        assert dst.name == src.name and dst.shape == tuple(
+            np.shape(src.value)), (dst, src)
+        _copy_param(dst, src, device)
+    if hasattr(c, "center"):
+        obj.center = np.array(c.center)
+    return obj
+
+
+def sources_from_jax(sources, frame, device=None):
+    """The port's sources of the JAX package's ``sources`` (read by duck
+    typing from host fields: class names, boxes, each Parameter's value,
+    float step, fixed flag and moments, each morphology's center, shift
+    and constraint settings), in the port's model ``frame``, with their
+    parameters on ``device`` (default: the CUDA card).  The port's
+    constructors supply the constraints and step rules, so both packages
+    fit from the same start."""
+    device = default_device(device)
+    return [_component(s, frame, device) for s in sources]

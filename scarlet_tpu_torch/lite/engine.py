@@ -69,7 +69,6 @@ __all__ = [
     "make_blend_data",
     "make_blend_state",
     "monotonicity_tables",
-    "shared_tensors",
 ]
 
 
@@ -272,35 +271,10 @@ def monotonicity_tables(box_shape, fit_center_radius=1,
         for dy in range(-r, r + 1)
         for dx in range(-r, r + 1)
     ] if r > 0 else [bc]
-
-    weights, keeps, n_iter = [], [], 0
-    for c in centers:
-        w = prox_ops.monotonic_weights(box_shape, neighbor_weight, c)
-        weights.append(w)
-        keep = np.zeros(box_shape, np.float32)
-        keep[c] = 1.0
-        keeps.append(keep)
-        n_iter = max(n_iter, prox_ops.monotonic_depth(w, box_shape, c))
-    out = (np.stack(weights), np.stack(keeps), n_iter)
+    weights, keeps, n_iter = prox_ops.monotonic_tables(
+        tuple(box_shape), neighbor_weight, centers)
+    out = (weights, keeps.astype(np.float32), n_iter)
     Cache.set("monotonicity_tables", key, out)
-    return out
-
-
-def shared_tensors(name, key, arrays, device):
-    """``arrays`` (host numpy) on ``device``, uploaded once per (name,
-    key, device) and shared by every caller: for read-only tables such as
-    the monotonicity tables, whose compact taps the projection kernel then
-    builds once (``ops.kernels``), not once per blend or chunk."""
-    from ..cache import Cache
-
-    k = (key, str(torch.device(device)))
-    try:
-        return Cache.check(name, k)
-    except KeyError:
-        pass
-    out = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                for a in arrays)
-    Cache.set(name, k, out)
     return out
 
 
@@ -348,9 +322,9 @@ def make_blend_data(images, weights, diff_kernel, bg_rms, config,
         key = (tuple(shape), config.fit_center_radius,
                config.neighbor_weight)
         w, keep, _ = monotonicity_tables(*key)
-        w, keep = shared_tensors(f"monotonicity_tables_{np_dtype}", key,
-                                 (w.astype(np_dtype), keep.astype(np_dtype)),
-                                 device)
+        w, keep = prox_ops.shared_tensors(
+            f"monotonicity_tables_{np_dtype}", key,
+            (w.astype(np_dtype), keep.astype(np_dtype)), device)
         mono_w.append(w)
         mono_keep.append(keep)
 

@@ -2,12 +2,18 @@
 a :class:`Model` owns :class:`~.parameter.Parameter` objects and child
 models; ``get_model(*parameters)`` evaluates the node with the stored
 values or with a flat tuple of tensors (autograd flows through those).
-The optimizer's ``update`` hook comes with the object tree."""
+``update()`` adjusts a model between fit segments and raises
+:class:`UpdateException` to restart the optimizer."""
 from __future__ import annotations
 
 from .parameter import Parameter
 
-__all__ = ["Model"]
+__all__ = ["Model", "UpdateException"]
+
+
+class UpdateException(Exception):
+    """Raised by ``Model.update()`` to interrupt and restart the optimizer
+    (e.g. after a box resize).  Ref: scarlet/model.py:7-8."""
 
 
 class Model:
@@ -37,6 +43,16 @@ class Model:
             p for c in self._children for p in c.parameters
         )
 
+    @property
+    def children(self):
+        return self._children
+
+    def __getitem__(self, i):
+        return self._children[i]
+
+    def __iter__(self):
+        return iter(self._children)
+
     def get_parameter(self, i, *parameters):
         """Parameter lookup by index, slice, or name: the matching value(s)
         of ``parameters`` when given, else of the stored parameters.  A
@@ -60,6 +76,21 @@ class Model:
     def get_model(self, *parameters, **kwargs):
         raise NotImplementedError
 
+    def get_models_of_children(self, *parameters, **kwargs):
+        """Evaluate all children, handing each its slice of
+        ``parameters``.  Ref: scarlet/model.py:127-151."""
+        models = []
+        if len(parameters):
+            i = len(self._parameters)
+            for c in self._children:
+                j = len(c.parameters)
+                models.append(c.get_model(*parameters[i:i + j], **kwargs))
+                i += j
+        else:
+            for c in self._children:
+                models.append(c.get_model(**kwargs))
+        return models
+
     def check_parameters(self):
         """Raise ``ArithmeticError`` on non-finite parameters.
         Ref: scarlet/model.py:153-165."""
@@ -69,3 +100,9 @@ class Model:
                     f"Model {self.__class__.__name__}, parameter '{p.name}' "
                     f"is not finite:\n{p.value}"
                 )
+
+    def update(self):
+        """Adjust model state outside the optimization forward path; raise
+        :class:`UpdateException` to interrupt the optimizer.
+        Ref: scarlet/model.py:167-177.
+        """

@@ -63,6 +63,14 @@ class FunctionPSF(PSF):
     def expand_dims(self, model):
         return model.reshape((1,) * self._d + tuple(model.shape))
 
+    def _grid(self, offset):
+        """The pixel grid minus ``offset`` (y, x), on the offset's device
+        when it is a tensor."""
+        if offset is None:
+            return self._Y, self._X
+        dev = offset.device if isinstance(offset, torch.Tensor) else None
+        return (self._Y.to(dev) - offset[0], self._X.to(dev) - offset[1])
+
 
 class GaussianPSF(FunctionPSF):
     """Circular Gaussian with exact pixel integration (erfc).
@@ -76,12 +84,10 @@ class GaussianPSF(FunctionPSF):
 
     def get_model(self, *parameters, offset=None):
         sigma = self.get_parameter(0, *parameters)
-        if offset is None:
-            offset = (0, 0)
+        Y, X = self._grid(offset)
 
         def one(s):
-            return (self._f(self._Y - offset[0], s)[:, None]
-                    * self._f(self._X - offset[1], s)[None, :])
+            return self._f(Y, s)[:, None] * self._f(X, s)[None, :]
 
         if self.is_same:
             psfs = self.expand_dims(one(sigma[0]))
@@ -124,9 +130,7 @@ class MoffatPSF(FunctionPSF):
     def get_model(self, *parameters, offset=None):
         alpha = self.get_parameter(0, *parameters)
         beta = self.get_parameter(1, *parameters)
-        if offset is None:
-            offset = (0, 0)
-        Y, X = self._Y - offset[0], self._X - offset[1]
+        Y, X = self._grid(offset)
 
         if self.is_same:
             psfs = self.expand_dims(self._f(Y, X, alpha[0], beta[0]))

@@ -109,6 +109,8 @@ def load():
     geom = [i] * 5 + [p]
     lib.scarlet_mono_prox.argtypes = [p] * 6 + [i] * 5 + [ll] * 4 + \
         [i, f, f, p] + geom
+    lib.scarlet_mono_prox_wide.argtypes = [p] * 6 + [i] * 5 + [ll] * 4 + \
+        [i, f, f, p, i, p, p]
     lib.scarlet_prox_chain.argtypes = [p] * 9 + [i] * 5 + [f] * 3 + geom
     lib.scarlet_fused_morph.argtypes = [p] * 12 + [i] * 6 + [f, i] + \
         [f] * 6 + [p] * 4 + geom
@@ -127,7 +129,8 @@ def load():
     lib.scarlet_mono_pass_variant_smem_bytes.argtypes = [i, i, i]
     lib.scarlet_error_string.argtypes = [i]
     lib.scarlet_error_string.restype = ctypes.c_char_p
-    for name in ("scarlet_mono_prox", "scarlet_mono_kernel_info",
+    for name in ("scarlet_mono_prox", "scarlet_mono_prox_wide",
+                 "scarlet_mono_kernel_info",
                  "scarlet_prox_chain", "scarlet_fused_morph",
                  "scarlet_scene_assembly", "scarlet_scene_kernel_info",
                  "scarlet_grad_gather",

@@ -73,6 +73,7 @@ __all__ = [
     "monotonic_prox_taps_plain",
     "MonoGeometry",
     "mono_geometry",
+    "mono_wide_workspace",
     "mono_kernel_info",
     "monotonic_prox_packed_plain",
     "prox_chain_plain",
@@ -273,6 +274,8 @@ def monotonic_prox_taps_plain(morphs, idx, taps, n_iter, min_gradient=0.0,
 MONO_SLOTS = (4, 8, 12)
 MONO_MAX_THREADS = 512
 SMEM_LIMIT = 232448       # bytes of shared memory a block can use (H100)
+# threads of K1's kernel for boxes beyond mono_geometry (csrc/mono.cu)
+MONO_WIDE_THREADS = 1024
 
 
 class MonoGeometry(NamedTuple):
@@ -303,6 +306,15 @@ def mono_geometry(hb, wb):
     raise ValueError(f"box ({hb}, {wb}) does not fit the projection "
                      f"kernels ({MONO_MAX_THREADS} threads of at most "
                      f"{MONO_SLOTS[-1]} pixels, {smem} B of shared memory)")
+
+
+def mono_wide_workspace(hb, wb):
+    """Whether K1's kernel for boxes beyond :func:`mono_geometry`
+    (``mono_kernel_wide``) keeps an (hb, wb) box's three zero-bordered
+    planes in device memory (a workspace of ``3 (hb+2) (wb+2)`` floats
+    per morphology) because they do not fit in a block's shared memory
+    (boxes above ~137 pixels a side)."""
+    return 3 * (hb + 2) * (wb + 2) * 4 > SMEM_LIMIT
 
 
 # device copies of the compact tables, per table tensor (built once)
@@ -349,7 +361,11 @@ def monotonic_prox(morphs, idx, weights_table, keep_table, n_iter,
     On the card the kernel reads the tables' nonzero taps
     (:func:`mono_taps`, built on the host once per table tensor), so each
     candidate needs exactly one keep pixel, and a neighbour with weight 0
-    is never read (inf/NaN: :func:`monotonic_prox_plain`).
+    is never read (inf/NaN: :func:`monotonic_prox_plain`).  Boxes that
+    :func:`mono_geometry` takes (up to 73 pixels a side) run
+    ``mono_kernel``, with the taps in registers; larger boxes run
+    ``mono_kernel_wide`` (:func:`mono_wide_workspace`), which gives the
+    same bits at any size.
     """
     _check_tol("monotonic_prox", tol, morphs.shape[:-3])
     if _is_cpu(morphs, idx, weights_table, keep_table, *_tol_tensor(tol)):
@@ -402,9 +418,11 @@ def monotonic_prox_packed(packed, idx, weights_table, keep_table, wb,
                         tol)
 
 
-def _tables_lib(name, weights_table, keep_table, hb, wb):
+def _tables_lib(name, weights_table, keep_table, hb, wb, wide=False):
     """Check the monotonicity tables and the box; returns (library,
-    ncand, the tables' taps on the device, the launch geometry)."""
+    ncand, the tables' taps on the device, the launch geometry).  With
+    ``wide``, a box beyond :func:`mono_geometry` gives the geometry
+    ``None`` (``mono_kernel_wide``) instead of raising."""
     _f32(name, weights_table, "weights_table")
     _f32(name, keep_table, "keep_table")
     ncand = weights_table.shape[0]
@@ -416,7 +434,9 @@ def _tables_lib(name, weights_table, keep_table, hb, wb):
     try:
         geom = mono_geometry(hb, wb)
     except ValueError as e:
-        raise ValueError(f"{name}: {e}") from None
+        if not wide:
+            raise ValueError(f"{name}: {e}") from None
+        geom = None
     taps = _device_taps(weights_table, keep_table)
     return build.load(), ncand, taps, geom
 
@@ -449,30 +469,44 @@ def _mono_launch(name, x, idx, weights_table, keep_table, K, hb, wb, strides,
                  n_iter, min_gradient, tol):
     _require_cuda(name, x, idx, weights_table, keep_table, *_tol_tensor(tol))
     lib, ncand, taps, geom = _tables_lib(name, weights_table, keep_table,
-                                         hb, wb)
+                                         hb, wb, wide=True)
     idx32 = idx.to(torch.int32).contiguous()
     B = x.numel() // (K * hb * wb)
     tols = tol.contiguous() if isinstance(tol, torch.Tensor) else None
     out = torch.empty_like(x)
     if B * K == 0:
         return out
-    tables, launch = _taps_args(taps, geom)
-    with torch.cuda.device(x.device):
-        err = lib.scarlet_mono_prox(
-            x.data_ptr(), out.data_ptr(), idx32.data_ptr(), *tables, ncand,
-            B, K, hb, wb, *strides, int(n_iter), 1.0 - float(min_gradient),
+    args = (x.data_ptr(), out.data_ptr(), idx32.data_ptr(),
+            taps.weights.data_ptr(), taps.codes.data_ptr(),
+            taps.centers.data_ptr(), ncand, B, K, hb, wb, *strides,
+            int(n_iter), 1.0 - float(min_gradient),
             0.0 if tols is not None else float(tol),
-            0 if tols is None else tols.data_ptr(), *launch, _stream(x))
+            0 if tols is None else tols.data_ptr())
+    with torch.cuda.device(x.device):
+        if geom is not None:
+            err = lib.scarlet_mono_prox(*args, *_taps_args(taps, geom)[1],
+                                        _stream(x))
+        else:
+            work = torch.empty(B * K * 3 * (hb + 2) * (wb + 2),
+                               dtype=torch.float32, device=x.device) \
+                if mono_wide_workspace(hb, wb) else None
+            err = lib.scarlet_mono_prox_wide(
+                *args, taps.T, 0 if work is None else work.data_ptr(),
+                _stream(x))
     _check(name, err)
     monotonic_prox.launches += 1
     if tols is not None:
         monotonic_prox.tol_tensor_launches += 1
+    if geom is None:
+        monotonic_prox.wide_launches += 1
     return out
 
 
 monotonic_prox.launches = 0
 # the launches among them that read a tolerance per blend
 monotonic_prox.tol_tensor_launches = 0
+# the launches among them of mono_kernel_wide (boxes beyond mono_geometry)
+monotonic_prox.wide_launches = 0
 
 _MONO_KERNELS = ("monotonic_prox", "prox_chain", "fused_morph_update")
 
@@ -1161,9 +1195,11 @@ def launch_counts():
     """Kernel launches since the last :func:`reset_launch_counts`
     (``monotonic_prox`` counts both of its layouts;
     ``monotonic_prox_tol_tensor`` those of its launches that read one
-    tolerance per blend)."""
+    tolerance per blend; ``monotonic_prox_wide`` those that ran
+    ``mono_kernel_wide``, for boxes beyond :func:`mono_geometry`)."""
     out = {f.__name__: f.launches for f in _COUNTED}
     out["monotonic_prox_tol_tensor"] = monotonic_prox.tol_tensor_launches
+    out["monotonic_prox_wide"] = monotonic_prox.wide_launches
     return out
 
 
@@ -1171,3 +1207,4 @@ def reset_launch_counts():
     for f in _COUNTED:
         f.launches = 0
     monotonic_prox.tol_tensor_launches = 0
+    monotonic_prox.wide_launches = 0

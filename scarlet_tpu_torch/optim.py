@@ -159,7 +159,8 @@ def adaprox_step(x, g, it, state, step, prox=None, scheme="amsgrad",
     phi, psi, new_state = phi_psi(scheme, it, g, state, b1, b2, eps, p)
 
     it_t = torch.as_tensor(it, device=x.device)
-    damp = torch.where(it_t > 0, 1.0, 0.1).to(x.dtype)
+    # 0.1 in x's precision (a 0-dim CPU operand: no copy to the device)
+    damp = torch.where(it_t > 0, 1.0, torch.tensor(0.1, dtype=x.dtype))
     x_new = x - damp * step * phi / psi
 
     if prox is not None:
@@ -171,9 +172,12 @@ def adaprox_step(x, g, it, state, step, prox=None, scheme="amsgrad",
         if max_prox_iter <= 1:
             x_new = prox(x_new, gamma)
         else:
+            # (gamma / step) * psi, the left operand of each sub-step's
+            # product, evaluated once: the same values in fewer launches
+            pull = gamma / step * psi
             z = x_new
             for _ in range(max_prox_iter):
-                z = prox(z - gamma / step * psi * (z - x_new), gamma)
+                z = prox(z - pull * (z - x_new), gamma)
             x_new = z
 
     if active is not None:

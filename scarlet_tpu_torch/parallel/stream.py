@@ -611,9 +611,9 @@ def stream_setup(images, variance, psfs, centers, model_psf, weights=None,
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     # the tables are uploaded once per box and device, not per chunk
-    w8, keep_c = engine.shared_tensors("stream_mono_center", S, (w8, keep_c),
-                                       device)
-    mono_w, mono_keep = engine.shared_tensors(
+    w8, keep_c = prox_ops.shared_tensors("stream_mono_center", S,
+                                         (w8, keep_c), device)
+    mono_w, mono_keep = prox_ops.shared_tensors(
         "monotonicity_tables_float32", ((S, S), 1, "angle"),
         (mono_w.astype(np.float32), mono_keep.astype(np.float32)), device)
     data_l, state_l, aux = _init_batch(

@@ -460,6 +460,63 @@ def test_monotonic_prox_tensor_tol_matches_plain(cuda, box):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("nw", ["angle", "flat"])
+@pytest.mark.parametrize("shape", [(1, 1, 81, 81), (1, 1, 101, 101),
+                                   (2, 3, 77, 130), (1, 2, 150, 150)])
+def test_monotonic_prox_wide_matches_plain(cuda, shape, nw):
+    """K1 on boxes beyond ``mono_geometry`` (more than 73 pixels a side:
+    the object tree's grown boxes and whole-frame seeds) runs
+    ``mono_kernel_wide``, its planes in shared memory (81, 101, 77 x 130)
+    or in a device-memory workspace (150), bit for bit against the plain
+    version: tol 0 at min_gradient 0 and 0.1, tol 1e-3, one tolerance
+    per blend, the packed layout (K2) and the 9-candidate table."""
+    B, K, hb, wb = shape
+    with pytest.raises(ValueError):
+        kn.mono_geometry(hb, wb)
+    assert kn.mono_wide_workspace(hb, wb) == (hb == 150)
+    w, keep, n_iter = engine.monotonicity_tables((hb, wb), 1, nw)
+    w = torch.from_numpy(w.astype(np.float32)).to(cuda)
+    keep = torch.from_numpy(keep.astype(np.float32)).to(cuda)
+    rng = np.random.default_rng(hb)
+    yy, xx = np.mgrid[:hb, :wb]
+    prof = np.exp(-((yy - hb // 2) ** 2 + (xx - wb // 2) ** 2)
+                  / (2 * (min(hb, wb) / 5) ** 2))
+    m = torch.from_numpy((prof + 0.1 * rng.normal(size=shape))
+                         .astype(np.float32)).to(cuda)
+    idx = torch.from_numpy(rng.integers(0, 9, (B, K))).to(cuda)
+    tols = torch.tensor([0.0, 1e-3][:B], device=cuda)
+    for kw in (dict(), dict(min_gradient=0.1), dict(tol=1e-3),
+               dict(tol=tols)):
+        before = kn.launch_counts()
+        got = kn.monotonic_prox(m, idx, w, keep, n_iter, **kw)
+        after = kn.launch_counts()
+        assert after["monotonic_prox_wide"] == \
+            before["monotonic_prox_wide"] + 1
+        assert torch.equal(got, kn.monotonic_prox_plain(m, idx, w, keep,
+                                                        n_iter, **kw))
+    packed = m.transpose(-3, -2).reshape(B, hb, K * wb).contiguous()
+    got_p = kn.monotonic_prox_packed(packed, idx, w, keep, wb, n_iter)
+    assert torch.equal(got_p.reshape(B, hb, K, wb).transpose(-3, -2),
+                       kn.monotonic_prox(m, idx, w, keep, n_iter))
+
+
+@pytest.mark.cuda
+def test_object_tree_box_grows_past_73_on_card(cuda):
+    """``Blend.fit`` on the card with a box that grows past 73 pixels
+    (``testing.large_galaxy_fit``: 71 -> 81): the projection runs
+    ``mono_kernel_wide`` from the growth on, the boxes after each 10
+    iterations equal the CPU's, and the losses agree to 1e-4."""
+    from scarlet_tpu_torch.testing import large_galaxy_fit
+
+    kn.reset_launch_counts()
+    card, boxes = large_galaxy_fit(cuda)
+    assert kn.launch_counts()["monotonic_prox_wide"] > 0
+    cpu, cpu_boxes = large_galaxy_fit("cpu")
+    assert boxes == cpu_boxes and max(boxes[-1]) > 73
+    np.testing.assert_allclose(card.loss, cpu.loss, rtol=1e-4)
+
+
+@pytest.mark.cuda
 def test_dft_matches_fft_on_card(cuda):
     """The matmul-DFT convolution on the card against cuFFT and against a
     float64 reference: within 1e-5 of the largest output (a TF32 product
@@ -645,3 +702,40 @@ def test_multires_fit_on_card_matches_cpu(cuda, rotation):
             assert not torch.backends.cuda.matmul.allow_tf32
     np.testing.assert_allclose(hist["cuda"].numpy(), hist["cpu"].numpy(),
                                rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_object_tree_quickstart_matches_the_cpu(cuda):
+    """The quickstart recipe on the card: parameters in float32, the
+    morphology projection through K1, init decisions equal to the CPU's,
+    losses within 1e-4 from the init without the spectrum solve (the
+    solve's least-squares start makes the float32 trajectory part at
+    ~1e-3 on any roundoff change, in the JAX package too)."""
+    from scarlet_tpu_torch import initialization, models
+
+    d = generate_blend(np.random.default_rng(1), shape=(3, 40, 40),
+                       n_sources=3)
+    centers = [(float(r["y"]), float(r["x"])) for r in d["catalog"]]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        frame = models.Frame(d["images"].shape, channels=list(d["filters"]),
+                             psf=models.GaussianPSF(sigma=0.8, boxsize=15))
+        obs = models.Observation(
+            d["images"], list(d["filters"]), psf=models.ImagePSF(d["psfs"]),
+            weights=(1 / d["variance"]).astype(np.float32),
+            device=dev).match(frame)
+        src, skipped = initialization.init_all_sources(
+            frame, centers, obs, max_components=2, min_snr=30, silent=True,
+            set_spectra=False)
+        kn.reset_launch_counts()
+        blend = models.Blend(src, obs)
+        blend.fit(20, e_rel=0)
+        runs[dev] = (blend, kn.launch_counts()["monotonic_prox"],
+                     [(type(s).__name__, tuple(s.bbox.shape)) for s in src])
+    assert runs["cuda"][1] > 0 and runs["cpu"][1] == 0
+    assert runs["cuda"][2] == runs["cpu"][2]
+    assert all(p.value.dtype == torch.float32 and p.value.is_cuda
+               for p in runs["cuda"][0].parameters if not p.fixed)
+    np.testing.assert_allclose(runs["cuda"][0].loss, runs["cpu"][0].loss,
+                               rtol=1e-4)
+

@@ -378,5 +378,8 @@ def test_prox_tables_and_projection_match_jax():
         ref = jprox.prox_uncentered_symmetry(jnp.asarray(x), 0, center,
                                              "sdss")
         assert_array_equal(got.numpy(), np.asarray(ref))
-    with pytest.raises(NotImplementedError):
-        tprox.prox_uncentered_symmetry(torch.from_numpy(x), 0, (8, 6))
+    # the default algorithm ("kspace" without a shift: the soft symmetry),
+    # ported with the object tree
+    got = tprox.prox_uncentered_symmetry(torch.from_numpy(x), 0, (8, 6))
+    ref = jprox.prox_uncentered_symmetry(jnp.asarray(x), 0, (8, 6))
+    assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-7)
