@@ -106,7 +106,28 @@ Run from the repository root, with one CUDA card:
    init without the spectrum solve), the CPU's runs in worker processes;
    a large galaxy whose box grows past 73 pixels (K1's wide kernel) on
    the card and the CPU (boxes, losses).
-11. Prints one JSON line with the kernels, the card's name and power
+11. The starlet recipes, the reference's ``wavelet_model`` tutorial as
+   the JAX package's examples run it: (a) ``examples/starlet_source.py``
+   on the object tree's 16 blends after a warm-up (``detect.get_peaks``
+   against the catalog, the first source a ``StarletSource``, the others
+   ``SingleExtendedSource``s, ``Blend.fit(80, e_rel=1e-4)``: blends/min,
+   init s, iterations, ms per iteration, chi2/dof, K1's launches), a
+   profile of 20 iterations (device busy share, launches and K1 per
+   iteration) and the starlet reconstruction's own device ms and
+   launches, forward and backward, at the fit's coefficient shape; (b)
+   ``examples/lsbg_wavelet_model.py`` on the large scene plus a diffuse
+   exponential disk standing in for the tutorial's lsbg.pkl (compact
+   sources from ``init_all_sources(max_components=1, min_snr=50, ...,
+   set_spectra=False)``, a full-frame ``StarletSource(frame)`` after
+   ``np.random.seed(0)``, ``Blend.fit(200, e_rel=1e-6)``: ms per
+   iteration, busy share, peak memory, the diffuse source's rendered flux
+   against the disk's, which must be positive); K1 against its plain
+   version, bit for bit, on the first input of every shape, table and
+   depth (a) and (b) launched; two blends of (a) and the field of (b) on
+   the card and the CPU (worker processes): peaks, kinds and boxes equal,
+   starlet seed coefficients within 1e-6, 20 iterations' losses within
+   1e-4, the starlet boxes after the fit equal.
+12. Prints one JSON line with the kernels, the card's name and power
    limit, then, last, the device line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without a CUDA device, or outside
@@ -201,6 +222,17 @@ OT_START_RTOL = 1e-5    # the first loss: the init's spectra (renders)
 # (1 + OT_PERTURB * N(0, 1)), one run per seed; the card may part from the
 # CPU by OT_WITNESS_FACTOR times that spread where it exceeds OT_CPU_RTOL
 OT_PERTURB, OT_WITNESS_SEEDS, OT_WITNESS_FACTOR = 1e-7, (0, 1, 2, 3), 3.0
+
+# the starlet recipes (the reference's wavelet_model tutorial): (a)
+# examples/starlet_source.py on the object tree's blends, (b)
+# examples/lsbg_wavelet_model.py on the large scene with a diffuse disk
+SL_MAX_ITER, SL_E_REL, SL_THRESH, SL_PROFILE_ITERS = 80, 1e-4, 5e-3, 20
+SL_MATCH_PX = 2.0       # a catalog entry is detected: a peak this close
+LSBG_ITERS, LSBG_E_REL = 200, 1e-6
+LSBG_RADIUS, LSBG_PEAK = 30.0, 0.5   # the disk: px, noise sigmas at peak
+SL_CPU_BLENDS, SL_CPU_ITERS = (1, 2), 20
+SL_CPU_RTOL = 1e-4      # losses, card vs CPU
+SL_SEED_RTOL = 1e-6     # starlet seed coefficients, card vs CPU
 
 REPLACES = {
     "monotonic_prox": "scarlet_tpu/ops/pallas_kernels.py:204",
@@ -2543,7 +2575,24 @@ def ot_setup(d, dev, set_spectra=True, perturb=None):
     * N(0, 1)).  Returns a dict with the init's seconds (host clock,
     synchronized)."""
     import torch
-    from scarlet_tpu_torch import initialization, models
+    from scarlet_tpu_torch import initialization
+
+    frame, obs, centers, _ = ot_observation(d, dev, perturb)
+    t0 = time.perf_counter()
+    sources, skipped = initialization.init_all_sources(
+        frame, centers, obs, max_components=2, min_snr=30, silent=True,
+        set_spectra=set_spectra)
+    if obs.device.type == "cuda":
+        torch.cuda.synchronize()
+    return dict(frame=frame, obs=obs, sources=sources, skipped=skipped,
+                init_s=time.perf_counter() - t0)
+
+
+def ot_observation(d, dev, perturb=None):
+    """The quickstart's frame and observation of blend ``d`` on ``dev``
+    (float32 images; with ``perturb`` a seed, the images times (1 +
+    OT_PERTURB * N(0, 1))), with its catalog centers and images."""
+    from scarlet_tpu_torch import models
 
     ch = list(d["filters"])
     images = d["images"].astype(np.float64)
@@ -2558,14 +2607,7 @@ def ot_setup(d, dev, set_spectra=True, perturb=None):
         weights=(1 / d["variance"]).astype(np.float32),
         device=dev).match(frame)
     centers = [(float(r["y"]), float(r["x"])) for r in d["catalog"]]
-    t0 = time.perf_counter()
-    sources, skipped = initialization.init_all_sources(
-        frame, centers, obs, max_components=2, min_snr=30, silent=True,
-        set_spectra=set_spectra)
-    if obs.device.type == "cuda":
-        torch.cuda.synchronize()
-    return dict(frame=frame, obs=obs, sources=sources, skipped=skipped,
-                init_s=time.perf_counter() - t0)
+    return frame, obs, centers, images
 
 
 def ot_decisions(s):
@@ -2984,6 +3026,483 @@ def object_tree_phase(dev, card):
     return counts, checks, summary
 
 
+# ---------------------------------------------------------------------------
+# the starlet recipes: the reference's wavelet_model tutorial, as the JAX
+# package's examples/starlet_source.py and examples/lsbg_wavelet_model.py
+# run it, on the object tree's generated blends
+# ---------------------------------------------------------------------------
+def sl_setup(d, dev, perturb=None):
+    """examples/starlet_source.py's init on blend ``d``: starlet detection
+    (``detect.get_peaks``), the first catalog source a StarletSource, the
+    others SingleExtendedSources.  Returns a dict with the init's seconds
+    (host clock, synchronized) and the peaks matched to the catalog."""
+    import torch
+    from scarlet_tpu_torch import detect, models
+
+    frame, obs, centers, images = ot_observation(d, dev, perturb)
+    t0 = time.perf_counter()
+    peaks = detect.get_peaks(images=images,
+                             variance=d["variance"].astype(np.float32))
+    sources = [models.StarletSource(frame, centers[0], obs,
+                                    starlet_thresh=SL_THRESH)]
+    sources += [models.SingleExtendedSource(frame, c, obs)
+                for c in centers[1:]]
+    if obs.device.type == "cuda":
+        torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    matched = sum(
+        1 for c in centers if peaks and min(
+            np.hypot(py - c[0], px - c[1]) for py, px in peaks) <= SL_MATCH_PX)
+    return dict(frame=frame, obs=obs, sources=sources, peaks=peaks,
+                catalog=len(centers), matched=matched, init_s=init_s)
+
+
+def sl_decisions(s):
+    """The init's discrete decisions (peaks, source kinds, boxes) and the
+    starlet seed's coefficients (host numpy)."""
+    return ([tuple(p) for p in s["peaks"]],
+            [(type(x).__name__, tuple(x.bbox.shape), tuple(x.bbox.origin))
+             for x in s["sources"]],
+            s["sources"][0].parameters[1].host().copy())
+
+
+def lsbg_decisions(s):
+    """The LSBG init's decisions (source kinds and boxes) and the
+    full-frame starlet seed's coefficients (host numpy)."""
+    return ([(type(x).__name__, tuple(x.bbox.shape), tuple(x.bbox.origin))
+             for x in s["sources"]],
+            s["sources"][-1].parameters[1].host().copy())
+
+
+def lsbg_images(d):
+    """Blend ``d`` with a diffuse exponential disk at the centre (scale
+    radius LSBG_RADIUS px, peak LSBG_PEAK times each band's noise sigma,
+    convolved with the band's PSF): a stand-in for the tutorial's
+    lsbg.pkl, which the repository does not hold.  Returns (the new blend
+    dict, the disk's images)."""
+    from scipy.signal import fftconvolve
+
+    C, H, W = d["images"].shape
+    yy, xx = np.mgrid[:H, :W]
+    disk = np.exp(-np.hypot(yy - H // 2, xx - W // 2) / LSBG_RADIUS)
+    sigma = np.sqrt(np.median(d["variance"], axis=(1, 2)))
+    bands = np.stack([fftconvolve(disk, p / p.sum(), mode="same")
+                      for p in d["psfs"]])
+    bands *= (LSBG_PEAK * sigma / bands.max(axis=(1, 2)))[:, None, None]
+    out = dict(d)
+    out["images"] = (d["images"] + bands).astype(np.float32)
+    return out, bands
+
+
+def lsbg_setup(d, dev, perturb=None):
+    """examples/lsbg_wavelet_model.py's init: compact sources from
+    ``init_all_sources(max_components=1, min_snr=50, thresh=1,
+    fallback=True, set_spectra=False)`` at the catalog, then
+    ``np.random.seed(0)`` and a full-frame ``StarletSource(frame)``."""
+    import torch
+    from scarlet_tpu_torch import initialization, models
+
+    frame, obs, centers, _ = ot_observation(d, dev, perturb)
+    t0 = time.perf_counter()
+    sources, skipped = initialization.init_all_sources(
+        frame, centers, obs, max_components=1, min_snr=50, thresh=1,
+        fallback=True, silent=True, set_spectra=False)
+    np.random.seed(0)
+    sources.append(models.StarletSource(frame))
+    if obs.device.type == "cuda":
+        torch.cuda.synchronize()
+    return dict(frame=frame, obs=obs, sources=sources, skipped=skipped,
+                init_s=time.perf_counter() - t0)
+
+
+def starlet_boxes(s):
+    """The StarletMorphologies' boxes (shape, origin) of a recipe."""
+    from scarlet_tpu_torch import models
+
+    return [(tuple(x.children[1].bbox.shape), tuple(x.children[1].bbox.origin))
+            for x in s["sources"]
+            if isinstance(x, models.StarletSource)]
+
+
+def sl_cpu_run(job):
+    """One CPU run for :func:`sl_card_vs_cpu` in a worker process (one
+    thread): ``("starlet", i, perturb)`` blend ``i`` of the cell,
+    ``("lsbg", perturb)`` the field; SL_CPU_ITERS iterations at e_rel 0.
+    Returns (init decisions, losses, the starlet boxes after the fit)."""
+    import torch
+
+    torch.set_num_threads(1)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if job[0] == "lsbg":
+        s = lsbg_setup(lsbg_images(ot_blends(
+            1, OT_SEED + 1, OT_LARGE_SHAPE, OT_LARGE_SOURCES)[0])[0], "cpu",
+            job[1])
+        dec = lsbg_decisions(s)
+    else:
+        _, i, perturb = job
+        s = sl_setup(ot_blends(i + 1)[i], "cpu", perturb)
+        dec = sl_decisions(s)
+    blend, _ = ot_fit(s, SL_CPU_ITERS, e_rel=0)
+    return dec, np.array(blend.loss), starlet_boxes(s)
+
+
+def _same_decisions(card, cpu, what):
+    """Equal discrete decisions, and seed coefficients within SL_SEED_RTOL
+    of their largest value (the last item of each)."""
+    if card[:-1] != cpu[:-1]:
+        raise AssertionError(f"{what}: card and CPU init decisions differ: "
+                             f"{card[:-1]} / {cpu[:-1]}")
+    a, b = card[-1], cpu[-1]
+    err = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+    if a.shape != b.shape or err > SL_SEED_RTOL:
+        raise AssertionError(f"{what}: starlet seed coefficients part by "
+                             f"{err} (> {SL_SEED_RTOL})")
+    return err
+
+
+def sl_card_vs_cpu(dev, blends, lsbg, card):
+    """SL_CPU_BLENDS of the cell and the LSBG field on the card and the CPU
+    (the CPU in worker processes while the card runs): the init decisions
+    (peaks, kinds, boxes) equal and the starlet seeds' coefficients within
+    SL_SEED_RTOL; SL_CPU_ITERS iterations' losses within SL_CPU_RTOL at
+    every iteration; the StarletMorphologies' boxes after the fit equal.
+    The CPU's own spread on images x (1 + OT_PERTURB N(0, 1)) is reported
+    beside it."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    jobs = [("lsbg", None), ("lsbg", 0)]
+    for i in SL_CPU_BLENDS:
+        jobs += [("starlet", i, None), ("starlet", i, 0)]
+    workers = max(1, min(len(jobs), (os.cpu_count() or 2) - 1))
+    with ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        futures = {job: pool.submit(sl_cpu_run, job) for job in jobs}
+        card_runs = {}
+        for i in SL_CPU_BLENDS:
+            s = sl_setup(blends[i], dev)
+            dec = sl_decisions(s)
+            blend, _ = ot_fit(s, SL_CPU_ITERS, e_rel=0)
+            card_runs["starlet", i] = (dec, np.array(blend.loss),
+                                       starlet_boxes(s))
+        s = lsbg_setup(lsbg, dev)
+        dec = lsbg_decisions(s)
+        blend, _ = ot_fit(s, SL_CPU_ITERS, e_rel=0)
+        card_runs["lsbg"] = (dec, np.array(blend.loss), starlet_boxes(s))
+        cpu = {job: f.result(timeout=1200) for job, f in futures.items()}
+
+    out = {}
+    for key, what in ([(("starlet", i), f"starlet blend {i}")
+                       for i in SL_CPU_BLENDS] + [(("lsbg",), "lsbg field")]):
+        dc, lc, bc = card_runs[key if key[0] == "starlet" else "lsbg"]
+        dh, lh, bh = cpu[(*key, None)]
+        seed_err = _same_decisions(dc, dh, what)
+        rel = np.abs(lc - lh) / np.abs(lh)
+        spread = np.abs(cpu[(*key, 0)][1] - lh) / np.abs(lh)
+        out[what] = dict(max_rel=float(rel.max()), seed_rel=seed_err,
+                         cpu_spread_max_rel=float(spread.max()),
+                         boxes=[list(map(list, b)) for b in bc])
+        if bc != bh:
+            raise AssertionError(f"{what}: starlet boxes card {bc} CPU {bh}")
+        if rel.max() > SL_CPU_RTOL:
+            t = int(np.argmax(rel > SL_CPU_RTOL))
+            raise AssertionError(
+                f"{what}: card and CPU losses part by {rel[t]} at iteration "
+                f"{t} (> {SL_CPU_RTOL}; the CPU against itself on perturbed "
+                f"images: {spread.max()})")
+        log(f"starlet card vs CPU, {what}: init decisions equal, seed "
+            f"coefficients within {seed_err:.3g}, starlet boxes {bc} on both, "
+            f"{SL_CPU_ITERS} iterations' losses max rel {rel.max():.3g} "
+            f"(limit {SL_CPU_RTOL}; the CPU against itself on images x (1 + "
+            f"{OT_PERTURB} N(0, 1)): {spread.max():.3g}), on {card}")
+    return out
+
+
+def starlet_recon_profile(shape, dev, reps=20):
+    """Device ms and launches of one starlet reconstruction of ``shape``
+    coefficients, forward and autograd backward (what one fit iteration
+    of a StarletMorphology runs on the device besides its prox), by
+    ``torch.profiler`` over ``reps`` calls each."""
+    import torch
+    from scarlet_tpu_torch.ops.wavelet import starlet_reconstruction
+
+    c = torch.rand(shape, device=dev, requires_grad=True)
+    g = torch.rand(shape[-2:], device=dev)
+
+    def fwd():
+        with torch.no_grad():
+            starlet_reconstruction(c)
+
+    def fwd_bwd():
+        torch.autograd.grad(starlet_reconstruction(c), c, g)
+
+    out = {}
+    for label, fn in (("forward", fwd), ("forward_backward", fwd_bwd)):
+        kern = kernel_events(fn, reps)
+        out[label] = dict(
+            launches=len(kern) / reps,
+            device_ms=sum(e.time_range.elapsed_us() for e in kern) / 1e3
+            / reps)
+    out["backward"] = {k: out["forward_backward"][k] - out["forward"][k]
+                       for k in ("launches", "device_ms")}
+    return out
+
+
+def _counter(name):
+    """A property that reads and writes the wrapped kernel's counter."""
+    return property(lambda self: getattr(self.orig, name),
+                    lambda self, v: setattr(self.orig, name, v))
+
+
+class RecordK1:
+    """Stands in for ``kernels.monotonic_prox`` while the starlet recipes
+    run: keeps a copy of the first input of each (shape, table, depth,
+    min_gradient) in ``store`` and calls the wrapper, which launches K1.
+    The wrapper counts its launches on the module's ``monotonic_prox``,
+    which is this object while it stands in: its counters are the
+    wrapper's own, so every launch counts where ``launch_counts`` reads
+    it."""
+
+    launches = _counter("launches")
+    tol_tensor_launches = _counter("tol_tensor_launches")
+    wide_launches = _counter("wide_launches")
+
+    def __init__(self, orig, store):
+        self.orig, self.store = orig, store
+
+    def __call__(self, morphs, idx, wt, kt, n, min_gradient=0.0, tol=0.0):
+        key = (tuple(morphs.shape), tuple(wt.shape), int(n),
+               float(min_gradient))
+        if key not in self.store:
+            self.store[key] = tuple(t.detach().clone() for t in (
+                morphs, idx, wt, kt)) + (n, min_gradient, tol)
+        return self.orig(morphs, idx, wt, kt, n, min_gradient, tol)
+
+
+def sl_kernel_checks(store, card):
+    """K1 against its plain version on the first input of every shape,
+    table and depth the starlet phase launched: bit for bit.  One record
+    per shape (the inputs checked there, their depths, the kernel), with
+    the time of the input of the largest depth (profiler device time; the
+    plain version with CUDA events)."""
+    from scarlet_tpu_torch.ops import kernels as kn
+
+    out = {}
+    for key in sorted(store):
+        morphs, idx, wt, kt, n, mg, tol = store[key]
+        wide = kn.launch_counts()["monotonic_prox_wide"]
+        err = float((kn.monotonic_prox(morphs, idx, wt, kt, n, mg, tol=tol)
+                     - kn.monotonic_prox_plain(morphs, idx, wt, kt, n, mg,
+                                               tol=tol)).abs().max())
+        wide = kn.launch_counts()["monotonic_prox_wide"] > wide
+        if err != 0.0:
+            raise AssertionError(f"K1 at {key} differs from its plain "
+                                 f"version by {err}")
+        rec = out.setdefault(key[0], dict(
+            shape=list(key[0]), inputs=0, n_iter=[n, n], max_abs_err=0.0,
+            kernel="mono_kernel_wide" if wide else "mono_kernel"))
+        rec["inputs"] += 1
+        rec["n_iter"] = [min(rec["n_iter"][0], n), max(rec["n_iter"][1], n)]
+        rec["timed_key"] = key
+    for shape, rec in out.items():
+        morphs, idx, wt, kt, n, mg, tol = store[rec.pop("timed_key")]
+        passes = mono_passes_run(morphs, idx, wt, kt, n, tol)
+
+        def k1():
+            return kn.monotonic_prox(morphs, idx, wt, kt, n, mg, tol=tol)
+
+        # late in a long run the profiler has come back without any K1
+        # event in every window: then CUDA events time the launch
+        try:
+            ms, timed_by = device_ms(k1, "mono_kernel"), "profiler"
+        except AssertionError:
+            ms, timed_by = time_ms(k1, 20), "CUDA events"
+        rec.update(**bound(2 * nbytes(morphs) + nbytes(idx, wt, kt),
+                           mono_ops(passes, idx, wt)),
+                   passes=int(passes.max()), ms=ms, timed_by=timed_by,
+                   plain_ms=time_ms(lambda: kn.monotonic_prox_plain(
+                       morphs, idx, wt, kt, n, mg, tol=tol), 5))
+        log(f"kernel monotonic_prox at the starlet phase's shapes {shape} "
+            f"({rec['kernel']}): {rec['inputs']} inputs (depths "
+            f"{rec['n_iter'][0]}-{rec['n_iter'][1]}) bit for bit; at depth "
+            f"{rec['n_iter'][1]} kernel {rec['ms']:.4f} ms ({timed_by}), plain "
+            f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.6f} ms by "
+            f"{rec['bound_by']} at {rec['passes']} passes, on {card}")
+    return list(out.values())
+
+
+def starlet_phase(dev, card):
+    """The starlet recipes on the card: (a) examples/starlet_source.py on
+    the object tree's 16 blends (one warm-up first), a profile of
+    SL_PROFILE_ITERS iterations and the reconstruction's own device cost;
+    (b) examples/lsbg_wavelet_model.py on the large scene with a diffuse
+    disk; K1 against its plain version on every input shape both
+    launched; the card against the CPU.  Returns (the launch counts of (a)
+    and (b), K1's checks, summary)."""
+    import torch
+    from scarlet_tpu_torch import measure
+    from scarlet_tpu_torch.models import constraint as tcon
+    from scarlet_tpu_torch.ops import kernels as kn
+
+    t_phase = time.perf_counter()
+    blends = ot_blends()
+    ot_fit(sl_setup(blends[0], dev), SL_MAX_ITER, SL_E_REL)   # warm-up
+
+    store = {}
+    orig = kn.monotonic_prox
+    kn.monotonic_prox = RecordK1(orig, store)
+    try:
+        kn.reset_launch_counts()
+        t0 = time.perf_counter()
+        recs = []
+        for d in blends:
+            s = sl_setup(d, dev)
+            blend, fit_s = ot_fit(s, SL_MAX_ITER, SL_E_REL)
+            flux = np.array([measure.flux(src) for src in s["sources"]])
+            recs.append(dict(
+                iterations=len(blend.loss), init_s=s["init_s"], fit_s=fit_s,
+                ms_per_iteration=fit_s * 1e3 / len(blend.loss),
+                logL_start=float(blend.log_likelihood[0]),
+                logL_end=float(blend.log_likelihood[-1]),
+                chi2_dof=ot_chi2(s, blend), peaks=len(s["peaks"]),
+                catalog=s["catalog"], matched=s["matched"],
+                starlet_box=starlet_boxes(s)[0],
+                flux_finite=bool(np.all(np.isfinite(flux)))))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kn.launch_counts()
+
+        lsbg, disk = lsbg_images(ot_blends(1, OT_SEED + 1, OT_LARGE_SHAPE,
+                                           OT_LARGE_SOURCES)[0])
+        kn.reset_launch_counts()
+        tcon.reset_mask_constraint_counts()
+        ls = lsbg_setup(lsbg, dev)
+        torch.cuda.reset_peak_memory_stats()
+        lblend, lfit_s = ot_fit(ls, LSBG_ITERS, LSBG_E_REL)
+        lsbg_counts = kn.launch_counts()
+    finally:
+        kn.monotonic_prox = orig
+    bad = [i for i, r in enumerate(recs)
+           if not (r["flux_finite"] and np.isfinite(r["logL_end"])
+                   and r["logL_end"] > r["logL_start"])]
+    if bad:
+        raise AssertionError(f"starlet blends {bad}: flux or logL not "
+                             "finite, or logL not improved")
+    if counts["monotonic_prox"] == 0 or lsbg_counts["monotonic_prox"] == 0:
+        raise AssertionError("a starlet recipe launched no K1")
+    its = sum(r["iterations"] for r in recs)
+    chi2 = [r["chi2_dof"] for r in recs]
+    summary = dict(
+        blends=len(recs), blends_per_min=len(recs) * 60.0 / wall,
+        wall_s=wall, init_s_per_blend=float(np.mean(
+            [r["init_s"] for r in recs])),
+        median_iterations=float(np.median([r["iterations"] for r in recs])),
+        ms_per_iteration=float(np.median([r["ms_per_iteration"]
+                                          for r in recs])),
+        chi2_dof_median=float(np.median(chi2)),
+        chi2_dof_range=[float(min(chi2)), float(max(chi2))],
+        logL_start_median=float(np.median([r["logL_start"] for r in recs])),
+        logL_end_median=float(np.median([r["logL_end"] for r in recs])),
+        peaks=[r["peaks"] for r in recs],
+        catalog_matched=[r["matched"] for r in recs],
+        catalog=[r["catalog"] for r in recs],
+        starlet_boxes=[r["starlet_box"] for r in recs],
+        k1_launches=int(counts["monotonic_prox"]),
+        k1_launches_per_iteration=counts["monotonic_prox"] / its)
+    log(f"starlet_source recipe, {len(recs)} blends {OT_SHAPE} x "
+        f"{OT_SOURCES} sources (the first a StarletSource): "
+        f"{summary['blends_per_min']:.1f} blends/min (wall {wall:.2f} s), "
+        f"init {summary['init_s_per_blend']:.3f} s per blend, median "
+        f"{summary['median_iterations']:.0f} iterations, "
+        f"{summary['ms_per_iteration']:.2f} ms per iteration, chi2/dof "
+        f"median {summary['chi2_dof_median']:.4f} "
+        f"({summary['chi2_dof_range'][0]:.4f}..{summary['chi2_dof_range'][1]:.4f}), "
+        f"logL median {summary['logL_start_median']:.1f} -> "
+        f"{summary['logL_end_median']:.1f}, K1 {counts['monotonic_prox']} "
+        f"launches ({summary['k1_launches_per_iteration']:.1f} per "
+        f"iteration), on {card}")
+    log("starlet detection (detect.get_peaks) per blend, peaks / catalog "
+        "entries / entries with a peak within "
+        f"{SL_MATCH_PX} px: " + ", ".join(
+            f"{r['peaks']}/{r['catalog']}/{r['matched']}" for r in recs))
+
+    s = sl_setup(blends[1], dev)
+    blend, _ = ot_fit(s, 2, e_rel=0)
+    summary["profile"] = p = ot_profile(blend, SL_PROFILE_ITERS)
+    coeffs = tuple(s["sources"][0].parameters[1].shape)
+    p["reconstruction"] = r = starlet_recon_profile(coeffs, dev)
+    p["reconstruction_shape"] = list(coeffs)
+    log(f"starlet profile of {p['iterations']} iterations: "
+        f"{p['wall_ms_per_iteration']:.2f} ms per iteration, device busy "
+        f"{100 * p['busy_share']:.1f}% of the wall "
+        f"({p['device_ms_per_iteration']:.3f} ms per iteration), "
+        f"{p['launches_per_iteration']:.1f} launches per iteration, K1 "
+        f"{p['k1_launches_per_iteration']:.1f} launches and "
+        f"{p['k1_ms_per_iteration']:.4f} ms per iteration; the starlet "
+        f"reconstruction at {coeffs}: forward {r['forward']['launches']:.1f} "
+        f"launches, {r['forward']['device_ms']:.4f} ms, backward "
+        f"{r['backward']['launches']:.1f} launches, "
+        f"{r['backward']['device_ms']:.4f} ms per iteration, on {card}")
+
+    lprof = ot_profile(lblend, OT_LARGE_PROFILE_ITERS)
+    diffuse = ls["sources"][-1]
+    rendered = float(ls["obs"].render(diffuse.get_model(
+        frame=ls["frame"])).sum())
+    injected = float(disk.sum())
+    lcoeffs = tuple(diffuse.parameters[1].shape)
+    summary["lsbg"] = lg = dict(
+        shape=list(OT_LARGE_SHAPE), sources=len(ls["sources"]),
+        skipped=len(ls["skipped"]), init_s=ls["init_s"],
+        iterations=len(lblend.loss),
+        ms_per_iteration=lfit_s * 1e3 / len(lblend.loss),
+        busy_share=lprof["busy_share"],
+        launches_per_iteration=lprof["launches_per_iteration"],
+        profile_k1_launches_per_iteration=lprof["k1_launches_per_iteration"],
+        peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20,
+        k1_launches=int(lsbg_counts["monotonic_prox"]),
+        k1_wide_launches=int(lsbg_counts["monotonic_prox_wide"]),
+        diffuse_flux=rendered, injected_flux=injected,
+        diffuse_coefficients=list(lcoeffs),
+        diffuse_box=starlet_boxes(ls)[0],
+        reconstruction=starlet_recon_profile(lcoeffs, dev),
+        mask_constraint=tcon.mask_constraint_counts(),
+        chi2_dof=ot_chi2(ls, lblend),
+        logL=[float(lblend.log_likelihood[0]),
+              float(lblend.log_likelihood[-1])])
+    if not (np.isfinite(lg["logL"][1]) and lg["logL"][1] > lg["logL"][0]):
+        raise AssertionError(f"lsbg field logL {lg['logL']}")
+    if not rendered > 0:
+        raise AssertionError(f"the diffuse starlet source carries no flux: "
+                             f"{rendered}")
+    lr = lg["reconstruction"]
+    log(f"lsbg recipe on the large scene {OT_LARGE_SHAPE} x "
+        f"{OT_LARGE_SOURCES} sources plus a diffuse disk (scale radius "
+        f"{LSBG_RADIUS} px, peak {LSBG_PEAK} sigma; a stand-in for "
+        f"lsbg.pkl): {lg['sources'] - 1} compact sources and a full-frame "
+        f"StarletSource of {lcoeffs}; {lg['iterations']} iterations, "
+        f"{lg['ms_per_iteration']:.2f} ms per iteration, device busy "
+        f"{100 * lg['busy_share']:.1f}% (a profile of "
+        f"{OT_LARGE_PROFILE_ITERS} more), {lg['launches_per_iteration']:.1f} "
+        f"launches per iteration ("
+        f"{lg['profile_k1_launches_per_iteration']:.1f} of them K1), K1 "
+        f"{lg['k1_launches']} launches over init "
+        f"and fit ({lg['k1_wide_launches']} on mono_kernel_wide), peak "
+        f"{lg['peak_mib']:.1f} MiB, the reconstruction forward "
+        f"{lr['forward']['launches']:.1f} launches / "
+        f"{lr['forward']['device_ms']:.4f} ms and backward "
+        f"{lr['backward']['launches']:.1f} / "
+        f"{lr['backward']['device_ms']:.4f} ms per iteration; diffuse "
+        f"source's rendered flux {rendered:.2f} against the injected disk's "
+        f"{injected:.2f} ({rendered / injected:.3f}), box "
+        f"{lg['diffuse_box']}, chi2/dof {lg['chi2_dof']:.4f}, init "
+        f"{lg['init_s']:.2f} s, on {card}")
+
+    checks = sl_kernel_checks(store, card)
+    summary["card_vs_cpu"] = sl_card_vs_cpu(dev, blends, lsbg, card)
+    summary["phase_s"] = time.perf_counter() - t_phase
+    return counts, lsbg_counts, checks, summary
+
+
 def main():
     import torch
 
@@ -3091,6 +3610,16 @@ def main():
     kres["monotonic_prox"]["object_tree_shapes"] = ot_checks
     kres["monotonic_prox"]["launches_object_tree"] = \
         int(ot_counts["monotonic_prox"])
+
+    # the starlet recipes: K1 counted over (a) the starlet_source cell and
+    # (b) the LSBG fit, each with the counts zeroed just before it
+    sl_counts, lsbg_counts, sl_checks, sl_summary = starlet_phase(dev, card)
+    log(f"starlet summary: {json.dumps(sl_summary)}")
+    kres["monotonic_prox"]["starlet_shapes"] = sl_checks
+    kres["monotonic_prox"]["launches_starlet"] = \
+        int(sl_counts["monotonic_prox"])
+    kres["monotonic_prox"]["launches_lsbg"] = \
+        int(lsbg_counts["monotonic_prox"])
 
     # each kernel's launches from the run of the path that drives it:
     # K1, K3 and K4 from one device-stream run, K5 and K6 from the fit of

@@ -38,8 +38,9 @@ The object tree (scarlet's quickstart)::
     fluxes = [measure.flux(s) for s in sources]
 """
 from . import (  # noqa: F401
-    initialization, lite, measure, models, operator, parallel, testing,
-    utils)
+    detect, initialization, lite, measure, models, operator, parallel,
+    testing, utils)
 from .bbox import Box  # noqa: F401
+from .ops.wavelet import Starlet  # noqa: F401
 
 __version__ = "0.1.0"

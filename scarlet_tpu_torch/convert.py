@@ -218,7 +218,37 @@ def _morphology(m, frame):
                                         boxsize=m.bbox.shape[-1])
     if kind == "PointSourceMorphology":
         return models.PointSourceMorphology(frame, p["center"])
+    if kind == "StarletMorphology":
+        return _starlet_morphology(m, p["coeffs"], frame)
     raise TypeError(f"sources_from_jax: no port of morphology {kind}")
+
+
+def _starlet_morphology(m, coeffs, frame):
+    """The port's StarletMorphology of the JAX package's ``m``: its box,
+    ``monotonic`` flag and coefficient planes (their number may be that
+    of an earlier, larger box), and its constraint's settings: the
+    thresholds per scale (uniform over each plane of the JAX array) or
+    the mask's centre."""
+    from . import models
+    from .ops.wavelet import starlet_reconstruction
+
+    image = starlet_reconstruction(torch.from_numpy(coeffs)).numpy()
+    out = models.StarletMorphology(frame, image, bbox=_box(m.bbox),
+                                   monotonic=bool(m.monotonic))
+    jc = m.parameters[0].constraint
+    if m.monotonic:
+        constraint = models.MonotonicMaskConstraint(
+            tuple(int(c) for c in jc.center),
+            center_radius=jc.center_radius, variance=jc.variance,
+            max_iter=jc.max_iter)
+    else:
+        constraint = out.parameters[0].constraint
+        l0 = constraint.constraints[1]
+        l0.thresh = np.array(jc.constraints[1].thresh)[:, :1, :1]
+    q = out.parameters[0]
+    out._parameters = (models.Parameter(
+        coeffs, name=q.name, constraint=constraint, step=q.step),)
+    return out
 
 
 def _component(c, frame, device):

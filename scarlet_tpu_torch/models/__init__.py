@@ -32,6 +32,7 @@ from .morphology import (  # noqa: F401
     GaussianMorphology,
     SpergelMorphology,
     PointSourceMorphology,
+    StarletMorphology,
     ExtendedSourceMorphology,
 )
 from .component import (  # noqa: F401
@@ -49,6 +50,7 @@ from .source import (  # noqa: F401
     CompactExtendedSource,
     SingleExtendedSource,
     MultiExtendedSource,
+    StarletSource,
     ExtendedSource,
 )
 from .blend import Blend  # noqa: F401

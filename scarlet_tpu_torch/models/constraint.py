@@ -29,6 +29,8 @@ __all__ = [
     "SymmetryConstraint",
     "CenterOnConstraint",
     "LeakyConstraint",
+    "mask_constraint_counts",
+    "reset_mask_constraint_counts",
 ]
 
 
@@ -86,14 +88,36 @@ class NormalizationConstraint(Constraint):
 
 
 class L0Constraint(Constraint):
-    """Hard thresholding. Ref: constraint.py:117-131."""
+    """Hard thresholding. Ref: constraint.py:117-131.
+
+    An array ``thresh`` (broadcast against X) is held as a tensor on each
+    device and dtype it is called with, made on the first call there, so
+    that a prox sub-iteration copies nothing to the device; it compares
+    in X's dtype."""
 
     def __init__(self, thresh, type="absolute"):
         self.thresh = thresh
         self.type = type
+        self._on = {}
 
     def __call__(self, X, step):
-        return prox_ops.prox_hard(X, step, thresh=self.thresh, type=self.type)
+        return prox_ops.prox_hard(X, step, thresh=self._thresh_on(X),
+                                  type=self.type)
+
+    def _thresh_on(self, X):
+        if np.ndim(self.thresh) == 0:
+            return self.thresh
+        key = (X.device, X.dtype)
+        t = self._on.get(key)
+        if t is None:
+            t = self._on[key] = torch.as_tensor(
+                np.asarray(self.thresh)).to(X.device, X.dtype)
+        return t
+
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        state["_on"] = {}
+        return state
 
 
 class L1Constraint(Constraint):
@@ -195,8 +219,26 @@ class MonotonicityConstraint(Constraint):
             self.min_gradient, tol=0.0)[0, 0]
 
 
+# host round trips of MonotonicMaskConstraint since the last
+# reset_mask_constraint_counts(): calls (one read of the planes to the
+# host and one copy back each, whatever their number) and planes projected
+_mask_constraint_counts = {"calls": 0, "planes": 0}
+
+
+def mask_constraint_counts():
+    """The host round trips of :class:`MonotonicMaskConstraint` (a copy)."""
+    return dict(_mask_constraint_counts)
+
+
+def reset_mask_constraint_counts():
+    for k in _mask_constraint_counts:
+        _mask_constraint_counts[k] = 0
+
+
 class MonotonicMaskConstraint(Constraint):
-    """Flood-fill monotonicity from the center (host-side).
+    """Flood-fill monotonicity from the center (host-side): each call
+    reads the planes to the host, projects them one by one and copies
+    the result back (counted by :func:`mask_constraint_counts`).
     Ref: constraint.py:237-259."""
 
     def __init__(self, center, center_radius=1, variance=0.0, max_iter=3):
@@ -213,6 +255,9 @@ class MonotonicMaskConstraint(Constraint):
 
     def __call__(self, morph, step):
         host = morph.detach().cpu().numpy()
+        _mask_constraint_counts["calls"] += 1
+        _mask_constraint_counts["planes"] += 1 if morph.ndim == 2 \
+            else len(host)
         if morph.ndim == 2:
             out = self._prox(host, step)[1]
         else:

@@ -1,6 +1,5 @@
 """Morphology models: the 2D spatial factors of factorized components.
-Port of ``scarlet_tpu/models/morphology.py`` (all but
-``StarletMorphology``).
+Port of ``scarlet_tpu/models/morphology.py``.
 
 ``get_model`` works on tensors (autograd flows through it); box resizing
 (``update``) happens on the host between fit segments, on the numpy
@@ -16,6 +15,7 @@ import torch
 from ..bbox import Box, overlapped_slices
 from ..ops import fft as fft_ops
 from ..ops.special import kv
+from ..ops.wavelet import Starlet, starlet_reconstruction
 from .. import initialization as init
 from . import constraint as _constraint
 from .constraint import ConstraintChain
@@ -31,6 +31,7 @@ __all__ = [
     "GaussianMorphology",
     "SpergelMorphology",
     "PointSourceMorphology",
+    "StarletMorphology",
     "ExtendedSourceMorphology",
 ]
 
@@ -378,6 +379,81 @@ class PointSourceMorphology(Morphology):
     @property
     def integral(self):
         return self.psf.get_model().sum()
+
+
+class StarletMorphology(Morphology):
+    """Starlet coefficients as an overcomplete non-parametric model; the
+    forward model is their reconstruction (plain torch, differentiated by
+    autograd).  Ref: scarlet/morphology.py:516-604,
+    scarlet_tpu/models/morphology.py:398-470.
+
+    The constraint is positivity then hard thresholding at ``threshold``
+    times the transform's norm per scale (0 on the coarse plane), or with
+    ``monotonic`` the host mask projection of every plane.  The
+    thresholds are held per scale, (J + 1, 1, 1), and broadcast over the
+    box: the JAX package holds a (J + 1, H, W) array of the same values,
+    which keeps the first box's shape when ``update`` shrinks the box, so
+    its next prox raises; here they follow any box.
+    """
+
+    def __init__(self, frame, image, bbox=None, monotonic=False, threshold=0):
+        if bbox is None:
+            assert frame.bbox[1:].shape == image.shape, \
+                "image must fill the frame when no bbox is given"
+            bbox = Box(image.shape)
+        self.monotonic = monotonic
+        self.transform = Starlet.from_image(image)
+        coeffs = self.transform.coefficients.numpy()
+
+        if not self.monotonic:
+            thresh = threshold * self.transform.norm.numpy()
+            thresh[-1] = 0
+            constraint = ConstraintChain(
+                _constraint.PositivityConstraint(0),
+                _constraint.L0Constraint(thresh[:, None, None]))
+        else:
+            constraint = self._mask_constraint(bbox)
+
+        coeffs = Parameter(coeffs, name="coeffs", step=1e-2,
+                           constraint=constraint)
+        super().__init__(frame, coeffs, bbox=bbox)
+
+    @staticmethod
+    def _mask_constraint(bbox):
+        center = tuple(s // 2 for s in bbox.shape)
+        return _constraint.MonotonicMaskConstraint(center, center_radius=1)
+
+    def get_model(self, *parameters):
+        coeffs = self.get_parameter(0, *parameters)
+        return starlet_reconstruction(coeffs)
+
+    def update(self):
+        """Shrink the box when the reconstruction's borders are empty
+        (below 1e-8), carrying the coefficients and the moments over,
+        sliced; raises UpdateException.  The reconstruction is computed
+        on the host from the coefficients' host copy (the values the fit
+        fetched), the same shift-adds in the same precision as on the
+        device.  Ref: morphology.py:572-604."""
+        coeffs = self._parameters[0]
+        if coeffs.fixed:
+            return
+        c = coeffs.host()
+        image = starlet_reconstruction(torch.from_numpy(c)).numpy()
+        bbox = self.bbox.copy()
+        self.shrink_box(image, thresh=1e-8)
+        if bbox != self.bbox:
+            slc, _ = overlapped_slices(bbox, self.bbox)
+            slc = (slice(None),) + tuple(slc)
+            constraint = self._mask_constraint(self.bbox) \
+                if self.monotonic else coeffs.constraint
+            moments = {k: None if coeffs.host(k) is None
+                       else coeffs.host(k)[slc] for k in ("m", "v", "vhat")}
+            new_coeffs = Parameter(
+                c[slc], name=coeffs.name, prior=coeffs.prior,
+                constraint=constraint, step=coeffs.step, fixed=coeffs.fixed,
+                **moments)
+            self._parameters = (new_coeffs,) + self._parameters[1:]
+            raise UpdateException
 
 
 class ExtendedSourceMorphology(ImageMorphology):

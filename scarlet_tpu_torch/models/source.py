@@ -1,6 +1,5 @@
 """Source convenience classes: initialized components for common object
-types.  Port of ``scarlet_tpu/models/source.py`` (all but
-``StarletSource``).
+types.  Port of ``scarlet_tpu/models/source.py``.
 
 The seeds are made on the host in numpy, as in the JAX package; the
 symmetrization and the monotonic projection of
@@ -26,6 +25,7 @@ from .morphology import (
     ExtendedSourceMorphology,
     GaussianMorphology,
     SpergelMorphology,
+    StarletMorphology,
 )
 from .parameter import Parameter, place, relative_step
 from .renderer import torch_dtype
@@ -42,6 +42,7 @@ __all__ = [
     "CompactExtendedSource",
     "SingleExtendedSource",
     "MultiExtendedSource",
+    "StarletSource",
     "ExtendedSource",
 ]
 
@@ -299,6 +300,56 @@ class SingleExtendedSource(FactorizedComponent):
                 frame, sky_coord, boxsize=max(bbox.shape))
             morph = np.maximum(morph, psf_morph)
         return morph, bbox
+
+
+class StarletSource(FactorizedComponent):
+    """An extended-source seed (or, with ``sky_coord=None``, a full-frame
+    :class:`RandomSource`, drawn from numpy's global stream) whose
+    morphology becomes starlet coefficients in the same box.
+    Ref: scarlet/source.py:525-612, scarlet_tpu/models/source.py:299-345.
+    """
+
+    def __init__(self, model_frame, sky_coord=None, observations=None,
+                 spectrum=None, thresh=1.0, monotonic=False,
+                 starlet_thresh=5e-3, boxsize=None):
+        if sky_coord is None:
+            source = RandomSource(model_frame)
+        else:
+            source = ExtendedSource(model_frame, sky_coord, observations,
+                                    thresh=thresh, boxsize=boxsize)
+
+        source = StarletSource.from_source(source, monotonic=monotonic,
+                                           starlet_thresh=starlet_thresh)
+
+        if spectrum is not None:
+            if isinstance(spectrum, Parameter):
+                assert spectrum.name == "spectrum"
+                spectrum = TabulatedSpectrum(model_frame, spectrum)
+            else:
+                spectrum = TabulatedSpectrum(
+                    model_frame, spectrum,
+                    min_step=_mean_noise_rms(
+                        _as_observations(observations)))
+            children = list(source.children)
+            children[0] = spectrum
+            source._children = tuple(children)
+
+        super().__init__(source.frame, *source.children)
+
+    @classmethod
+    def from_source(cls, source, monotonic=False, starlet_thresh=5e-3):
+        """The factorized ``source`` with its morphology's model (host
+        values) as starlet coefficients in the same box."""
+        assert isinstance(source, FactorizedComponent)
+        frame = source.frame
+        spectrum, morphology = source.children
+        morph = morphology.get_model().detach().cpu().numpy()
+        morphology = StarletMorphology(frame, morph, bbox=morphology.bbox,
+                                       monotonic=monotonic,
+                                       threshold=starlet_thresh)
+        obj = cls.__new__(cls)
+        FactorizedComponent.__init__(obj, frame, spectrum, morphology)
+        return obj
 
 
 class MultiExtendedSource(CombinedComponent):

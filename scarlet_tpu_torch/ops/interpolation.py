@@ -8,10 +8,10 @@ is torch, and runs in float64: it serves the host precomputations of the
 multi-resolution renderers and the model frame's PSF, which the JAX
 package computes with 64-bit mode on in its tests.
 
-``interpolate_observation`` (it needs the wavelet denoiser of the object
-tree) and the pixel-integration helpers (``get_common_padding``,
-``subsample_function``, ``apply_2D_trapezoid_rule``, ``sinc2D``), which
-nothing in the port calls, are not ported yet.
+``interpolate_observation`` resamples an observation's images onto a
+model frame, optionally after the wavelet denoiser; the pixel-integration
+helpers (``get_common_padding``, ``subsample_function``,
+``apply_2D_trapezoid_rule``) are host numpy and ``sinc2D`` float32 torch.
 
 Behavioral reference: scarlet/interpolation.py (file:line cited per function).
 """
@@ -41,7 +41,12 @@ __all__ = [
     "get_angles",
     "sinc_interp",
     "sinc_interp_inplace",
+    "get_common_padding",
+    "subsample_function",
+    "apply_2D_trapezoid_rule",
     "get_psf_size",
+    "sinc2D",
+    "interpolate_observation",
 ]
 
 mk_shifter = fft_ops.mk_shifter
@@ -335,6 +340,68 @@ def sinc_interp_inplace(image, h_image, h_target, angle, pad_shape=None):
     return sinc_interp(image, coord_hr, coord_lr, angle=angle)
 
 
+def get_common_padding(img1, img2, padding=None):
+    """Padding widths placing two centered images on a common frame.
+
+    Ref: interpolation.py:602-638.
+    """
+    extra = padding or 0
+    target = (img1.shape[-2] + img2.shape[-2] + extra,
+              img1.shape[-1] + img2.shape[-1] + extra)
+
+    def center_pad(shape):
+        # split the deficit per axis, remainder on the high side
+        pads = [(d // 2, d - d // 2)
+                for d in (target[0] - shape[-2], target[1] - shape[-1])]
+        return tuple(pads)
+
+    return center_pad(img1.shape), center_pad(img2.shape)
+
+
+def subsample_function(y, x, f, dNy, dNx=None, dy=None, dx=None):
+    """Evaluate ``f`` on a grid subdivided ``dNy x dNx`` times per pixel.
+
+    Ref: interpolation.py:657-677.
+    """
+    if dx is None:
+        dx = x[1] - x[0]
+    if dy is None:
+        dy = y[1] - y[0]
+    if dNx is None:
+        dNx = dNy
+    assert dNy % 2 == 0, f"dNy must be even, received {dNy}"
+    assert dNx % 2 == 0, f"dNx must be even, received {dNx}"
+
+    def fine_axis(coords, step, n_sub):
+        # n_sub samples per pixel spanning each pixel's full [c-h/2, c+h/2]
+        return np.linspace(coords[0] - step / 2, coords[-1] + step / 2,
+                           len(coords) * n_sub + 1)
+
+    fy = fine_axis(y, dy, dNy)
+    fx = fine_axis(x, dx, dNx)
+    return f(fy, fx), fy, fx
+
+
+def apply_2D_trapezoid_rule(y, x, f, dNy, dNx=None, dy=None, dx=None):
+    """Pixel-integrate ``f`` with a subsampled trapezoid rule.
+
+    The reference's corner weight of 0.4 (interpolation.py:695) is kept,
+    as in the JAX package (an exact trapezoid rule would use 0.25).
+    Ref: interpolation.py:680-705.
+    """
+    if dy is None:
+        dy = y[1] - y[0]
+    if dx is None:
+        dx = x[1] - x[0]
+    if dNx is None:
+        dNx = dNy
+    z = np.asarray(subsample_function(y, x, f, dNy, dNx, dy, dx)[0])
+    # per-cell volumes, then a blocked reshape sums each pixel's cells
+    cells = 0.4 * (z[:-1, :-1] + z[1:, :-1] + z[:-1, 1:] + z[1:, 1:])
+    cells *= dy * dx / (dNy * dNx)
+    return cells.reshape(len(y), dNy, len(x), dNx).sum(axis=(1, 3))
+
+
 def get_psf_size(psf):
     """Approximate 3-sigma radius of a PSF from its FWHM area.
 
@@ -345,3 +412,35 @@ def get_psf_size(psf):
     area = np.sum(psf_frame > 0.5)
     d = 2 * (area / np.pi) ** 0.5
     return 3 * d / (2 * (2 * np.log(2)) ** 0.5)
+
+
+def sinc2D(y, x):
+    """The product of two 1D sincs, in float32: for 1D ``y`` and ``x``
+    their inner product (a scalar), for 2D a matrix product, as the JAX
+    package's ``jnp.dot`` gives.  Ref: interpolation.py:641-654."""
+    sy = torch.sinc(torch.as_tensor(np.asarray(y), dtype=torch.float32))
+    sx = torch.sinc(torch.as_tensor(np.asarray(x), dtype=torch.float32))
+    return torch.matmul(sy, sx)
+
+
+def interpolate_observation(observation, frame, wave_filter=False):
+    """Sinc-resample an observation's images onto ``frame``'s grid (host
+    numpy out, float64); with ``wave_filter`` each band is first denoised
+    by :func:`~.wavelet.apply_wavelet_denoising`.  The observation's grid
+    is taken square, as in the reference.  Ref: interpolation.py:563-599.
+    """
+    from . import wavelet as wavelet_ops
+
+    coord_lr0 = np.array(
+        (np.arange(observation.shape[1]), np.arange(observation.shape[2])))
+    coord_hr = (np.arange(frame.shape[1]), np.arange(frame.shape[2]))
+    coord_lr = observation.convert_pixel_to(frame, pixel=coord_lr0.T).T
+
+    images = observation.data.detach().cpu().numpy()
+    if wave_filter:
+        images = np.array([wavelet_ops.apply_wavelet_denoising(image)
+                           for image in images])
+    return np.array([
+        sinc_interp(torch.from_numpy(np.array(image[None])), coord_hr,
+                    coord_lr, angle=None)[0].T.numpy()
+        for image in images])

@@ -739,3 +739,72 @@ def test_object_tree_quickstart_matches_the_cpu(cuda):
     np.testing.assert_allclose(runs["cuda"][0].loss, runs["cpu"][0].loss,
                                rtol=1e-4)
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nw", ["angle", "flat"])
+@pytest.mark.parametrize("shape, center", [((58, 48), (20, 31)),
+                                           ((58, 48), (29, 24)),
+                                           ((128, 128), (40, 90))])
+def test_monotonic_prox_at_starlet_shapes_matches_plain(cuda, shape, center,
+                                                        nw):
+    """K1 at the starlet recipes' seed projections: one (1, 1, H, W)
+    frame-sized image per source, projected about the source's pixel
+    (``SingleExtendedSource.init_morph``): (58, 48) on ``mono_kernel``,
+    (128, 128) on ``mono_kernel_wide``; bit for bit against the plain
+    version."""
+    from scarlet_tpu_torch.ops import prox
+
+    H, W = shape
+    rng = np.random.default_rng(H + center[0])
+    yy, xx = np.mgrid[:H, :W]
+    img = np.exp(-((yy - center[0]) ** 2 + (xx - center[1]) ** 2) / 40.0)
+    m = torch.from_numpy((img + 0.05 * rng.normal(size=shape))
+                         .astype(np.float32)).to(cuda)[None, None]
+    wt, kt, depth, idx = prox.device_tables(shape, nw, [center], cuda,
+                                            torch.float32)
+    before = kn.launch_counts()
+    got = kn.monotonic_prox(m, idx, wt, kt, depth, 0.0, tol=0.0)
+    after = kn.launch_counts()
+    assert after["monotonic_prox"] == before["monotonic_prox"] + 1
+    assert (after["monotonic_prox_wide"] > before["monotonic_prox_wide"]) \
+        == (H > 73)
+    assert torch.equal(got, kn.monotonic_prox_plain(m, idx, wt, kt, depth,
+                                                    0.0, tol=0.0))
+
+
+@pytest.mark.cuda
+def test_starlet_fit_on_card_matches_cpu(cuda):
+    """The starlet_source recipe on the card (examples/starlet_source.py:
+    a StarletSource and two SingleExtendedSources, 10 iterations): the
+    coefficients in float32 on the card, the seeds' projections through
+    K1, the same boxes as the CPU's, losses within 1e-4 of the CPU's."""
+    from scarlet_tpu_torch import models
+
+    d = generate_blend(np.random.default_rng(0), shape=(3, 40, 40),
+                       n_sources=3)
+    centers = [(float(r["y"]), float(r["x"])) for r in d["catalog"]]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        frame = models.Frame(d["images"].shape, channels=list(d["filters"]),
+                             psf=models.GaussianPSF(sigma=0.8, boxsize=15))
+        obs = models.Observation(
+            d["images"], list(d["filters"]), psf=models.ImagePSF(d["psfs"]),
+            weights=(1 / d["variance"]).astype(np.float32),
+            device=dev).match(frame)
+        kn.reset_launch_counts()
+        src = [models.StarletSource(frame, centers[0], obs,
+                                    starlet_thresh=5e-3)]
+        src += [models.SingleExtendedSource(frame, c, obs)
+                for c in centers[1:]]
+        blend = models.Blend(src, obs)
+        blend.fit(10, e_rel=0)
+        runs[dev] = (blend, kn.launch_counts()["monotonic_prox"],
+                     [(type(s).__name__, tuple(s.bbox.shape),
+                       tuple(s.bbox.origin)) for s in src])
+    assert runs["cuda"][1] > 0 and runs["cpu"][1] == 0
+    assert runs["cuda"][2] == runs["cpu"][2]
+    coeffs = runs["cuda"][0].sources[0].parameters[1].value
+    assert coeffs.dtype == torch.float32 and coeffs.is_cuda
+    np.testing.assert_allclose(runs["cuda"][0].loss, runs["cpu"][0].loss,
+                               rtol=1e-4)
