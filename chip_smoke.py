@@ -127,7 +127,23 @@ Run from the repository root, with one CUDA card:
    the card and the CPU (worker processes): peaks, kinds and boxes equal,
    starlet seed coefficients within 1e-6, 20 iterations' losses within
    1e-4, the starlet boxes after the fit equal.
-12. Prints one JSON line with the kernels, the card's name and power
+12. The sharded fit (``parallel.fit_batch_sharded`` over
+   ``torch.distributed``): (a) one NCCL rank (a ``FileStore`` group of
+   world size 1) on the host path's batch for 100 iterations, bit for bit
+   against ``fit_batch`` in every leaf of the state and in the losses,
+   K1, K3 and K4 launched, ms per iteration of both in turns; (b) two
+   ranks spawned on the one card over gloo, on 128 generated (4, 58, 48)
+   blends (``default_rng(7)``, the first four filters, ``stream_setup``'s
+   layout, the unpacked branch and the exact projection), mesh (1, 2)
+   with the channels split and mesh (2, 1), 20 iterations each, held to
+   the JAX test's limits against the unsharded card fit (losses rtol
+   1e-5; SEDs and morphologies rtol 1e-4, atol 1e-6), with each rank's
+   K1, K3 and K4 launches, ms per iteration and all-reduces per
+   iteration; K3 and K4 at C = 4 and 2 and K1 at half the batch against
+   their plain versions, bit for bit (g_sed to GRAD_SED_RTOL).  One card
+   measures no collective's speed: gloo carries each band sum through
+   the host.
+13. Prints one JSON line with the kernels, the card's name and power
    limit, then, last, the device line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without a CUDA device, or outside
@@ -3503,6 +3519,376 @@ def starlet_phase(dev, card):
     return counts, lsbg_counts, checks, summary
 
 
+
+# the sharded fit: (a) one NCCL rank on the host path's batch, bit for bit
+# against fit_batch; (b) two ranks on the one card over gloo, on a batch
+# of SH_BANDS-band blends, held to the JAX test's limits
+# (tests/test_parallel.py:170-174) against the unsharded card fit
+SH_ONE_ITERS = 100
+SH_N, SH_BANDS, SH_ITERS, SH_WARM = 128, 4, 20, 2
+SH_MESHES = (((1, 2), True), ((2, 1), False))
+SH_LOSS_RTOL, SH_STATE_RTOL, SH_STATE_ATOL = 1e-5, 1e-4, 1e-6
+# the unsharded fit's own move on images x (1 + SH_PERTURB N(0, 1)): where
+# it passes the limits above, the sharded fit may be SH_WITNESS_FACTOR
+# times as far (as the object tree's card-vs-CPU check, OT_WITNESS_FACTOR)
+SH_PERTURB, SH_WITNESS_FACTOR = 1e-7, 3.0
+SH_TIMEOUT_S = 300     # a collective that waits longer fails the run
+
+
+def _sh_flat(tree):
+    if tree is None:
+        return []
+    if isinstance(tree, tuple):
+        return [x for t in tree for x in _sh_flat(t)]
+    return [tree]
+
+
+def _sh_timed(fn, n_iter):
+    """(result, ms per iteration) of ``fn()``, a fit of ``n_iter``
+    iterations, on the host clock up to ``torch.cuda.synchronize()``."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3 / n_iter
+
+
+def sharded_one_rank(card, setup):
+    """(a) ``fit_batch_sharded`` on a one-rank NCCL mesh against
+    ``fit_batch`` on the host path's packed batch: the same bits in every
+    leaf of the state and in the losses; in turns (plain, sharded,
+    sharded, plain) after a warm-up of each.  Returns (launch counts of
+    one sharded fit, summary)."""
+    import tempfile
+    import torch.distributed as dist
+    from scarlet_tpu_torch import parallel
+    from scarlet_tpu_torch.ops import kernels as kn
+
+    config, data, state = setup
+    n = SH_ONE_ITERS
+
+    def plain():
+        return parallel.fit_batch(state, data, config, n)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            mesh = parallel.make_mesh()
+
+            def sharded():
+                return parallel.fit_batch_sharded(state, data, config, n,
+                                                  mesh)
+
+            sharded()
+            ref, _ = _sh_timed(plain, n)
+            kn.reset_launch_counts()
+            out, sh_ms = _sh_timed(sharded, n)
+            counts = kn.launch_counts()
+            _, sh_ms2 = _sh_timed(sharded, n)
+            _, plain_ms2 = _sh_timed(plain, n)
+            plain_ms = _sh_timed(plain, n)[1]
+            # the call's own cost beside the fit (slicing and the final
+            # all-gather of the state): one iteration of each
+            gather_ms = _sh_timed(lambda: parallel.fit_batch_sharded(
+                state, data, config, 1, mesh), 1)[1] - _sh_timed(
+                lambda: parallel.fit_batch(state, data, config, 1), 1)[1]
+        finally:
+            dist.destroy_process_group()
+    leaves_out, leaves_ref = _sh_flat(out), _sh_flat(ref)
+    same = [a.device == b.device and bool((a == b).all())
+            for a, b in zip(leaves_out, leaves_ref)]
+    if len(leaves_out) != len(leaves_ref) or not all(same):
+        raise AssertionError(f"one-rank sharded fit differs from fit_batch "
+                             f"in {same.count(False)} of {len(same)} leaves")
+    for name in PATH_KERNELS:
+        if counts[name] <= 0:
+            raise AssertionError(f"{name} was not launched by the one-rank "
+                                 "sharded fit")
+    summary = dict(iterations=n, ms_per_iteration=[sh_ms, sh_ms2],
+                   fit_batch_ms_per_iteration=[plain_ms2, plain_ms],
+                   call_overhead_ms=gather_ms,
+                   bitwise_leaves=len(same),
+                   launches={k: int(counts[k]) for k in PATH_KERNELS})
+    log(f"sharded (a), one NCCL rank, {n} iterations of the host path's "
+        f"batch: bit for bit with fit_batch in all {len(same)} leaves; "
+        f"{sh_ms:.3f} / {sh_ms2:.3f} ms per iteration against fit_batch's "
+        f"{plain_ms2:.3f} / {plain_ms:.3f} (in turns); the call's own "
+        f"cost (slicing, the final all-gather; one iteration of each) "
+        f"{gather_ms:.3f} ms; "
+        f"launches {summary['launches']} on {card}")
+    return counts, summary
+
+
+def sharded_rank(rank, world, tmp):
+    """(b) One of two ranks on the one card over gloo: each mesh of
+    SH_MESHES after a warm-up of SH_WARM iterations, then SH_ITERS
+    iterations with the kernels' launches and the all-reduces counted;
+    the global result to ``tmp``."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+    from scarlet_tpu_torch import parallel
+    from scarlet_tpu_torch.ops import build
+    from scarlet_tpu_torch.ops import kernels as kn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.load()
+    dist.init_process_group(
+        "gloo", init_method="file://" + os.path.join(tmp, "store"),
+        rank=rank, world_size=world,
+        timeout=timedelta(seconds=SH_TIMEOUT_S))
+    reduces = [0]
+    all_reduce = dist.all_reduce
+
+    def counting(*args, **kwargs):
+        reduces[0] += 1
+        return all_reduce(*args, **kwargs)
+
+    dist.all_reduce = counting
+    try:
+        config, data, state = torch.load(os.path.join(tmp, "batch.pt"),
+                                         weights_only=False)
+        res = {}
+        for shape, shard_bands in SH_MESHES:
+            mesh = parallel.make_mesh(bands=shape[1])
+            parallel.fit_batch_sharded(state, data, config, SH_WARM, mesh,
+                                       shard_bands=shard_bands)
+            kn.reset_launch_counts()
+            reduces[0] = 0
+            (out, losses), ms = _sh_timed(
+                lambda: parallel.fit_batch_sharded(
+                    state, data, config, SH_ITERS, mesh,
+                    shard_bands=shard_bands), SH_ITERS)
+            counts = kn.launch_counts()
+            res[shape] = dict(
+                losses=losses.cpu(), seds=out.seds[0].cpu(),
+                morphs=out.morphs[0].cpu(), ms_per_iteration=ms,
+                all_reduces_per_iteration=reduces[0] / SH_ITERS,
+                device=str(out.seds[0].device),
+                launches={k: int(counts[k]) for k in PATH_KERNELS})
+        torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        dist.all_reduce = all_reduce
+        dist.destroy_process_group()
+
+
+def sharded_batch(dev):
+    """SH_N generated (SH_BANDS, 58, 48) blends (``default_rng(SEED)``,
+    the first SH_BANDS filters), initialized on the card by
+    ``stream_setup`` (box 59, 16 slots), fitted on the unpacked branch
+    that the band axis takes and with the exact projection (``mono_tol``
+    0, as the JAX test's CPU fit runs it; an exit tolerance would let
+    roundoff move whole exit blocks): (config, data, state)."""
+    from scarlet_tpu_torch.parallel import stream
+    from scarlet_tpu_torch.testing import generate_blend
+
+    rng = np.random.default_rng(SEED)
+    blends = [generate_blend(rng, shape=(SH_BANDS, 58, 48))
+              for _ in range(SH_N)]
+    K = max(len(b["catalog"]) for b in blends)
+    centers = np.zeros((SH_N, K, 2), np.int32)
+    active = np.zeros((SH_N, K), bool)
+    for i, b in enumerate(blends):
+        k = len(b["catalog"])
+        centers[i, :k, 0] = np.round(b["catalog"]["y"])
+        centers[i, :k, 1] = np.round(b["catalog"]["x"])
+        active[i, :k] = True
+    config, data, state, _ = stream.stream_setup(
+        np.stack([b["images"] for b in blends]),
+        np.stack([b["variance"] for b in blends]),
+        np.stack([b["psfs"] for b in blends]), centers, model_psf(),
+        center_active=active, box_size=HET["box_size"],
+        n_slots=HET["n_slots"], device=dev)
+    return (dataclasses.replace(config, packed_morphs=False, mono_tol=0.0),
+            data, state)
+
+
+def sharded_kernel_checks(dev, card, config, data, state):
+    """K1, K3 and K4 against their plain versions at the shapes the two
+    meshes give them: K3 and K4 at C = SH_BANDS (the whole batch, and
+    half of it on each rank of (2, 1)) and at C = SH_BANDS / 2 (each rank
+    of (1, 2)), K1 at half the batch; K3 and K4 bit for bit (g_sed to
+    GRAD_SED_RTOL), K1 bit for bit."""
+    from scarlet_tpu_torch.ops import kernels as kn
+
+    C, H, W = config.scene_shape
+    P = config.pad
+    B = state.active.shape[0]
+    cases = {"unsharded": (B, C), "(2, 1)": (B // 2, C),
+             "(1, 2)": (B, C // 2)}
+    res = {name: {} for name in PATH_KERNELS}
+    for label, (b, c) in cases.items():
+        seds = state.seds[0][:b, :, :c].contiguous()
+        m, origins = state.morphs[0][:b], state.origins[0][:b]
+        on = state.comp_active[0][:b]
+        shape = f"B={b} K={m.shape[1]} C={c} {H}x{W} box={m.shape[-1]}"
+        res["scene_assembly"][label] = dict(
+            **scene_check(seds, m, origins, on, (c, H, W), P), shape=shape)
+        res["grad_gather"][label] = dict(
+            **grad_check(strided_gradient(b, c, H, W, config.fft_shape,
+                                          dev), seds, m, origins, P),
+            shape=shape)
+    b = B // 2
+    m = (state.morphs[0][:b] * data.box_masks[0][:b]).contiguous()
+    idx = kn.candidate_index(m, config.fit_center_radius)
+    wt, kt, n_iter = data.mono_weights[0], data.mono_keep[0], \
+        config.mono_n_iters[0]
+
+    def k1(f):
+        return f(m, idx, wt, kt, n_iter, 0.0, tol=0.0)
+
+    passes = mono_passes_run(m, idx, wt, kt, n_iter, 0.0)
+    res["monotonic_prox"]["(2, 1)"] = dict(
+        **bound(2 * nbytes(m) + nbytes(idx, wt, kt),
+                mono_ops(passes, idx, wt)),
+        mean_passes=float(passes.double().mean()),
+        max_abs_err=float((k1(kn.monotonic_prox)
+                           - k1(kn.monotonic_prox_plain)).abs().max()),
+        limit=0.0, ms=device_ms(lambda: k1(kn.monotonic_prox),
+                                "mono_kernel"),
+        plain_ms=time_ms(lambda: k1(kn.monotonic_prox_plain), 3),
+        shape=f"B={b} K={m.shape[1]} box={m.shape[-1]} n_iter={n_iter}")
+    for name, by_shape in res.items():
+        for label, r in by_shape.items():
+            err = r["g_morph_err"] if name == "grad_gather" \
+                else r["max_abs_err"]
+            if err != 0.0:
+                raise AssertionError(f"{name} at the sharded shape {label} "
+                                     f"differs from its plain version by "
+                                     f"{err}")
+            log(f"kernel {name} at the sharded shape {label}: max_abs_err "
+                f"{r['max_abs_err']:.3g}, kernel {r['ms']:.4f} ms device, "
+                f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
+                f"ms by {r['bound_by']} [{r['shape']}] on {card}")
+    return res
+
+
+def _sh_distance(got, ref):
+    """How far ``got`` is from ``ref`` (numpy): the largest absolute
+    difference and the elements beyond the JAX test's limits."""
+    diff = np.abs(got - ref)
+    beyond = diff > SH_STATE_ATOL + SH_STATE_RTOL * np.abs(ref)
+    return dict(max_abs=float(diff.max()), beyond_limits=int(beyond.sum()))
+
+
+def sharded_two_ranks(dev, card):
+    """(b) Two ranks on the one card over gloo, meshes (1, 2) with the
+    channels split and (2, 1), each against the unsharded card fit of the
+    same batch: losses to SH_LOSS_RTOL; SEDs and morphologies to the JAX
+    test's limits (SH_STATE_RTOL, SH_STATE_ATOL) or, where the unsharded
+    fit itself moves past them on a 1e-7 change of its images (the
+    batch's conditioning: a threshold or centre decision that roundoff
+    flips), to SH_WITNESS_FACTOR times that move.  Returns (per mesh and
+    rank the launch counts, kernel checks, summary)."""
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    from scarlet_tpu_torch import parallel
+
+    config, data, state = sharded_batch(dev)
+    checks = sharded_kernel_checks(dev, card, config, data, state)
+    parallel.fit_batch(state, data, config, SH_WARM)
+    (ref, ref_losses), ref_ms = _sh_timed(
+        lambda: parallel.fit_batch(state, data, config, SH_ITERS), SH_ITERS)
+    noise = np.random.default_rng(SEED).standard_normal(
+        tuple(data.images.shape)).astype(np.float32)
+    moved = data._replace(images=data.images * (
+        1 + SH_PERTURB * torch.from_numpy(noise).to(dev)))
+    witness, witness_losses = parallel.fit_batch(state, moved, config,
+                                                 SH_ITERS)
+    host = tuple(_sh_to_cpu(x) for x in (config, data, state))
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(host, os.path.join(tmp, "batch.pt"))
+        t0 = time.perf_counter()
+        mp.spawn(sharded_rank, args=(2, tmp), nprocs=2, join=True)
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+                 for r in range(2)]
+    ref_losses = ref_losses.cpu().numpy()
+    refs = {key: getattr(ref, key)[0].cpu().numpy()
+            for key in ("seds", "morphs")}
+    spread = {key: _sh_distance(getattr(witness, key)[0].cpu().numpy(),
+                                refs[key]) for key in refs}
+    spread["max_rel_loss"] = float(
+        np.abs(witness_losses.cpu().numpy() - ref_losses).max()
+        / np.abs(ref_losses).max())
+    summary = dict(blends=SH_N, bands=SH_BANDS, iterations=SH_ITERS,
+                   unsharded_ms_per_iteration=ref_ms, spawn_s=spawn_s,
+                   unsharded_spread_on_perturbed_images=spread, meshes={})
+    log(f"sharded (b): the unsharded card fit on images x (1 + "
+        f"{SH_PERTURB} N(0, 1)) moves by {spread} over {SH_ITERS} "
+        f"iterations on {card}")
+    launches = {}
+    for shape, shard_bands in SH_MESHES:
+        per_rank = [r[shape] for r in ranks]
+        dist_ = []
+        for rank, r in enumerate(per_rank):
+            np.testing.assert_allclose(r["losses"].numpy(), ref_losses,
+                                       rtol=SH_LOSS_RTOL)
+            d = {key: _sh_distance(r[key].numpy(), refs[key])
+                 for key in refs}
+            for key, dk in d.items():
+                if dk["beyond_limits"] and dk["max_abs"] > \
+                        SH_WITNESS_FACTOR * spread[key]["max_abs"]:
+                    raise AssertionError(
+                        f"mesh {shape} rank {rank}: {key} off the "
+                        f"unsharded fit by {dk}, beyond the limits and "
+                        f"beyond {SH_WITNESS_FACTOR} x the unsharded fit's "
+                        f"own move {spread[key]}")
+            dist_.append(d)
+            for name in PATH_KERNELS:
+                if r["launches"][name] <= 0:
+                    raise AssertionError(f"{name} was not launched on rank "
+                                         f"{rank} of mesh {shape}")
+        rel = max(float(np.abs(r["losses"].numpy() - ref_losses).max()
+                        / np.abs(ref_losses).max()) for r in per_rank)
+        label = str(shape)
+        launches[label] = [r["launches"] for r in per_rank]
+        summary["meshes"][label] = dict(
+            shard_bands=shard_bands,
+            ms_per_iteration=[r["ms_per_iteration"] for r in per_rank],
+            all_reduces_per_iteration=[r["all_reduces_per_iteration"]
+                                       for r in per_rank],
+            launches=launches[label], max_rel_loss=rel,
+            distance=dist_, devices=[r["device"] for r in per_rank])
+        log(f"sharded (b), mesh {shape} (shard_bands={shard_bands}), two "
+            f"ranks on one card over gloo, {SH_ITERS} iterations of "
+            f"{SH_N} x {SH_BANDS}-band blends: max rel loss {rel:.3g} "
+            f"(limit {SH_LOSS_RTOL}), seds and morphs off the unsharded fit "
+            f"by {dist_}; ms per iteration "
+            f"{[round(r['ms_per_iteration'], 3) for r in per_rank]} "
+            f"against the unsharded {ref_ms:.3f}; all-reduces per "
+            f"iteration {[r['all_reduces_per_iteration'] for r in per_rank]}"
+            f"; launches per rank {launches[label]} on {card}")
+    return launches, checks, summary
+
+
+def _sh_to_cpu(x):
+    """A config, BlendData or BlendState with its tensors on the host."""
+    from scarlet_tpu_torch.lite import engine
+
+    if dataclasses.is_dataclass(x):
+        return x
+    return engine.map_tree(lambda t: t.cpu(), x)
+
+
+def sharded_phase(dev, card, setup):
+    """The sharded fit: (a) then (b).  Returns (one-rank counts, two-rank
+    launches per mesh and rank, kernel checks, summary)."""
+    t_phase = time.perf_counter()
+    one_counts, one = sharded_one_rank(card, setup)
+    two_launches, checks, two = sharded_two_ranks(dev, card)
+    return one_counts, two_launches, checks, dict(
+        one_rank=one, two_ranks=two,
+        phase_s=time.perf_counter() - t_phase)
+
+
 def main():
     import torch
 
@@ -3594,6 +3980,20 @@ def main():
     opt_summary["oversized"] = oversized_growth(dev, card)
     fista_counts, opt_summary["fista"] = fista_host_path(dev, card, seeds)
     log(f"fit options summary: {json.dumps(opt_summary)}")
+
+    # the sharded fit: (a) one NCCL rank on the host path's batch, (b) two
+    # ranks on the card over gloo, each run with the counts zeroed just
+    # before it
+    sh_counts, sh_launches, sh_checks, sh_summary = sharded_phase(
+        dev, card, setup)
+    log(f"sharded summary: {json.dumps(sh_summary)}")
+    for name in PATH_KERNELS:
+        kres[name]["sharded"] = dict(
+            path="parallel.fit_batch_sharded",
+            launches_one_rank=int(sh_counts[name]),
+            launches_two_ranks={mesh: [r[name] for r in per_rank]
+                                for mesh, per_rank in sh_launches.items()},
+            shapes=sh_checks[name])
     del setup, seeds
 
     # the multi-resolution fit: K1, K3 and K4 counted over one aligned fit

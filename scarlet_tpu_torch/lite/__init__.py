@@ -25,6 +25,7 @@ from .models import (  # noqa: F401
 )
 from .measure import calculate_snr, weight_sources  # noqa: F401
 from .initialization import (  # noqa: F401
+    get_min_psf,
     init_monotonic_morph,
     multifit_seds,
     init_main_parameters,

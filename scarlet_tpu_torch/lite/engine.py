@@ -32,17 +32,28 @@ the layout stays, but the config takes the same branch of the morphology
 update as the JAX ``fit_step`` (:func:`_morph_update`): the packed
 branch's per-slot threshold cutoff, its one-pass prox chain
 (``packed_prox_chain``, kernel ``prox_chain``) and the fused update
-(``fuse_morph``, kernel ``fused_morph_update``).  The band axis and the
-bf16 matmul tiers of the DFT convolution raise ``NotImplementedError``
-(see :func:`check_supported`).
+(``fuse_morph``, kernel ``fused_morph_update``).  The bf16 matmul tiers
+of the DFT convolution raise ``NotImplementedError`` (see
+:func:`check_supported`).
+
+The band axis (``band_axis``): a fit whose ranks each hold C/bands
+channels of every blend (``parallel.fit_batch_sharded``) sums its
+cross-band reductions over the ranks of the band process group
+(:func:`_band_sum`, a ``torch.distributed.all_reduce``) at the JAX
+``fit_step``'s sites: logL, the morphology gradients, the SED step's
+mean, FISTA's morphology step norm and the background threshold cut.
+The group reaches the engine through :func:`band_group`, under the
+axis's name.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..device import default_device
 from ..ops import fft as fft_ops
@@ -61,6 +72,7 @@ __all__ = [
     "map_tree",
     "pin_float32",
     "check_supported",
+    "band_group",
     "packed_morphs_ok",
     "make_scene",
     "render",
@@ -84,6 +96,8 @@ class LiteFitConfig:
     always (…, K, hb, wb).  ``pallas_interpret`` is carried for the
     conversion and changes nothing here; ``conv_precision`` must stay
     "float32" (the JAX package's bf16 tiers have no exact counterpart).
+    ``band_axis`` names a band process group (:func:`band_group`), as
+    ``parallel.fit_batch_sharded`` sets it.
     """
     scene_shape: tuple            # (C, H, W)
     box_shapes: tuple             # ((hb, wb), ...) per bucket
@@ -133,7 +147,10 @@ class LiteFitConfig:
     conv_precision: str = "float32"   # of the DFT: only "float32"
     pallas_interpret: bool = False
     scene_pad: int = -1           # -1: one full (largest) box
-    band_axis: Optional[str] = None   # not ported: must stay None
+    # the band axis of a sharded fit: its cross-band reductions sum over
+    # the process group of this name (band_group); n_bands_total = the
+    # global channel count
+    band_axis: Optional[str] = None
     n_bands_total: Optional[int] = None
 
     @property
@@ -199,26 +216,62 @@ def map_tree(fn, tree, *rest):
 
 
 def check_supported(config):
-    """Raise ``ValueError`` for an unknown optimizer or convolution mode,
-    and ``NotImplementedError`` for the options the port does not run:
-    the band axis (more than one device) and the bf16 matmul tiers of the
-    DFT convolution."""
+    """Raise ``ValueError`` for an unknown optimizer or convolution mode
+    and for a band axis that names no band process group (outside
+    ``parallel.fit_batch_sharded``), and ``NotImplementedError`` for the
+    bf16 matmul tiers of the DFT convolution, which the port does not
+    run."""
     for name, known in (("optimizer", ("adaprox", "fista")),
                         ("conv_mode", ("fft", "dft"))):
         if getattr(config, name) not in known:
             raise ValueError(f"LiteFitConfig.{name}="
                              f"{getattr(config, name)!r}: one of {known}")
-    off = {
-        "band_axis": (config.band_axis is not None, "None"),
-        "conv_precision": (config.conv_mode == "dft"
-                           and config.conv_precision != "float32",
-                           "'float32'"),
-    }
-    for name, (bad, want) in off.items():
-        if bad:
-            raise NotImplementedError(
-                f"LiteFitConfig.{name}={getattr(config, name)!r} is not "
-                f"ported yet (supported: {want})")
+    if config.band_axis is not None and config.band_axis not in _BAND_GROUPS:
+        raise ValueError(
+            f"LiteFitConfig.band_axis={config.band_axis!r} names no band "
+            "process group: run the fit through parallel.fit_batch_sharded")
+    if config.conv_mode == "dft" and config.conv_precision != "float32":
+        raise NotImplementedError(
+            f"LiteFitConfig.conv_precision={config.conv_precision!r} is not "
+            "ported yet (supported: 'float32')")
+
+
+# the process groups of the band axes of the fits running in this
+# process, by axis name (band_group)
+_BAND_GROUPS = {}
+
+
+@contextlib.contextmanager
+def band_group(name, group):
+    """Within the block, the band axis ``name`` of a config sums over
+    ``group`` (a ``torch.distributed`` process group: the ranks that hold
+    the other channels of the same blends)."""
+    if name in _BAND_GROUPS:
+        raise RuntimeError(f"band axis {name!r} already has a group")
+    _BAND_GROUPS[name] = group
+    try:
+        yield
+    finally:
+        del _BAND_GROUPS[name]
+
+
+def _band_sum(x, config):
+    """Sum ``x``, reduced over this rank's channels, over the band axis's
+    ranks (the identity when ``config.band_axis`` is None); a bool tensor
+    becomes true where it is true on any rank.  Reduces in place on ``x``
+    (each call site hands over a fresh tensor).  Gloo carries a CUDA
+    tensor through a host copy.  Ref: scarlet_tpu/lite/engine.py:447-452."""
+    if config.band_axis is None:
+        return x
+    if x.dtype == torch.bool:
+        return _band_sum(x.to(torch.int32), config) > 0
+    group = _BAND_GROUPS[config.band_axis]
+    if x.is_cuda and dist.get_backend(group) == "gloo":
+        host = x.cpu()
+        dist.all_reduce(host, group=group)
+        return x.copy_(host)
+    dist.all_reduce(x, group=group)
+    return x
 
 
 def packed_morphs_ok(config):
@@ -577,7 +630,7 @@ def _prox_morph_bucket(morphs, seds, data, config, b, tol, box_half=None):
     if config.bg_thresh is not None:
         model = seds[..., :, None, None] * morphs[..., None, :, :]
         thresh = (config.bg_thresh * data.bg_rms)[..., None, :, None, None]
-        cut = ~(model >= thresh).any(dim=-3)
+        cut = ~_band_sum((model >= thresh).any(dim=-3), config)
         morphs = torch.where(cut, 0.0, morphs)
     else:
         morphs = torch.clamp_min(morphs, 0.0)
@@ -669,7 +722,8 @@ def _fista_bucket(seds_b, morphs_b, g_seds, g_morphs, sed_opt, morph_opt,
     sb, sopt = fista_step(seds_b, g_seds, it, sed_opt, step[..., None],
                           prox=lambda x, s: torch.clamp_min(x, floor),
                           active=gate)
-    mstep = base / torch.clamp_min((seds_b * seds_b).sum(dim=-1), 1e-12)
+    mstep = base / torch.clamp_min(
+        _band_sum((seds_b * seds_b).sum(dim=-1), config), 1e-12)
     mb, mopt = fista_step(
         morphs_b, g_morphs, it, morph_opt, mstep[..., None, None],
         prox=lambda y, s: _prox_morph_bucket(y, sb, data, config, b, tol),
@@ -696,7 +750,9 @@ def fit_step(state, data, config):
         scene = scene * data.scene_mask[..., None, :, :]
     model = _convolve(scene, data.kernel_rfft, config)
     residual = data.weights * (model - data.images)
-    logL = -0.5 * (residual * (model - data.images)).sum(dim=(-3, -2, -1))
+    logL = _band_sum(
+        -0.5 * (residual * (model - data.images)).sum(dim=(-3, -2, -1)),
+        config)
 
     grad_scene = _convolve(residual, data.grad_kernel_rfft, config)
     if data.scene_mask is not None:
@@ -726,6 +782,7 @@ def fit_step(state, data, config):
 
         g_seds, g_morphs = kernels.grad_gather(
             grad_scene, seds_b, morphs_b, state.origins[b], 0)
+        g_morphs = _band_sum(g_morphs, config)
 
         if fista:
             sb, sopt, mb, mopt = _fista_bucket(
@@ -737,7 +794,8 @@ def fit_step(state, data, config):
             # (lite/initialization.py:275-279), floored by the prox
             sed_step = torch.maximum(
                 data.sed_step_min[..., None, :],
-                config.sed_step_factor * seds_b.sum(dim=-1, keepdim=True)
+                config.sed_step_factor
+                * _band_sum(seds_b.sum(dim=-1, keepdim=True), config)
                 / n_bands)
             sb, sopt = adaprox_step(
                 seds_b, g_seds, it[..., None, None], state.sed_opt[b],

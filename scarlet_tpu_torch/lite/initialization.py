@@ -28,6 +28,7 @@ from .utils import (insert_image, host_convolve as _host_convolve,
 logger = logging.getLogger("scarlet_tpu_torch.lite.initialization")
 
 __all__ = [
+    "get_min_psf",
     "init_monotonic_morph",
     "multifit_seds",
     "init_main_parameters",
@@ -51,6 +52,31 @@ def _ratio_sed(num, den):
     sed = np.where((den > 0) & np.isfinite(ratio), ratio, 0.0)
     sed[sed < 0] = 0
     return sed.astype(num.dtype, copy=False)
+
+
+def get_min_psf(psfs, thresh=0.01):
+    """Minimal centered cutout of the (C, h, w) ``psfs`` containing all
+    cross-band PSF differences above ``thresh`` (host numpy).
+    Ref: scarlet_tpu/lite/initialization.py:61-83."""
+    psfs = to_numpy(psfs)
+    py = psfs.shape[1] // 2
+    px = psfs.shape[2] // 2
+    X, Y = np.meshgrid(np.arange(psfs.shape[-1]), np.arange(psfs.shape[-2]))
+    R = np.sqrt((X - px) ** 2 + (Y - py) ** 2)
+
+    max_radius = 0
+    for p1 in range(len(psfs) - 1):
+        for p2 in range(p1 + 1, len(psfs)):
+            diff = (psfs[p1] - psfs[p2]) / np.max([psfs[p1], psfs[p2]])
+            significant = np.abs(diff) > thresh
+            radius = int(np.max(R * significant))
+            max_radius = max(max_radius, radius)
+
+    dy = py - max_radius
+    dx = px - max_radius
+    sy = slice(dy, -dy) if dy > 0 else slice(None)
+    sx = slice(dx, -dx) if dx > 0 else slice(None)
+    return psfs[:, sy, sx].copy()
 
 
 def init_monotonic_morph(detect, center, full_box, grow=0, normalize=True,

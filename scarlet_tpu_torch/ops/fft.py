@@ -29,6 +29,7 @@ from scipy.fft import next_fast_len
 __all__ = [
     "centered",
     "zero_pad",
+    "fast_zero_pad",
     "good_fft_shape",
     "good_fft_shape_even",
     "minimal_even_fft_shape",
@@ -76,6 +77,28 @@ def centered(arr, newshape, axes=None):
     return arr[tuple(slices)]
 
 
+def _pad(arr, widths):
+    """``F.pad`` by per-axis (before, after) ``widths`` in numpy order
+    (``F.pad`` takes the last axis first)."""
+    flat = []
+    for lo, hi in reversed(widths):
+        flat.extend((int(lo), int(hi)))
+    return F.pad(arr, flat)
+
+
+def fast_zero_pad(arr, pad_width):
+    """Zero-pad with explicit per-axis (before, after) widths, one pair
+    per axis of ``arr`` as ``np.pad`` takes them; a negative width raises,
+    as in ``jnp.pad`` (``F.pad`` would crop).
+    Ref: scarlet_tpu/ops/fft.py:83-85."""
+    if len(pad_width) != arr.ndim:
+        raise ValueError(f"pad_width has {len(pad_width)} pairs for an "
+                         f"array of {arr.ndim} axes")
+    if any(w < 0 for pair in pad_width for w in pair):
+        raise ValueError(f"negative pad width in {pad_width}")
+    return _pad(arr, pad_width)
+
+
 def zero_pad(arr, newshape, axes=None):
     """Zero-pad ``arr`` to ``newshape`` (inverse of :func:`centered`); a
     ``newshape`` smaller than ``arr`` raises, as ``jnp.pad`` does (a
@@ -93,11 +116,7 @@ def zero_pad(arr, newshape, axes=None):
                 f"-> {tuple(newshape)}")
         left = (ds + 1) // 2
         widths[a] = (left, ds - left)
-    # F.pad takes (last_lo, last_hi, second_to_last_lo, ...)
-    flat = []
-    for lo, hi in reversed(widths):
-        flat.extend((lo, hi))
-    return F.pad(arr, flat)
+    return _pad(arr, widths)
 
 
 def good_fft_shape(im_or_shape1, im_or_shape2, padding=3, axes=None,

@@ -1,6 +1,7 @@
-"""Batched fitting of many blends on one device, the device stream
-(init, fit and records of raw pixel stacks), device peak detection and
-the batched multi-resolution fitter."""
+"""Batched fitting of many blends on one device or split over the ranks
+of a ``torch.distributed`` group, the device stream (init, fit and
+records of raw pixel stacks), device peak detection and the batched
+multi-resolution fitter."""
 from .batch import (  # noqa: F401
     BatchConfig,
     pack_batch,
@@ -13,6 +14,9 @@ from .batch import (  # noqa: F401
     fit_batch_device_converged,
     fit_batch_device_dispatch,
     fit_batch_device_collect,
+    make_mesh,
+    shard_batch,
+    fit_batch_sharded,
 )
 from .detection import (  # noqa: F401
     detect_peaks_device,

@@ -5,7 +5,6 @@ Numpy only."""
 from __future__ import annotations
 
 import numpy as np
-from scipy.signal import fftconvolve
 
 __all__ = ["large_galaxy", "large_galaxy_fit"]
 
@@ -17,6 +16,8 @@ def large_galaxy(seed=3, bands=2, size=120, radius=20.0, amplitude=5.0,
     convolved with a Gaussian PSF of ``psf_sigma`` px, plus Gaussian
     noise of ``noise`` drawn from ``np.random.default_rng(seed)``.
     Returns (images, variance, psfs), float32."""
+    from scipy.signal import fftconvolve
+
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[:size, :size] - size // 2
     prof = np.exp(-np.hypot(yy, xx) / radius * 1.67835)

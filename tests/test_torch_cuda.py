@@ -808,3 +808,94 @@ def test_starlet_fit_on_card_matches_cpu(cuda):
     assert coeffs.dtype == torch.float32 and coeffs.is_cuda
     np.testing.assert_allclose(runs["cuda"][0].loss, runs["cpu"][0].loss,
                                rtol=1e-4)
+
+
+def _card_batch(cuda, n=8, seed=4):
+    """``n`` generated blends, host-initialized and packed on the card."""
+    from scarlet_tpu_torch import parallel
+
+    rng = np.random.default_rng(seed)
+    mpsf = lite.integrated_circular_gaussian(sigma=0.8)[None].astype(
+        np.float32)
+    blends = []
+    for _ in range(n):
+        d = generate_blend(rng)
+        obs = lite.LiteObservation(
+            d["images"], d["variance"],
+            (1.0 / d["variance"]).astype(np.float32), d["psfs"],
+            model_psf=mpsf, device="cpu")
+        centers = [(int(np.round(r["y"])), int(np.round(r["x"])))
+                   for r in d["catalog"]]
+        blends.append(lite.LiteBlend(lite.parameterize_sources(
+            lite.init_all_sources_main(obs, centers), obs,
+            lite.init_adaprox_component), obs))
+    return parallel.pack_blends(blends, device=cuda)
+
+
+def _one_rank_group(backend, tmp_path):
+    import torch.distributed as dist
+
+    dist.init_process_group(
+        backend, store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+        world_size=1)
+    return dist
+
+
+@pytest.mark.cuda
+def test_fit_batch_sharded_at_world_size_one_equals_fit_batch(cuda,
+                                                              tmp_path):
+    """``fit_batch_sharded`` on a one-rank NCCL mesh runs ``fit_batch``'s
+    kernels on the same tensors and gathers them: the same bits."""
+    from scarlet_tpu_torch import parallel
+
+    config, data, state = _card_batch(cuda)
+    ref, ref_losses = parallel.fit_batch(state, data, config, 10)
+    dist = _one_rank_group("nccl", tmp_path)
+    try:
+        kn.reset_launch_counts()
+        out, losses = parallel.fit_batch_sharded(
+            state, data, config, 10, parallel.make_mesh())
+        counts = kn.launch_counts()
+    finally:
+        dist.destroy_process_group()
+    assert all(counts[name] > 0 for name in
+               ("monotonic_prox", "scene_assembly", "grad_gather"))
+    assert torch.equal(losses, ref_losses)
+    leaves = [x for x, y in zip(_flat(out), _flat(ref))
+              if x.device == y.device and torch.equal(x, y)]
+    assert len(leaves) == len(_flat(ref))
+
+
+def _flat(tree):
+    if tree is None:
+        return []
+    if isinstance(tree, tuple):
+        return [x for t in tree for x in _flat(t)]
+    return [tree]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["nccl", "gloo"])
+def test_band_axis_at_world_size_one_equals_unsharded(cuda, tmp_path,
+                                                      backend):
+    """The engine's band sums over a one-rank band group (gloo through a
+    host copy of each CUDA tensor) leave the fit's bits as they are: the
+    same fit as the unpacked branch, which the band axis takes."""
+    from scarlet_tpu_torch import parallel
+
+    config, data, state = _card_batch(cuda, n=4)
+    plain = dataclasses.replace(config, packed_morphs=False,
+                                fuse_morph=False)
+    ref, ref_losses = parallel.fit_batch(state, data, plain, 10)
+    banded = dataclasses.replace(config, band_axis="bands",
+                                 n_bands_total=config.scene_shape[0])
+    dist = _one_rank_group(backend, tmp_path)
+    try:
+        with engine.band_group("bands", dist.group.WORLD):
+            out, losses = parallel.fit_batch(state, data, banded, 10)
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(losses, ref_losses)
+    for field in ("seds", "morphs"):
+        for x, y in zip(getattr(out, field), getattr(ref, field)):
+            assert torch.equal(x, y)

@@ -148,15 +148,25 @@ def graft_psfs():
     return np.repeat(psf[None], 3, 0), model
 
 
-@pytest.mark.parametrize("field,value", [
-    ("band_axis", "bands"), ("conv_precision", "high")])
+@pytest.mark.parametrize("field,value", [("conv_precision", "high")])
 def test_unported_options_raise(field, value):
-    """The band axis waits for more than one device; the bf16 matmul tiers
-    of the DFT convolution have no exact counterpart in torch."""
+    """The bf16 matmul tiers of the DFT convolution have no exact
+    counterpart in torch."""
     config, data, state = graft._demo_setup()
     cfg, d, s = _port(config, data, state)
     cfg = dataclasses.replace(cfg, conv_mode="dft", **{field: value})
     with pytest.raises(NotImplementedError, match=field):
+        teng.fit_step(s, d, cfg)
+
+
+def test_band_axis_without_a_band_group_raises():
+    """A band axis reaches the engine through ``parallel.fit_batch_sharded``
+    (tests/test_torch_sharded.py); set on a config outside it, with no
+    band process group, the fit raises before any work."""
+    config, data, state = graft._demo_setup()
+    cfg, d, s = _port(config, data, state)
+    cfg = dataclasses.replace(cfg, band_axis="bands", n_bands_total=3)
+    with pytest.raises(ValueError, match="band_axis='bands'"):
         teng.fit_step(s, d, cfg)
 
 
