@@ -143,7 +143,30 @@ Run from the repository root, with one CUDA card:
    their plain versions, bit for bit (g_sed to GRAD_SED_RTOL).  One card
    measures no collective's speed: gloo carries each band sum through
    the host.
-13. Prints one JSON line with the kernels, the card's name and power
+13. The production host paths, each with the kernel counts zeroed just
+   before it: (a) ``parallel.BlendPipeline`` with min(8, cores) CPU
+   workers (spawned with the card hidden, one torch thread each) on the
+   host path's 128 blends as blobs (a warm-up, then two runs of
+   ``max_iter`` 100: ``last_timings``, blends/min beside the in-process
+   host init of step 3; the same run with torch's default threads in
+   every worker), its records held to the same fit of step 3's packed
+   batch in process (iterations equal, logL to 1e-6), every worker
+   reporting no CUDA device; (b) ``python -m scarlet_tpu_torch deblend``
+   as a subprocess on the card (its launch counts printed by that
+   process) on 64 generated npz files (8 without a catalog, 8 without
+   variance): blends/min, records finite, logL improving for all but
+   2%, median centroid error under 2 px; ``--detect device`` against
+   ``--detect host`` (sorted centroids within 0.1 px); 8 files with
+   ``--cpu`` against the card (iterations equal and logL within 1e-4,
+   or, where the card's own runs on 8 copies of the images times
+   (1 + 1e-7 N(0, 1)) move them, within 3x that move); (c) the
+   regression harness on a generated set 4 (50 blends): "stream" and
+   "lite" on all, "main" on 4 (wall, median logL and iterations), stream
+   against lite logL within 2% on the JAX test's 4 blends (the rest
+   logged), detection on the card with the host's completeness; K1, K3
+   and K4 against their plain versions, bit for bit (K4's g_sed to
+   GRAD_SED_RTOL), at the pipeline's and the CLI's fit shapes.
+14. Prints one JSON line with the kernels, the card's name and power
    limit, then, last, the device line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without a CUDA device, or outside
@@ -428,7 +451,7 @@ def strided_gradient(B, C, H, W, fft_shape, dev):
     return fft.centered(full, (H, W), axes=(-2, -1))
 
 
-def scene_check(seds, m, origins, on, scene_shape, P):
+def scene_check(seds, m, origins, on, scene_shape, P, timer=None):
     """K3 against its plain version: bit for bit, timed (``ms`` the
     kernel's device time, ``event_ms`` CUDA events around the call, as
     the earlier runs timed it); the bound counts the output and the
@@ -445,16 +468,15 @@ def scene_check(seds, m, origins, on, scene_shape, P):
         **bound(nbytes(seds, origins, on, got) + 4 * px, 2.0 * C * px),
         in_scene_active_pixels=px,
         max_abs_err=float((got - ref).abs().max()), limit=0.0,
-        ms=device_ms(lambda: kn.scene_assembly(seds, m, origins, on,
-                                               scene_shape, P),
-                     "scene_kernel"),
+        ms=(timer or device_ms)(lambda: kn.scene_assembly(
+            seds, m, origins, on, scene_shape, P), "scene_kernel"),
         event_ms=time_ms(lambda: kn.scene_assembly(seds, m, origins, on,
                                                    scene_shape, P), 20),
         plain_ms=time_ms(lambda: kn.scene_assembly_plain(
             seds, m, origins, on, scene_shape, P), 5))
 
 
-def grad_check(grad, seds, m, origins, P):
+def grad_check(grad, seds, m, origins, P, timer=None):
     """K4 against its plain version on the unpadded (strided) gradient
     with pad 0, the same contiguous, and padded by P: g_morph bit for
     bit, g_sed within GRAD_SED_RTOL of sum |g * morph| and the same bits
@@ -487,8 +509,9 @@ def grad_check(grad, seds, m, origins, P):
             g_morph_err=float((gm - rm).abs().max()),
             g_sed_abs_err=float((gs - rs).abs().max()),
             g_sed_rel_err=sed_err, repeat_bitwise=same,
-            ms=device_ms(lambda: kn.grad_gather(g, seds, m, origins, p),
-                         "grad_kernel"),
+            ms=(timer or device_ms)(
+                lambda: kn.grad_gather(g, seds, m, origins, p),
+                "grad_kernel"),
             event_ms=time_ms(lambda: kn.grad_gather(g, seds, m, origins, p),
                              20))
         if name == "strided":
@@ -3889,9 +3912,520 @@ def sharded_phase(dev, card, setup):
         phase_s=time.perf_counter() - t_phase)
 
 
+# the production host paths: the multiprocess pipeline (the host path's
+# blends as blobs), the deblend CLI as a subprocess on generated npz files
+# and the regression harness on a generated set 4
+HP_WORKERS = 8
+HP_CLI_FILES, HP_CLI_NOCAT, HP_CLI_NOVAR = 64, 8, 8
+HP_CLI_CPU_FILES = 8
+HP_DETECT_ITERS = 10
+HP_SET, HP_MAIN_BLENDS = 4, 4
+HP_PIPELINE_RTOL = 1e-6  # pipeline against the same fit in process
+# the CLI's card against --cpu: the card's own move on perturbed copies
+HP_PERTURB, HP_WITNESS_DRAWS, HP_WITNESS_FACTOR = 1e-7, 8, 3.0
+# stream against lite logL per blend on the JAX test's blends, the first
+# HP_STREAM_LITE_BLENDS of set 4 (tests/test_testing_harness.py:16-19,
+# 166); over the whole set only logged: the JAX package's own stream
+# parts from its lite fit past the limit on set 4's blends 36 (2.25%,
+# 10 against 24 iterations) and 43 (110%, stopped at iteration 8) on
+# the CPU (tests/stream_lite_witness.py)
+HP_STREAM_LITE, HP_STREAM_LITE_BLENDS = 0.02, 4
+HP_CENTROID_PX = 2.0     # tests/test_cli.py:72-77
+
+
+def hp_record_build(blob, record_dir):
+    """``build_lite_blend`` in a pipeline worker, after writing what the
+    worker sees of CUDA and its torch threads to ``record_dir``."""
+    import uuid
+
+    import torch
+    from scarlet_tpu_torch import parallel
+
+    with open(os.path.join(record_dir, f"{uuid.uuid4().hex}.json"),
+              "w") as f:
+        json.dump({"pid": os.getpid(),
+                   "CUDA_VISIBLE_DEVICES":
+                       os.environ.get("CUDA_VISIBLE_DEVICES"),
+                   "device_count": torch.cuda.device_count(),
+                   "threads": torch.get_num_threads()}, f)
+    return parallel.build_lite_blend(blob)
+
+
+def _hp_read_records(record_dir):
+    out = []
+    for name in sorted(os.listdir(record_dir)):
+        with open(os.path.join(record_dir, name)) as f:
+            out.append(json.load(f))
+    return out
+
+
+def _hp_blobs():
+    """The host path's generated blends (``default_rng(SEED)``) as
+    pipeline blobs, with their truth catalogs."""
+    from scarlet_tpu_torch.testing import generate_blend
+
+    rng = np.random.default_rng(SEED)
+    raw = [generate_blend(rng) for _ in range(N_BLENDS)]
+    return [{"images": d["images"], "variance": d["variance"],
+             "psfs": d["psfs"],
+             "centers": [(float(r["y"]), float(r["x"]))
+                         for r in d["catalog"]]} for d in raw]
+
+
+def hp_kernel_checks(dev, card, label, config, data, state):
+    """K1, K3 and K4 against their plain versions on a path's packed fit
+    inputs: K1 at the path's exit tolerance, K3 and K4 bit for bit (K4's
+    g_sed to GRAD_SED_RTOL)."""
+    from scarlet_tpu_torch.ops import kernels as kn
+
+    C, H, W = config.scene_shape
+    P = config.pad
+    seds, m = state.seds[0], state.morphs[0]
+    origins, on = state.origins[0], state.comp_active[0]
+    B, K = on.shape
+    shape = f"B={B} K={K} C={C} {H}x{W} box={m.shape[-1]}"
+    timed_by = {}
+
+    def timer(fn, key, reps=20):
+        """The profiler's device time, or CUDA events where it records no
+        launch of the kernel (it can miss short kernels late in a long
+        run: ROADMAP Queue 3)."""
+        try:
+            ms = device_ms(fn, key, reps)
+            timed_by.setdefault(key, "profiler")
+        except AssertionError as exc:
+            log(f"{exc}: {key} timed with CUDA events")
+            ms = time_ms(fn, reps)
+            timed_by[key] = "CUDA events"
+        return ms
+
+    res = {"scene_assembly": dict(
+        **scene_check(seds, m, origins, on, (C, H, W), P, timer=timer),
+        shape=shape),
+        "grad_gather": dict(
+            **grad_check(strided_gradient(B, C, H, W, config.fft_shape, dev),
+                         seds, m, origins, P, timer=timer), shape=shape)}
+    mm = (m * data.box_masks[0]).contiguous()
+    idx = kn.candidate_index(mm, config.fit_center_radius)
+    wt, kt, n_iter = data.mono_weights[0], data.mono_keep[0], \
+        config.mono_n_iters[0]
+    tol = float(config.mono_tol)
+
+    def k1(f):
+        return f(mm, idx, wt, kt, n_iter, 0.0, tol=tol)
+
+    passes = mono_passes_run(mm, idx, wt, kt, n_iter, tol)
+    res["monotonic_prox"] = dict(
+        **bound(2 * nbytes(mm) + nbytes(idx, wt, kt),
+                mono_ops(passes, idx, wt)),
+        mean_passes=float(passes.double().mean()),
+        max_abs_err=float((k1(kn.monotonic_prox)
+                           - k1(kn.monotonic_prox_plain)).abs().max()),
+        limit=0.0, ms=timer(lambda: k1(kn.monotonic_prox), "mono_kernel"),
+        plain_ms=time_ms(lambda: k1(kn.monotonic_prox_plain), 3),
+        shape=f"{shape} n_iter={n_iter} tol={tol}")
+    for name, key in (("scene_assembly", "scene_kernel"),
+                      ("grad_gather", "grad_kernel"),
+                      ("monotonic_prox", "mono_kernel")):
+        res[name]["timed_by"] = timed_by[key]
+    for name, r in res.items():
+        err = r["g_morph_err"] if name == "grad_gather" \
+            else r["max_abs_err"]
+        if err != 0.0:
+            raise AssertionError(f"{name} at the {label} shape differs from "
+                                 f"its plain version by {err}")
+        log(f"kernel {name} at the {label} shape: max_abs_err "
+            f"{r['max_abs_err']:.3g}, kernel {r['ms']:.4f} ms "
+            f"({r['timed_by']}), plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']} [{r['shape']}] on {card}")
+    return res
+
+
+def hp_pipeline(dev, card, setup, init_s):
+    """(a) ``BlendPipeline`` with min(HP_WORKERS, cores) workers on the
+    host path's 128 blobs: a warm-up run, the counted run and one more.
+    Records held to the same fit of ``pack_blends``'s batch in process;
+    every worker sees no card.  Returns (counts, summary)."""
+    import tempfile
+
+    from scarlet_tpu_torch import parallel
+    from scarlet_tpu_torch.ops import kernels as kn
+
+    n_workers = min(HP_WORKERS, os.cpu_count())
+    blobs = _hp_blobs()
+    summary = dict(workers=n_workers, blends=len(blobs),
+                   in_process_init_s_per_128=init_s * 128 / N_BLENDS)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        with parallel.BlendPipeline(n_workers, fit_device=dev) as pipe:
+            pipe.run(blobs[:n_workers], hp_record_build,
+                     build_kwargs={"record_dir": tmp}, max_iter=2)
+            warm_s = time.perf_counter() - t0
+            runs = []
+            for i in range(2):
+                kn.reset_launch_counts()
+                t1 = time.perf_counter()
+                records = pipe.run(blobs, hp_record_build,
+                                   build_kwargs={"record_dir": tmp},
+                                   max_iter=MAX_ITER,
+                                   check_every=CHECK_EVERY)
+                wall = time.perf_counter() - t1
+                if i == 0:
+                    counts = kn.launch_counts()
+                runs.append(dict(pipe.last_timings, wall_s=wall,
+                                 blends_per_min=len(blobs) / wall * 60.0))
+        seen = _hp_read_records(tmp)
+    summary.update(spawn_and_warm_up_s=warm_s, runs=runs)
+    if not seen or any(s["device_count"] != 0 or
+                       s["CUDA_VISIBLE_DEVICES"] != "" for s in seen):
+        raise AssertionError(f"a pipeline worker saw the card: {seen[:4]}")
+    summary["worker_threads"] = sorted({s["threads"] for s in seen})
+    summary["workers_seen"] = len({s["pid"] for s in seen})
+
+    config, data, state = setup
+    out, losses = parallel.fit_batch_device_converged(
+        state, data, config, MAX_ITER, check_every=CHECK_EVERY)
+    its = out.it.cpu().numpy()
+    losses = losses.cpu().numpy()
+    ref = losses[its - 1, np.arange(len(its))]
+    got_its = np.array([r["iterations"] for r in records])
+    got = np.array([r["logL"] for r in records])
+    rel = np.abs(got - ref) / np.abs(ref)
+    summary.update(max_rel_logL=float(rel.max()),
+                   bitwise=bool(np.array_equal(got, ref.astype(np.float64))),
+                   median_iterations=float(np.median(got_its)),
+                   launches={k: int(counts[k]) for k in PATH_KERNELS})
+    if not (np.array_equal(got_its, its) and rel.max() <= HP_PIPELINE_RTOL):
+        raise AssertionError(
+            f"pipeline records differ from the in-process fit: iterations "
+            f"equal {np.array_equal(got_its, its)}, max rel logL "
+            f"{rel.max():.3g} (limit {HP_PIPELINE_RTOL})")
+    worse = [(r["init logL"], r["logL"]) for r in records
+             if not r["logL"] > r["init logL"]]
+    if worse:
+        raise AssertionError(f"pipeline logL did not improve: {worse}")
+    for name in PATH_KERNELS:
+        if counts[name] <= 0:
+            raise AssertionError(f"{name} was not launched by the pipeline")
+    last = runs[-1]
+    phases = [{k: r[k] for k in ("init_s", "setup_s", "fit_s", "writeback_s")}
+              for r in runs]
+    log(f"pipeline (a): BlendPipeline, {n_workers} workers (torch threads "
+        f"{summary['worker_threads']}, no card in any of "
+        f"{summary['workers_seen']}), {len(blobs)} blends: last_timings "
+        f"{phases}"
+        f", {last['blends_per_min']:.1f} blends/min "
+        f"({runs[0]['blends_per_min']:.1f} in the counted run); host init "
+        f"{last['init_s']:.3f} s per 128 in workers against the in-process "
+        f"{summary['in_process_init_s_per_128']:.2f} s of this run; "
+        f"spawn and warm-up "
+        f"{warm_s:.1f} s; records against the in-process fit: iterations "
+        f"equal, max rel logL {rel.max():.3g} (bit for bit "
+        f"{summary['bitwise']}); launches {summary['launches']} on {card}")
+    return counts, summary
+
+
+def _hp_cli_files(tmp):
+    """HP_CLI_FILES generated npz files (``default_rng(SEED)``): the first
+    HP_CLI_NOCAT without a catalog, the next HP_CLI_NOVAR without a
+    variance plane.  Returns (paths, truth catalogs (y, x))."""
+    from scarlet_tpu_torch.testing import generate_blend
+
+    rng = np.random.default_rng(SEED)
+    paths, truths = [], []
+    for i in range(HP_CLI_FILES):
+        d = generate_blend(rng)
+        keys = dict(images=d["images"], psfs=d["psfs"])
+        if i >= HP_CLI_NOCAT:
+            keys["catalog"] = d["catalog"]
+        if not HP_CLI_NOCAT <= i < HP_CLI_NOCAT + HP_CLI_NOVAR:
+            keys["variance"] = d["variance"]
+        path = os.path.join(tmp, f"blend_{i:03d}.npz")
+        np.savez_compressed(path, **keys)
+        paths.append(path)
+        truths.append(np.stack([d["catalog"]["y"], d["catalog"]["x"]], 1))
+    return paths, truths
+
+
+def _hp_cli(files, out, *extra):
+    """``python -m scarlet_tpu_torch deblend`` in a subprocess (its
+    ``main``, then the kernels' launch counts of that process on a line of
+    their own): (output dict, launch counts, wall s)."""
+    code = ("import json, sys; from scarlet_tpu_torch.__main__ import main; "
+            "from scarlet_tpu_torch.ops import kernels; "
+            "rc = main(sys.argv[1:]); "
+            "print('COUNTS ' + json.dumps(kernels.launch_counts())); "
+            "sys.exit(rc)")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", code, "deblend", *files,
+                          "--out", out, *extra], capture_output=True,
+                         text=True, timeout=600, env=env, cwd=root)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"the deblend CLI failed ({res.returncode}): "
+                             f"{res.stderr[-3000:]}")
+    counts = json.loads([line for line in res.stdout.splitlines()
+                         if line.startswith("COUNTS ")][-1][7:])
+    with open(out) as f:
+        return json.load(f), counts, wall
+
+
+def _hp_sorted(cen):
+    cen = np.asarray(cen, float)
+    return cen[np.lexsort(cen.T)]
+
+
+def hp_cli(dev, card):
+    """(b) The deblend CLI as a subprocess on the card: HP_CLI_FILES npz
+    files; ``--detect device`` against ``--detect host``; HP_CLI_CPU_FILES
+    of them with ``--cpu``; K1, K3 and K4 at the CLI's fit shapes (its
+    ``stream_setup`` in this process).  Returns (counts, checks,
+    summary)."""
+    import tempfile
+
+    import torch
+    from scarlet_tpu_torch.__main__ import _load_blend
+    from scarlet_tpu_torch.parallel import stream
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths, truths = _hp_cli_files(tmp)
+        res, counts, wall = _hp_cli(paths, os.path.join(tmp, "out.json"))
+        recs = res["records"]
+        logl = np.array([r["logL"] for r in recs])
+        init = np.array([r["init_logL"] for r in recs])
+        if not np.all(np.isfinite(logl)) or not all(
+                np.all(np.isfinite(np.asarray(r["flux"], float)))
+                for r in recs):
+            raise AssertionError("non-finite CLI records")
+        worse = float(np.mean(logl <= init))
+        errs = np.concatenate([
+            np.linalg.norm(np.asarray(r["centroid"], float) - t, axis=1)
+            for r, t in zip(recs[HP_CLI_NOCAT:], truths[HP_CLI_NOCAT:])])
+        med_err = float(np.nanmedian(errs))
+        if worse > MAX_WORSE or not med_err < HP_CENTROID_PX:
+            raise AssertionError(f"CLI records: logL not improved for "
+                                 f"{worse:.3f} of the blends, median "
+                                 f"centroid error {med_err:.3f} px")
+        for name in PATH_KERNELS:
+            if counts[name] <= 0:
+                raise AssertionError(f"{name} was not launched by the CLI")
+        det = {mode: _hp_cli(paths, os.path.join(tmp, f"{mode}.json"),
+                             "--detect", mode, "--max-iter",
+                             str(HP_DETECT_ITERS))
+               for mode in ("host", "device")}
+        det_diff = 0.0
+        for rh, rd in zip(det["host"][0]["records"],
+                          det["device"][0]["records"]):
+            if rh["n_sources"] != rd["n_sources"]:
+                raise AssertionError(f"{rh['file']}: host detection "
+                                     f"{rh['n_sources']} sources, device "
+                                     f"{rd['n_sources']}")
+            det_diff = max(det_diff, float(np.abs(
+                _hp_sorted(rh["centroid"]) - _hp_sorted(rd["centroid"])
+            ).max()))
+        if not det_diff <= 0.1:
+            raise AssertionError(f"device and host detection centroids "
+                                 f"differ by {det_diff} px")
+        # card against --cpu, held to CPU_RTOL, or where the card's own
+        # runs on HP_WITNESS_DRAWS copies of the images times
+        # (1 + HP_PERTURB N(0, 1)) move a blend's iterations or logL (its
+        # conditioning: a roundoff flip of the convergence test), to
+        # HP_WITNESS_FACTOR times that move (the object tree's rule)
+        sel = paths[HP_CLI_NOCAT + HP_CLI_NOVAR:][:HP_CLI_CPU_FILES]
+        moved = []
+        rng = np.random.default_rng(SEED)
+        for draw in range(HP_WITNESS_DRAWS):
+            for p in sel:
+                d = dict(np.load(p, allow_pickle=True))
+                noise = rng.standard_normal(d["images"].shape)
+                d["images"] = (d["images"] * (1 + HP_PERTURB * noise)
+                               ).astype(np.float32)
+                moved.append(p.replace(".npz", f"_moved{draw}.npz"))
+                np.savez(moved[-1], **d)
+        runs = {name: _hp_cli(files, os.path.join(tmp, f"{name}.json"),
+                              *extra)[0]["records"]
+                for name, files, extra in (("card", sel, ()),
+                                           ("cpu", sel, ("--cpu",)),
+                                           ("card_moved", moved, ()))}
+        its = {k: np.array([r["iterations"] for r in v]).reshape(-1, len(sel))
+               for k, v in runs.items()}
+        ll = {k: np.array([r["logL"] for r in v]).reshape(-1, len(sel))
+              for k, v in runs.items()}
+        cpu_rel = np.abs(ll["cpu"][0] - ll["card"][0]) / np.abs(ll["card"][0])
+        own = (np.abs(ll["card_moved"] - ll["card"]) / np.abs(ll["card"])
+               ).max(axis=0)
+        own_its = (its["card_moved"] != its["card"]).any(axis=0)
+        allowed = np.maximum(CPU_RTOL, HP_WITNESS_FACTOR * own)
+        bad = ((its["card"][0] != its["cpu"][0]) & ~own_its) \
+            | (cpu_rel > allowed)
+        h_its = its["cpu"][0].tolist()
+        if bad.any():
+            raise AssertionError(
+                f"CLI card against --cpu: iterations "
+                f"{its['card'][0].tolist()} vs {h_its} (the card's own on "
+                f"moved images {its['card_moved'].tolist()}), rel logL "
+                f"{cpu_rel} against the allowed {allowed}")
+        cpu_rel = dict(max=float(cpu_rel.max()), per_file=cpu_rel.tolist(),
+                       card_own_move=own.tolist(),
+                       card_iterations=its["card"][0].tolist(),
+                       card_moved_iterations=its["card_moved"].tolist())
+
+        # the CLI's fit inputs, built here for the kernel checks
+        blends = [_load_blend(p) for p in paths]
+    K = max(len(b[3]) for b in blends)
+    carr = np.zeros((len(blends), K, 2), np.int32)
+    cact = np.zeros((len(blends), K), bool)
+    for i, b in enumerate(blends):
+        carr[i, :len(b[3])] = b[3]
+        cact[i, :len(b[3])] = True
+    _, H, W = blends[0][0].shape
+    cap = max(H, W) + 1
+    config, data, state, _ = stream.stream_setup(
+        *(np.stack([b[j] for b in blends]) for j in range(3)), carr,
+        model_psf(), center_active=cact, box_size=cap - (cap % 2 == 0),
+        n_slots=2 * K, device=dev)
+    checks = hp_kernel_checks(dev, card, "CLI", config, data, state)
+    del data, state
+    torch.cuda.empty_cache()
+    summary = dict(files=len(paths), wall_s=wall,
+                   blends_per_min=res["blends_per_min"],
+                   command_wall_s=res["wall_s"], worse_share=worse,
+                   median_centroid_err_px=med_err,
+                   median_iterations=float(np.median(
+                       [r["iterations"] for r in recs])),
+                   detect_centroid_max_diff_px=det_diff,
+                   detect_blends_per_min={m: det[m][0]["blends_per_min"]
+                                          for m in det},
+                   cpu_files=len(sel), cpu_iterations=h_its,
+                   cpu_vs_card=cpu_rel,
+                   launches={k: int(counts[k]) for k in PATH_KERNELS})
+    log(f"CLI (b): python -m scarlet_tpu_torch deblend on {len(paths)} npz "
+        f"files ({HP_CLI_NOCAT} without a catalog, {HP_CLI_NOVAR} without "
+        f"variance), on the card: {res['blends_per_min']} blends/min by its "
+        f"own clock ({res['wall_s']} s; {wall:.1f} s with the process' "
+        f"start), median iterations {summary['median_iterations']}, logL "
+        f"not improved for {worse:.3f}, median centroid error "
+        f"{med_err:.3f} px; --detect device vs host: centroids within "
+        f"{det_diff:.3g} px ({summary['detect_blends_per_min']} blends/min "
+        f"at {HP_DETECT_ITERS} iterations); {len(sel)} files with --cpu: "
+        f"iterations {h_its} against the card's "
+        f"{cpu_rel['card_iterations']}, rel logL {cpu_rel['per_file']} "
+        f"(limit {CPU_RTOL}, or {HP_WITNESS_FACTOR} x the card's own move "
+        f"on {HP_WITNESS_DRAWS} copies of the images x (1 + {HP_PERTURB} "
+        f"N(0, 1)): {cpu_rel['card_own_move']}, iterations "
+        f"{cpu_rel['card_moved_iterations']}); "
+        f"launches {summary['launches']} on {card}")
+    return counts, checks, summary
+
+
+def hp_harness(dev, card):
+    """(c) The regression harness on the card on a generated set HP_SET
+    (50 blends) in a temporary root: "stream" and "lite" on all blends,
+    "main" on HP_MAIN_BLENDS, each with the kernel counts zeroed just
+    before it; stream against lite logL per blend; detection on the
+    device against the host.  Returns (counts per pipeline, summary)."""
+    import tempfile
+
+    from scarlet_tpu_torch import testing
+    from scarlet_tpu_torch.ops import kernels as kn
+
+    counts, summary = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = testing.bundled_blends(HP_SET, root=tmp)
+        results = {}
+        for pipe in ("stream", "lite", "main"):
+            sel = paths[:HP_MAIN_BLENDS] if pipe == "main" else paths
+            kn.reset_launch_counts()
+            t0 = time.perf_counter()
+            recs = testing.deblend_and_measure(
+                set_ids=(HP_SET,), paths=sel, save=False, pipeline=pipe,
+                device=dev)[HP_SET]
+            wall = time.perf_counter() - t0
+            counts[pipe] = kn.launch_counts()
+            results[pipe] = recs
+            logl = [r["logL"] for r in recs]
+            if not all(np.isfinite(logl)) or not all(
+                    r["logL"] > r["init logL"] for r in recs):
+                raise AssertionError(f"harness {pipe}: logL not finite or "
+                                     f"not improved")
+            summary[pipe] = dict(
+                blends=len(recs), wall_s=wall,
+                median_logL=float(np.median(logl)),
+                median_iterations=float(np.median(
+                    [r["iterations"] for r in recs])),
+                launches={k: int(counts[pipe][k]) for k in PATH_KERNELS})
+        for pipe in ("stream", "lite"):
+            for name in PATH_KERNELS:
+                if counts[pipe][name] <= 0:
+                    raise AssertionError(f"{name} was not launched by the "
+                                         f"harness's {pipe} pipeline")
+        if counts["main"]["monotonic_prox"] <= 0:
+            raise AssertionError("K1 was not launched by the harness's main "
+                                 "pipeline")
+        ll = np.array([r["logL"] for r in results["lite"]])
+        ls = np.array([r["logL"] for r in results["stream"]])
+        rel = np.abs(ls - ll) / np.abs(ll)
+        stream_lite = float(rel[:HP_STREAM_LITE_BLENDS].max())
+        beyond = [dict(blend=int(i), rel=float(rel[i]),
+                       iterations={p: results[p][i]["iterations"]
+                                   for p in ("stream", "lite")},
+                       logL={p: results[p][i]["logL"]
+                             for p in ("stream", "lite")})
+                  for i in np.flatnonzero(rel >= HP_STREAM_LITE)]
+        if not stream_lite < HP_STREAM_LITE:
+            raise AssertionError(f"harness stream against lite logL on the "
+                                 f"first {HP_STREAM_LITE_BLENDS} blends: "
+                                 f"{stream_lite:.3g}")
+        det = {on: testing.api.detection_quality(
+            set_ids=(HP_SET,), paths=paths, host=not on, device=dev)
+            [HP_SET] for on in (True, False)}
+        if det[True]["completeness"] != det[False]["completeness"]:
+            raise AssertionError(
+                f"detection completeness device {det[True]['completeness']}"
+                f" vs host {det[False]['completeness']}")
+    summary.update(stream_vs_lite_max_rel_logL=stream_lite,
+                   stream_vs_lite_all=dict(median=float(np.median(rel)),
+                                           beyond_limit=beyond),
+                   detection_completeness=det[True]["completeness"],
+                   detection_false_rate=det[True]["false_rate"])
+    log(f"harness (c): generated set {HP_SET} on the card: "
+        + "; ".join(f"{p} {v['blends']} blends {v['wall_s']:.2f} s, median "
+                    f"logL {v['median_logL']:.6g}, median iterations "
+                    f"{v['median_iterations']}, launches {v['launches']}"
+                    for p, v in ((p, summary[p])
+                                 for p in ("stream", "lite", "main")))
+        + f"; stream vs lite max rel logL {stream_lite:.3g} on the first "
+        f"{HP_STREAM_LITE_BLENDS} blends (limit {HP_STREAM_LITE}), over all "
+        f"{len(rel)} median {np.median(rel):.3g}, beyond the limit "
+        f"{beyond}; detection completeness "
+        f"{det[True]['completeness']:.4f} on the device = host on {card}")
+    return counts, summary
+
+
+def host_paths_phase(dev, card, setup, init_s):
+    """The production host paths: (a) the pipeline, (b) the CLI, (c) the
+    harness, each with the kernel counts zeroed just before its run, and
+    K1, K3 and K4 against their plain versions at the pipeline's and the
+    CLI's fit shapes.  Returns (counts per path, checks, summary)."""
+    t_phase = time.perf_counter()
+    pipe_counts, pipe = hp_pipeline(dev, card, setup, init_s)
+    checks = {"pipeline": hp_kernel_checks(dev, card, "pipeline", *setup)}
+    cli_counts, checks["CLI"], cli = hp_cli(dev, card)
+    harness_counts, harness = hp_harness(dev, card)
+    counts = dict(pipeline=pipe_counts, cli=cli_counts,
+                  harness=harness_counts)
+    return counts, checks, dict(pipeline=pipe, cli=cli, harness=harness,
+                                phase_s=time.perf_counter() - t_phase)
+
+
 def main():
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -3994,7 +4528,7 @@ def main():
             launches_two_ranks={mesh: [r[name] for r in per_rank]
                                 for mesh, per_rank in sh_launches.items()},
             shapes=sh_checks[name])
-    del setup, seeds
+    del seeds
 
     # the multi-resolution fit: K1, K3 and K4 counted over one aligned fit
     mr_counts, mr_checks, mr_summary = multires_phase(dev, card)
@@ -4020,6 +4554,22 @@ def main():
         int(sl_counts["monotonic_prox"])
     kres["monotonic_prox"]["launches_lsbg"] = \
         int(lsbg_counts["monotonic_prox"])
+
+    # the production host paths: the pipeline, the CLI (a subprocess: its
+    # own counts) and the harness, each counted from zero
+    log(f"the phases before the host paths took "
+        f"{time.perf_counter() - t_start:.1f} s")
+    hp_counts, hp_checks, hp_summary = host_paths_phase(dev, card, setup,
+                                                        init_s)
+    del setup
+    log(f"host paths summary: {json.dumps(hp_summary)}")
+    for name in PATH_KERNELS:
+        kres[name]["launches_pipeline"] = int(hp_counts["pipeline"][name])
+        kres[name]["launches_cli"] = int(hp_counts["cli"][name])
+        kres[name]["launches_harness"] = {
+            pipe: int(c[name]) for pipe, c in hp_counts["harness"].items()}
+        kres[name]["host_paths_shapes"] = {
+            label: res[name] for label, res in hp_checks.items()}
 
     # each kernel's launches from the run of the path that drives it:
     # K1, K3 and K4 from one device-stream run, K5 and K6 from the fit of
@@ -4047,6 +4597,7 @@ def main():
              **{k: v for k, v in res.items() if k not in main_keys})
         for name, res in kres.items()]
     log(f"CPU rerun max rel logL diff {cpu_rel:.3g}")
+    log(f"chip_smoke total wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -358,10 +358,17 @@ class LiteBlend:
     # -- engine fit --------------------------------------------------------
     def engine_setup(self, e_rel=1e-4, min_iter=1, bucket_mode="single",
                      scene_shape=None, box_size=None, n_slots=None,
-                     fft_shape=None, device=None):
+                     fft_shape=None, device=None, platform=None):
         """The (config, data, state) of the engine, on ``device`` (default:
         the observation's) -- the entry point of batched fitting
         (:mod:`scarlet_tpu_torch.parallel`).
+
+        ``platform`` ("cuda" or "cpu") is where the fit will run, which
+        picks the config's kernel branches (``use_pallas``,
+        ``use_pallas_scene``, ``packed_morphs``); it defaults to
+        ``device``'s type.  A CPU worker builds a card's config with
+        ``device="cpu", platform="cuda"`` (scarlet_tpu/lite/models.py:
+        480-485, 677-689).
 
         ``bucket_mode``: "single" packs every component into one box
         bucket with per-component logical-box masks; "per-size" groups
@@ -542,7 +549,12 @@ class LiteBlend:
             )
         scene_pad = min(int(overhang) + 1, max(bucket_sizes))
 
-        accel = torch.device(device).type == "cuda"
+        if platform is None:
+            platform = torch.device(device).type
+        if platform not in ("cuda", "cpu"):
+            raise ValueError(f"platform must be 'cuda' or 'cpu', got "
+                             f"{platform!r}")
+        accel = platform == "cuda"
         mono_n_iters = []
         for s in bucket_sizes:
             _, _, n_it = engine.monotonicity_tables((s, s), fc_radius,

@@ -1,7 +1,8 @@
 """Batched fitting of many blends on one device or split over the ranks
 of a ``torch.distributed`` group, the device stream (init, fit and
 records of raw pixel stacks), device peak detection and the batched
-multi-resolution fitter."""
+multi-resolution fitter; the multiprocess host pipeline
+(:class:`BlendPipeline`)."""
 from .batch import (  # noqa: F401
     BatchConfig,
     pack_batch,
@@ -17,6 +18,11 @@ from .batch import (  # noqa: F401
     make_mesh,
     shard_batch,
     fit_batch_sharded,
+)
+from .pipeline import (  # noqa: F401
+    BlendPipeline,
+    deblend_stream,
+    build_lite_blend,
 )
 from .detection import (  # noqa: F401
     detect_peaks_device,
