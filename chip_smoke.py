@@ -166,7 +166,38 @@ Run from the repository root, with one CUDA card:
    logged), detection on the card with the host's completeness; K1, K3
    and K4 against their plain versions, bit for bit (K4's g_sed to
    GRAD_SED_RTOL), at the pipeline's and the CLI's fit shapes.
-14. Prints one JSON line with the kernels, the card's name and power
+14. The ten tutorial examples (``scarlet_tpu_torch.examples``, the JAX
+   package's ``examples/*.py``) in its order, each ``run()`` on the card
+   on the generated stand-in of its data file at the file's size
+   (``testing.example_data``; the multiresolution example makes its own
+   data) at the JAX script's full depths (``EX_FAST``), with the kernel
+   counts zeroed just before it, figures into a temporary directory
+   where matplotlib is installed (where it is not, as on the card
+   machine, every other step runs and no PNG is written).
+   Per example: wall seconds by step (init, fit, display; host clock
+   after ``torch.cuda.synchronize()``), iterations, logL first and last,
+   the figures' RGB panels, the PNGs and their sizes, K1, K3 and K4
+   launches.  Holds: every figure's RGB panels computed (the display's
+   numerics run with or without matplotlib) under the PNG names of the
+   JAX package's script, every PNG non-empty (none without matplotlib),
+   every logL finite and improving, the quickstart's refit improving its
+   logL on its own start (its ``run()`` keeps the JAX script's
+   ``loss[-1] < loss[0] / 20``, which holds whatever the refit does
+   where logL > 0, and at full depth holds the refit at or above the
+   first fit's logL), K1 launched by every example and
+   K3 and K4 by the five that fit through the lite engine or the
+   multi-resolution fitter, and K1, K3 and K4 against their plain
+   versions on the first input of every shape new to the phase (K1 and
+   K3 bit for bit, K4's g_morph bit for bit and g_sed to GRAD_SED_RTOL).
+   The display's panels (``display.scene_panels``, ``source_panels``,
+   ``observation_panels``: what ``show_scene``, ``show_sources`` and
+   ``show_observation`` draw, in numpy) of the quickstart's card-fitted
+   sources and of the same sources moved to the CPU: every RGB array
+   equal.
+   Then starlet_source's recipe with ``monotonic=True``: the host mask
+   projection's calls and seconds against the fit's wall (ROADMAP Queue 1
+   item 6).
+15. Prints one JSON line with the kernels, the card's name and power
    limit, then, last, the device line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without a CUDA device, or outside
@@ -175,6 +206,7 @@ the repository, it exits non-zero before printing any result.
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import json
 import os
 import subprocess
@@ -2600,14 +2632,6 @@ def multires_phase(dev, card):
 # ---------------------------------------------------------------------------
 # the object tree: scarlet's quickstart (examples/quickstart.py:22-36)
 # ---------------------------------------------------------------------------
-def ot_blends(n=OT_BLENDS, seed=OT_SEED, shape=OT_SHAPE, n_sources=OT_SOURCES):
-    from scarlet_tpu_torch.testing import generate_blend
-
-    rng = np.random.default_rng(seed)
-    return [generate_blend(rng, shape=shape, n_sources=n_sources)
-            for _ in range(n)]
-
-
 def ot_setup(d, dev, set_spectra=True, perturb=None):
     """The quickstart's frame, observation and ``init_all_sources`` on
     ``dev``; with ``perturb`` (a seed), the images times (1 + OT_PERTURB
@@ -2793,6 +2817,7 @@ def ot_cpu_run(job):
     init decisions and losses of blend ``i`` of the cell; ``("galaxy",)``
     the losses and boxes of ``testing.large_galaxy_fit``."""
     import torch
+    from scarlet_tpu_torch.testing.example_data import ot_blends
 
     torch.set_num_threads(1)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -2802,7 +2827,8 @@ def ot_cpu_run(job):
         blend, boxes = large_galaxy_fit("cpu")
         return boxes, np.array(blend.loss)
     _, i, set_spectra, n_iter, perturb = job
-    s = ot_setup(ot_blends(i + 1)[i], "cpu", set_spectra, perturb)
+    s = ot_setup(ot_blends(i + 1, OT_SEED, OT_SHAPE, OT_SOURCES)[i], "cpu",
+                 set_spectra, perturb)
     blend, _ = ot_fit(s, n_iter, e_rel=0)
     return ot_decisions(s), np.array(blend.loss)
 
@@ -2944,13 +2970,14 @@ def object_tree_phase(dev, card):
     iterations, the large scene, the card against the CPU.  Returns (the
     cell's launch counts, K1's checks, summary)."""
     import torch
+    from scarlet_tpu_torch.testing.example_data import ot_blends
     from scarlet_tpu_torch import measure
     from scarlet_tpu_torch.ops import kernels as kn
 
     t_phase = time.perf_counter()
     checks = ot_kernel_checks(dev, card)
     parts = dict(kernel_checks=time.perf_counter() - t_phase)
-    blends = ot_blends()
+    blends = ot_blends(OT_BLENDS, OT_SEED, OT_SHAPE, OT_SOURCES)
     ot_fit(ot_setup(blends[0], dev))           # warm-up
 
     kn.reset_launch_counts()
@@ -3113,26 +3140,6 @@ def lsbg_decisions(s):
             s["sources"][-1].parameters[1].host().copy())
 
 
-def lsbg_images(d):
-    """Blend ``d`` with a diffuse exponential disk at the centre (scale
-    radius LSBG_RADIUS px, peak LSBG_PEAK times each band's noise sigma,
-    convolved with the band's PSF): a stand-in for the tutorial's
-    lsbg.pkl, which the repository does not hold.  Returns (the new blend
-    dict, the disk's images)."""
-    from scipy.signal import fftconvolve
-
-    C, H, W = d["images"].shape
-    yy, xx = np.mgrid[:H, :W]
-    disk = np.exp(-np.hypot(yy - H // 2, xx - W // 2) / LSBG_RADIUS)
-    sigma = np.sqrt(np.median(d["variance"], axis=(1, 2)))
-    bands = np.stack([fftconvolve(disk, p / p.sum(), mode="same")
-                      for p in d["psfs"]])
-    bands *= (LSBG_PEAK * sigma / bands.max(axis=(1, 2)))[:, None, None]
-    out = dict(d)
-    out["images"] = (d["images"] + bands).astype(np.float32)
-    return out, bands
-
-
 def lsbg_setup(d, dev, perturb=None):
     """examples/lsbg_wavelet_model.py's init: compact sources from
     ``init_all_sources(max_components=1, min_snr=50, thresh=1,
@@ -3169,17 +3176,21 @@ def sl_cpu_run(job):
     ``("lsbg", perturb)`` the field; SL_CPU_ITERS iterations at e_rel 0.
     Returns (init decisions, losses, the starlet boxes after the fit)."""
     import torch
+    from scarlet_tpu_torch.testing.example_data import (lsbg_images,
+                                                         ot_blends)
 
     torch.set_num_threads(1)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     if job[0] == "lsbg":
         s = lsbg_setup(lsbg_images(ot_blends(
-            1, OT_SEED + 1, OT_LARGE_SHAPE, OT_LARGE_SOURCES)[0])[0], "cpu",
+            1, OT_SEED + 1, OT_LARGE_SHAPE, OT_LARGE_SOURCES)[0],
+            LSBG_RADIUS, LSBG_PEAK)[0], "cpu",
             job[1])
         dec = lsbg_decisions(s)
     else:
         _, i, perturb = job
-        s = sl_setup(ot_blends(i + 1)[i], "cpu", perturb)
+        s = sl_setup(ot_blends(i + 1, OT_SEED, OT_SHAPE, OT_SOURCES)[i],
+                     "cpu", perturb)
         dec = sl_decisions(s)
     blend, _ = ot_fit(s, SL_CPU_ITERS, e_rel=0)
     return dec, np.array(blend.loss), starlet_boxes(s)
@@ -3318,12 +3329,13 @@ class RecordK1:
         return self.orig(morphs, idx, wt, kt, n, min_gradient, tol)
 
 
-def sl_kernel_checks(store, card):
+def sl_kernel_checks(store, card, label="the starlet phase's shapes"):
     """K1 against its plain version on the first input of every shape,
-    table and depth the starlet phase launched: bit for bit.  One record
-    per shape (the inputs checked there, their depths, the kernel), with
-    the time of the input of the largest depth (profiler device time; the
-    plain version with CUDA events)."""
+    table and depth the starlet phase (or the path ``label`` names)
+    launched: bit for bit.  One record per shape (the inputs checked
+    there, their depths, the kernel), with the time of the input of the
+    largest depth (profiler device time; the plain version with CUDA
+    events)."""
     from scarlet_tpu_torch.ops import kernels as kn
 
     out = {}
@@ -3361,7 +3373,7 @@ def sl_kernel_checks(store, card):
                    passes=int(passes.max()), ms=ms, timed_by=timed_by,
                    plain_ms=time_ms(lambda: kn.monotonic_prox_plain(
                        morphs, idx, wt, kt, n, mg, tol=tol), 5))
-        log(f"kernel monotonic_prox at the starlet phase's shapes {shape} "
+        log(f"kernel monotonic_prox at {label} {shape} "
             f"({rec['kernel']}): {rec['inputs']} inputs (depths "
             f"{rec['n_iter'][0]}-{rec['n_iter'][1]}) bit for bit; at depth "
             f"{rec['n_iter'][1]} kernel {rec['ms']:.4f} ms ({timed_by}), plain "
@@ -3379,12 +3391,14 @@ def starlet_phase(dev, card):
     launched; the card against the CPU.  Returns (the launch counts of (a)
     and (b), K1's checks, summary)."""
     import torch
+    from scarlet_tpu_torch.testing.example_data import (lsbg_images,
+                                                         ot_blends)
     from scarlet_tpu_torch import measure
     from scarlet_tpu_torch.models import constraint as tcon
     from scarlet_tpu_torch.ops import kernels as kn
 
     t_phase = time.perf_counter()
-    blends = ot_blends()
+    blends = ot_blends(OT_BLENDS, OT_SEED, OT_SHAPE, OT_SOURCES)
     ot_fit(sl_setup(blends[0], dev), SL_MAX_ITER, SL_E_REL)   # warm-up
 
     store = {}
@@ -3412,7 +3426,8 @@ def starlet_phase(dev, card):
         counts = kn.launch_counts()
 
         lsbg, disk = lsbg_images(ot_blends(1, OT_SEED + 1, OT_LARGE_SHAPE,
-                                           OT_LARGE_SOURCES)[0])
+                                           OT_LARGE_SOURCES)[0],
+                                 LSBG_RADIUS, LSBG_PEAK)
         kn.reset_launch_counts()
         tcon.reset_mask_constraint_counts()
         ls = lsbg_setup(lsbg, dev)
@@ -4422,6 +4437,419 @@ def host_paths_phase(dev, card, setup, init_s):
                                 phase_s=time.perf_counter() - t_phase)
 
 
+# ---------------------------------------------------------------------------
+# 14. the tutorial examples (scarlet_tpu_torch.examples) on their stand-ins
+# ---------------------------------------------------------------------------
+# the examples whose fits run the lite engine or the multi-resolution
+# fitter, and so launch K3 and K4 besides K1
+EX_K34 = ("multiscale_deblending", "stream_deblending", "batched_deblending",
+          "multiresolution", "hsc_hst_multires")
+# the JAX scripts' SCARLET_TPU_FAST depths (True) or their full depths
+EX_FAST = False
+# starlet_source's recipe with the host mask projection: a C copy of the
+# JAX package's native/kernels.cc is asked for above this share of the
+# fit's wall (ROADMAP Queue 1 item 6)
+EX_MASK_SHARE_LIMIT = 0.2
+
+
+def ex_inputs():
+    """Each example's input: the stand-in of its data file at the file's
+    size (``testing.example_data``'s defaults), or the multiresolution
+    example's own data."""
+    from scarlet_tpu_torch.examples import multiresolution
+    from scarlet_tpu_torch.testing import example_data as ed
+
+    hsc = ed.hsc_cosmos_35()
+    return {"quickstart": hsc, "display_tutorial": hsc,
+            "point_source": ed.psf_unmatched_sim(),
+            "starlet_source": hsc, "lsbg_wavelet_model": ed.lsbg(),
+            "multiscale_deblending": ed.testdata_3_0(),
+            "stream_deblending": hsc, "batched_deblending": hsc,
+            "multiresolution": multiresolution.load(),
+            "hsc_hst_multires": ed.test_resampling()}
+
+
+def _copy(x):
+    """A copy of a tensor argument with its strides (the gradient K4
+    reads is a strided crop); anything else as it is."""
+    import torch
+
+    if not isinstance(x, torch.Tensor):
+        return x
+    out = torch.empty_strided(tuple(x.shape), x.stride(), dtype=x.dtype,
+                              device=x.device)
+    return out.copy_(x.detach())
+
+
+class RecordKernel:
+    """Stands in for the K3 or K4 wrapper while the examples run, as
+    :class:`RecordK1` does for K1: keeps a copy of the first input of each
+    new ``key(*args)`` in ``store`` and calls the wrapper, whose counter
+    is this object's while it stands in."""
+
+    launches = _counter("launches")
+
+    def __init__(self, orig, store, key):
+        self.orig, self.store, self.key = orig, store, key
+
+    def __call__(self, *args):
+        key = self.key(*args)
+        if key not in self.store:
+            self.store[key] = tuple(_copy(a) for a in args)
+        return self.orig(*args)
+
+
+def _scene_key(seds, morphs, origins, on, scene_shape, pad):
+    return (tuple(seds.shape), tuple(morphs.shape), tuple(scene_shape),
+            int(pad))
+
+
+def _grad_key(grad, seds, morphs, origins, pad):
+    return (tuple(grad.shape), tuple(grad.stride()), tuple(seds.shape),
+            tuple(morphs.shape), int(pad))
+
+
+def _overhang(origins, box, hw):
+    """The pad that holds every box of ``origins`` inside an (H, W) scene."""
+    oy, ox = origins[..., 0], origins[..., 1]
+    return max(0, -int(oy.min()), -int(ox.min()),
+               int(oy.max()) + box[0] - hw[0], int(ox.max()) + box[1] - hw[1])
+
+
+def _event_timer(fn, key, reps=20):
+    """CUDA events for the examples' shape checks (bit for bit is what
+    they hold; the kernels' times at the paths' shapes are the earlier
+    phases')."""
+    return time_ms(fn, reps)
+
+
+def ex_kernel_checks(stores, name, card):
+    """K1, K3 and K4 against their plain versions on the first input of
+    every shape the example ``name`` launched that no example before it
+    in the phase launched: K1 and K3 bit for bit, K4's g_morph bit for
+    bit and its g_sed to GRAD_SED_RTOL, with the existing helpers
+    (:func:`sl_kernel_checks`, :func:`scene_check`, :func:`grad_check`).
+    The inputs are dropped once checked; their keys stay, so the next
+    example records only shapes new to the phase."""
+    new = {k: {key: v for key, v in s.items() if v is not None}
+           for k, s in stores.items()}
+    out = {"monotonic_prox": sl_kernel_checks(
+        new["monotonic_prox"], card, f"the {name} example's shapes")
+        if new["monotonic_prox"] else []}
+    out["scene_assembly"] = []
+    for key, (seds, m, origins, on, scene_shape, P) in new[
+            "scene_assembly"].items():
+        r = scene_check(seds, m, origins, on, scene_shape, P,
+                        timer=_event_timer)
+        if r["max_abs_err"] != 0.0:
+            raise AssertionError(f"scene_assembly at {key} ({name}) differs "
+                                 f"from its plain version by "
+                                 f"{r['max_abs_err']}")
+        out["scene_assembly"].append(dict(r, shape=str(key)))
+        log(f"kernel scene_assembly at the {name} example's shape {key}: "
+            f"bit for bit, kernel {r['ms']:.4f} ms (CUDA events), plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']}, on {card}")
+    out["grad_gather"] = []
+    for key, (grad, seds, m, origins, pad) in new["grad_gather"].items():
+        if pad != 0:
+            raise AssertionError(f"grad_gather at {key} ({name}): the fits "
+                                 f"pass the unpadded gradient, got pad {pad}")
+        if grad.ndim == 3:
+            grad, seds, m, origins = (x[None] for x in (grad, seds, m,
+                                                        origins))
+        P = _overhang(origins, m.shape[-2:], grad.shape[-2:])
+        r = grad_check(grad, seds, m, origins, P, timer=_event_timer)
+        if r["g_morph_err"] != 0.0:
+            raise AssertionError(f"grad_gather at {key} ({name}): g_morph "
+                                 f"differs from its plain version by "
+                                 f"{r['g_morph_err']}")
+        out["grad_gather"].append(dict(r, shape=str(key)))
+        log(f"kernel grad_gather at the {name} example's shape {key}: "
+            f"g_morph bit for bit, g_sed {r['g_sed_rel_err']:.3g} of sum "
+            f"|g*morph| (limit {GRAD_SED_RTOL}), kernel {r['ms']:.4f} ms "
+            f"(CUDA events), plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']}, on {card}")
+    for s in stores.values():
+        for key in s:
+            s[key] = None
+    return out
+
+
+def ex_display_devices(dev, data, sca, card):
+    """The display of the card-fitted quickstart sources (the run's
+    pickle: its parameters unpickle as host tensors, then go to the card)
+    and of the same sources left on the CPU, each beside an observation of
+    the stand-in on its device: the RGB panels that ``show_scene`` (two
+    norms), ``show_sources`` and ``show_observation`` draw, from their
+    panel functions (numpy: no matplotlib needed).  A panel of the models
+    or the data is equal.  A panel of a render (rendered, residual) is
+    equal but where a pixel saturates: the mapping's hue-preserving
+    truncation divides the brightest channel by itself, which rounds to
+    1 or to 1 - 2^-53 from the last bit of the float64 render (cuFFT and
+    the CPU's FFT part by ~4e-16), so a saturated pixel shows 255 or 254;
+    those pixels may differ by that one level.  Returns the panels
+    compared and the saturated pixels that differ."""
+    import pickle
+
+    import torch
+    from scarlet_tpu_torch import display, models
+
+    def load(device):
+        with open(sca, "rb") as f:
+            sources = pickle.load(f)
+        for src in sources:
+            for p in src.parameters:
+                p.to(device)
+        return sources
+
+    images = data["images"].astype(np.float32)
+    weights = (1 / np.maximum(data["variance"], 1e-12)).astype(np.float32)
+    centers = [(float(c["y"]), float(c["x"])) for c in data["catalog"]]
+
+    def panels(sources, device):
+        obs = models.Observation(
+            images, list("grizy"), psf=models.ImagePSF(
+                data["psfs"].astype(np.float32)), weights=weights,
+            device=device).match(sources[0].frame)
+        assert sources[0].get_model().device.type == torch.device(
+            device).type
+        norm = display.AsinhMapping(minimum=0, stretch=float(images.max())
+                                    / 20, Q=10)
+        scene = dict(show_observed=True, show_rendered=True,
+                     show_residual=True)
+        panels = display.scene_panels(sources, obs, **scene)
+        panels += display.scene_panels(sources, obs, norm=norm, **scene)
+        for _, row, _ in display.source_panels(
+                sources, obs, norm=norm, show_rendered=True,
+                show_observed=True):
+            panels += row
+        panels += display.observation_panels(obs, norm=norm, show_psf=True)
+        return [(title, rgb) for title, rgb, _ in panels]
+
+    on_card, on_cpu = panels(load(dev), dev), panels(load("cpu"), "cpu")
+    if [t for t, _ in on_card] != [t for t, _ in on_cpu]:
+        raise AssertionError("display: the card's and the CPU's figures "
+                             "have different panels")
+    saturated = 0
+    for (title, a), (_, b) in zip(on_card, on_cpu):
+        if a.shape != b.shape:
+            raise AssertionError(f"display: panel {title!r} has shapes "
+                                 f"{a.shape} and {b.shape}")
+        diff = np.abs(a.astype(int) - b.astype(int))[..., :3].max(axis=-1)
+        if not diff.any():
+            continue
+        rendered = "Rendered" in title or "Residual" in title
+        at_top = (a[..., :3].max(-1) >= 254) & (b[..., :3].max(-1) >= 254)
+        if not rendered or diff.max() > 1 or not at_top[diff > 0].all():
+            raise AssertionError(
+                f"display: panel {title!r} differs between the card and "
+                f"the CPU in {int((diff > 0).sum())} pixels (by up to "
+                f"{int(diff.max())} levels, saturated in "
+                f"{int(at_top[diff > 0].sum())})")
+        saturated += int((diff > 0).sum())
+    log(f"display card vs CPU: {len(on_card)} panels of show_scene (default "
+        f"and asinh norms), show_sources and show_observation on the "
+        f"quickstart's card-fitted sources and the same sources on the CPU: "
+        f"equal but {saturated} saturated pixels of the rendered and "
+        f"residual panels, one level apart (255 against 254), on {card}")
+    return dict(panels=len(on_card), saturated_pixels_one_level=saturated)
+
+
+def ex_starlet_monotonic(dev, data, card):
+    """starlet_source's recipe once more with the starlet source's
+    ``monotonic=True`` (``MonotonicMaskConstraint``, the host mask
+    projection): ``Blend.fit(80, e_rel=1e-4)`` on the card, and the host
+    projection's calls and seconds (``mask_constraint_counts()``) against
+    the fit's wall.  Returns the numbers."""
+    import torch
+    from scarlet_tpu_torch import detect, models
+    from scarlet_tpu_torch.models import constraint as tcon
+
+    images = data["images"].astype(np.float32)
+    weights = (1 / np.maximum(data["variance"], 1e-12)).astype(np.float32)
+    ch = list("grizy")
+    frame = models.Frame(images.shape, channels=ch,
+                         psf=models.GaussianPSF(sigma=0.8, boxsize=15))
+    obs = models.Observation(images, ch, psf=models.ImagePSF(
+        data["psfs"].astype(np.float32)), weights=weights,
+        device=dev).match(frame)
+    centers = [(float(c["y"]), float(c["x"])) for c in data["catalog"]]
+    detect.get_peaks(images=images,
+                     variance=data["variance"].astype(np.float32))
+    sources = [models.StarletSource(frame, centers[0], obs,
+                                    starlet_thresh=5e-3, monotonic=True)]
+    sources += [models.SingleExtendedSource(frame, c, obs)
+                for c in centers[1:]]
+    blend = models.Blend(sources, obs)
+    torch.cuda.synchronize()
+    tcon.reset_mask_constraint_counts()
+    t0 = time.perf_counter()
+    it, logL = blend.fit(SL_MAX_ITER, e_rel=SL_E_REL)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = tcon.mask_constraint_counts()
+    share = counts["seconds"] / wall
+    out = dict(iterations=int(it), logL=float(logL), fit_s=wall,
+               calls=counts["calls"], planes=counts["planes"],
+               host_projection_s=counts["seconds"], share=share,
+               c_copy_asked=share > EX_MASK_SHARE_LIMIT)
+    if counts["calls"] == 0 or not np.isfinite(logL):
+        raise AssertionError(f"starlet monotonic=True: {out}")
+    log(f"starlet_source with monotonic=True: {it} iterations, logL "
+        f"{logL:.1f}, fit {wall:.3f} s; the host mask projection "
+        f"(MonotonicMaskConstraint) {counts['calls']} calls, "
+        f"{counts['planes']} planes, {counts['seconds']:.3f} s = "
+        f"{100 * share:.1f}% of the fit's wall (a C copy of "
+        f"native/kernels.cc is asked for above "
+        f"{100 * EX_MASK_SHARE_LIMIT:.0f}%: "
+        f"{'asked' if out['c_copy_asked'] else 'not asked'}), on {card}")
+    return out
+
+
+def ex_figure_names(name):
+    """The PNG file names the JAX package's script ``examples/<name>.py``
+    writes (read as text from the checkout)."""
+    import re
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", f"{name}.py")
+    with open(path) as f:
+        return set(re.findall(r"[\"'](\w+\.png)[\"']", f.read()))
+
+
+def ex_check_figures(name, res, out_dir, figures):
+    """Every figure's RGB panels were computed under the JAX script's PNG
+    names ((H, W, 3), or 4 with a mask's alpha; only a likelihood figure
+    has none), and the PNGs, written where matplotlib is installed, are
+    those and non-empty.  Returns the PNGs' sizes."""
+    want = ex_figure_names(name)
+    if set(res["panels"]) != want:
+        raise AssertionError(f"{name}: figures {sorted(res['panels'])}, the "
+                             f"JAX script's {sorted(want)}")
+    for f, shapes in res["panels"].items():
+        if (not shapes and "likelihood" not in f) or any(
+                len(sh) != 3 or sh[-1] not in (3, 4) for sh in shapes):
+            raise AssertionError(f"{name}: figure {f} panels {shapes}")
+    pngs = {f: os.path.getsize(os.path.join(out_dir, f))
+            for f in res["files"] if f.endswith(".png")}
+    if any(size == 0 for size in pngs.values()) or \
+            set(pngs) != (want if figures else set()):
+        raise AssertionError(f"{name}: figure files {pngs} (figures "
+                             f"{figures})")
+    return pngs
+
+
+def _logL_improves(res, key, name):
+    first, last = res[key]
+    if not (np.isfinite(first) and np.isfinite(last) and last > first):
+        raise AssertionError(f"{name}: {key} {first} -> {last} is not finite "
+                             f"and improving")
+
+
+def examples_phase(dev, card):
+    """The ten examples' ``run()`` on the card, in the JAX package's
+    order, on their stand-ins at the data files' sizes (EX_FAST: the
+    depths), each with the kernel counts zeroed just before it and read
+    just after; figures into a temporary directory.  Per example: wall
+    seconds by step, iterations and logL, the PNGs and their sizes, K1,
+    K3 and K4 launches; the checks; K1, K3 and K4 held to their plain
+    versions on the first input of every shape new to the phase; the
+    display of the quickstart's fitted sources on the card and on the
+    CPU; the starlet recipe with the host mask projection.  Returns
+    (launches per example, shape checks per example, summary)."""
+    import importlib.util
+    import tempfile
+
+    import torch
+    from scarlet_tpu_torch.examples import NAMES
+    from scarlet_tpu_torch.ops import kernels as kn
+
+    t_phase = time.perf_counter()
+    # the examples draw their figures where matplotlib is installed;
+    # without it they run every other step and write no PNG
+    figures = importlib.util.find_spec("matplotlib") is not None
+    if not figures:
+        log("examples: matplotlib is not installed here, so the examples "
+            "compute every figure's RGB panels and draw none (no PNG); the "
+            "figures are held to the JAX package's on the CPU "
+            "(tests/test_torch_display.py, tests/test_torch_examples.py)")
+    inputs = ex_inputs()
+    stores = {name: {} for name in PATH_KERNELS}
+    origs = {name: getattr(kn, name) for name in PATH_KERNELS}
+    recorders = {
+        "monotonic_prox": RecordK1(origs["monotonic_prox"],
+                                   stores["monotonic_prox"]),
+        "scene_assembly": RecordKernel(origs["scene_assembly"],
+                                       stores["scene_assembly"], _scene_key),
+        "grad_gather": RecordKernel(origs["grad_gather"],
+                                    stores["grad_gather"], _grad_key)}
+    counts, checks, summary = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in NAMES:
+            module = importlib.import_module(
+                f"scarlet_tpu_torch.examples.{name}")
+            out_dir = os.path.join(tmp, name)
+            torch.cuda.synchronize()
+            kn.reset_launch_counts()
+            for k, rec in recorders.items():
+                setattr(kn, k, rec)
+            t0 = time.perf_counter()
+            try:
+                res = module.run(inputs[name], out_dir=out_dir, fast=EX_FAST,
+                                 device=dev)
+            finally:
+                for k, orig in origs.items():
+                    setattr(kn, k, orig)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts[name] = c = kn.launch_counts()
+            pngs = ex_check_figures(name, res, out_dir, figures)
+            # the multiresolution example's object-tree fit ends below its
+            # start at the fast depth (10 iterations), in the JAX package
+            # too; its batched fit improves at both depths
+            if name != "multiresolution" or not EX_FAST:
+                _logL_improves(res, "logL", name)
+            if name == "multiresolution":
+                _logL_improves(res, "batched_logL", name)
+            if name == "quickstart":
+                _logL_improves(res, "refit_logL", name)
+            want = PATH_KERNELS if name in EX_K34 else ("monotonic_prox",)
+            missing = [k for k in want if c[k] == 0]
+            if missing:
+                raise AssertionError(f"{name}: kernels {missing} launched "
+                                     f"no time: {c}")
+            checks[name] = ex_kernel_checks(stores, name, card)
+            summary[name] = dict(
+                wall_s=wall, seconds=res["seconds"],
+                iterations=res.get("iterations"), logL=res["logL"],
+                refit_logL=res.get("refit_logL"),
+                panels={f: len(v) for f, v in res["panels"].items()},
+                pngs=pngs, launches={k: int(c[k]) for k in PATH_KERNELS},
+                new_shapes={k: len(v) for k, v in checks[name].items()})
+            secs = ", ".join(f"{k} {v:.2f} s"
+                             for k, v in res["seconds"].items())
+            log(f"example {name} ({'fast' if EX_FAST else 'full'} depth, "
+                f"figures {figures}): "
+                f"wall {wall:.2f} s ({secs}); iterations "
+                f"{res.get('iterations')}, logL {res['logL'][0]:.6g} -> "
+                f"{res['logL'][1]:.6g}; figures' RGB panels "
+                f"{summary[name]['panels']}; PNGs {pngs}; launches K1 "
+                f"{c['monotonic_prox']}, K3 {c['scene_assembly']}, K4 "
+                f"{c['grad_gather']}; new shapes checked "
+                f"{summary[name]['new_shapes']}; on {card}")
+            if name == "quickstart":
+                summary["display_panels_card_vs_cpu"] = ex_display_devices(
+                    dev, inputs[name], os.path.join(out_dir,
+                                                    "hsc_cosmos_35.sca"),
+                    card)
+    summary["starlet_monotonic"] = ex_starlet_monotonic(
+        dev, inputs["starlet_source"], card)
+    summary["phase_s"] = time.perf_counter() - t_phase
+    log(f"examples phase: {summary['phase_s']:.1f} s on {card}")
+    return counts, checks, summary
+
+
 def main():
     import torch
 
@@ -4570,6 +4998,18 @@ def main():
             pipe: int(c[name]) for pipe, c in hp_counts["harness"].items()}
         kres[name]["host_paths_shapes"] = {
             label: res[name] for label, res in hp_checks.items()}
+
+    # the tutorial examples, each with the counts zeroed just before it
+    ex_counts, ex_checks, ex_summary = examples_phase(dev, card)
+    log(f"examples summary: {json.dumps(ex_summary)}")
+    keep = ("shape", "max_abs_err", "g_morph_err", "g_sed_rel_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "kernel")
+    for name in PATH_KERNELS:
+        kres[name]["launches_examples"] = {
+            ex: int(c[name]) for ex, c in ex_counts.items()}
+        kres[name]["examples_shapes"] = {
+            ex: [{k: r[k] for k in keep if k in r} for r in chk[name]]
+            for ex, chk in ex_checks.items() if chk[name]}
 
     # each kernel's launches from the run of the path that drives it:
     # K1, K3 and K4 from one device-stream run, K5 and K6 from the fit of

@@ -44,8 +44,10 @@ names (``import scarlet_tpu_torch as st``)::
     fluxes = [st.measure.flux(s) for s in sources]
 
 The top level holds the reference's names (the model tree, ``Box``,
-``Cache``, ``Starlet``) and its module namespaces but ``display``, which
-is not ported yet.  Importing the package builds no kernel.
+``Cache``, ``Starlet``) and its module namespaces, ``display`` (host
+matplotlib figures of models fitted on any device) included.  The
+reference's tutorials run as ``python -m scarlet_tpu_torch.examples.<name>``.
+Importing the package builds no kernel.
 """
 from .bbox import Box, overlapped_slices  # noqa: F401
 from .cache import Cache  # noqa: F401
@@ -112,6 +114,7 @@ from .models import (  # noqa: F401
     Blend,
 )
 from . import measure  # noqa: F401
+from . import display  # noqa: F401
 from . import operator  # noqa: F401
 from . import testing  # noqa: F401
 from . import models, parallel, utils  # noqa: F401

@@ -1,7 +1,7 @@
 """Source detection on the host: starlet footprints, peaks and blend
-structures.  Port of ``scarlet_tpu/detect.py`` but its matplotlib
-drawing helpers: numpy and scipy, as there (detection runs once per
-blend, before the fit), with the transforms in torch on the CPU.
+structures, and their matplotlib drawing helpers.  Port of
+``scarlet_tpu/detect.py``: numpy and scipy, as there (detection runs once
+per blend, before the fit), with the transforms in torch on the CPU.
 Connected components come from ``scipy.ndimage.label`` (4-connected);
 peaks are strict 8-neighbour maxima, ordered by a stable sort of their
 negated flux, then culled by minimum separation (brighter first).
@@ -32,6 +32,9 @@ __all__ = [
     "get_blend_trees",
     "get_blend_structures",
     "get_peaks",
+    "draw_box",
+    "draw_region",
+    "draw_footprint_box",
 ]
 
 
@@ -374,3 +377,29 @@ def get_peaks(detect=None, images=None, variance=None, bbox=None, scales=3):
         for peak in box.footprint.peaks:
             peaks.append((peak.y, peak.x))
     return peaks
+
+
+# ---------------------------------------------------------------------------
+# Debug drawing (matplotlib, display-time)
+# ---------------------------------------------------------------------------
+def draw_box(box, ax, color):
+    """Draw a box outline on a matplotlib axis. Ref: detect.py:68-83."""
+    import matplotlib.patches as patches
+
+    rect = patches.Rectangle(
+        box.origin[::-1], box.shape[1], box.shape[0],
+        linewidth=1, edgecolor=color, facecolor="none")
+    ax.add_patch(rect)
+
+
+def draw_region(region, ax):
+    """Recursively draw a QuadTreeRegion. Ref: detect.py:85-99."""
+    draw_box(region.bbox, ax, "r")
+    if region.sub_regions is not None:
+        for sub in region.sub_regions:
+            draw_region(sub, ax)
+
+
+def draw_footprint_box(footprint, ax):
+    """Draw a footprint's bounding box. Ref: detect.py:101-112."""
+    draw_box(bounds_to_bbox(footprint.bounds), ax, "k")

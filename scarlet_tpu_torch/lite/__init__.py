@@ -24,6 +24,7 @@ from .models import (  # noqa: F401
     LiteBlend,
 )
 from .measure import calculate_snr, weight_sources  # noqa: F401
+from . import display  # noqa: F401
 from .initialization import (  # noqa: F401
     get_min_psf,
     init_monotonic_morph,

@@ -131,8 +131,9 @@ class LiteFactorizedComponent(LiteComponent):
     ``fit_center_radius`` of the center, threshold, center floor,
     normalization).  Ref: scarlet/lite/models.py:136-258.
 
-    The reference's eager per-component ``update`` is not ported: fit
-    through :meth:`LiteBlend.fit`.
+    :meth:`LiteBlend.fit` runs the engine; :meth:`update` is the
+    reference's eager per-component step, for custom gradients (the
+    multiscale tutorial's ``WaveletBlend``).
     """
 
     def __init__(self, sed, morph, center, bbox, model_bbox, bg_rms,
@@ -142,7 +143,79 @@ class LiteFactorizedComponent(LiteComponent):
         self.fit_center_radius = fit_center_radius
         self.floor = floor
         self.model_bbox = model_bbox
+        if isinstance(self._sed, LiteParameter):
+            self._sed.grad = self.grad_sed
+            self._sed.prox = self.prox_sed
+        if isinstance(self._morph, LiteParameter):
+            self._morph.grad = self.grad_morph
+            self._morph.prox = self.prox_morph
         self.slices = overlapped_slices(model_bbox, bbox)
+
+    def _boxed(self, input_grad, like):
+        """The scene gradient's window of this component's box, on the
+        device and in the dtype of ``like``."""
+        grad = torch.zeros(self.bbox.shape, dtype=like.dtype,
+                           device=like.device)
+        grad[self.slices[1]] = torch.as_tensor(input_grad).to(
+            like.device, like.dtype)[self.slices[0]]
+        return grad
+
+    def grad_sed(self, input_grad, sed, morph):
+        """d(logL)/d(sed): project the scene gradient into the box and
+        contract with the morphology.  Ref: lite/models.py:206-210."""
+        morph = torch.as_tensor(morph)
+        return torch.einsum("chw,hw->c", self._boxed(input_grad, morph),
+                            morph)
+
+    def grad_morph(self, input_grad, morph, sed):
+        """d(logL)/d(morph). Ref: lite/models.py:212-216."""
+        morph = torch.as_tensor(morph)
+        return torch.einsum("c,chw->hw", torch.as_tensor(sed).to(morph),
+                            self._boxed(input_grad, morph))
+
+    def prox_sed(self, sed, prox_step=0):
+        """Floor the SED. Ref: lite/models.py:218-222."""
+        return torch.clamp_min(torch.as_tensor(sed), self.floor)
+
+    @property
+    def monotonicity(self):
+        """The morphology's monotonicity constraint (K1 on the card)."""
+        from ..models.constraint import MonotonicityConstraint
+
+        return MonotonicityConstraint(
+            neighbor_weight="angle", min_gradient=0,
+            fit_center_radius=self.fit_center_radius)
+
+    def prox_morph(self, morph, prox_step=0):
+        """Monotonicity -> background threshold (or positivity) -> center
+        floor -> max normalization.  Ref: lite/models.py:224-244."""
+        morph = self.monotonicity(torch.as_tensor(morph), 0)
+        if self.bg_thresh is not None:
+            bg_thresh = torch.as_tensor(
+                to_numpy(self.bg_rms) * self.bg_thresh).to(morph)
+            model = self.sed.to(morph)[:, None, None] * morph[None, :, :]
+            cut = torch.all(model < bg_thresh[:, None, None], dim=0)
+            morph = torch.where(cut, 0.0, morph)
+        else:
+            morph = torch.clamp_min(morph, 0)
+        cy, cx = morph.shape[0] // 2, morph.shape[1] // 2
+        morph = morph.clone()
+        morph[cy, cx] = torch.clamp_min(morph[cy, cx], self.floor)
+        return morph / morph.max()
+
+    def update(self, it, input_grad):
+        """One eager step of both factors on the device of ``input_grad``
+        (where the parameters and their optimizer states move first).
+        Ref: lite/models.py:246-252."""
+        device = torch.as_tensor(input_grad).device
+        for p in (self._sed, self._morph):
+            p.x = p.x.to(device)
+            p.state = engine.map_tree(
+                lambda a: a.to(device) if isinstance(a, torch.Tensor) else a,
+                p.state)
+        sed = self.sed
+        self._sed.update(it, input_grad, self.morph)
+        self._morph.update(it, input_grad, sed)
 
     def __repr__(self):
         return "LiteFactorizedComponent"
@@ -350,6 +423,50 @@ class LiteBlend:
                 return to_numpy(self.observation.convolve(
                     torch.from_numpy(model)))
         return model
+
+    def grad_logL(self):
+        """Eager gradient of logL with respect to the unconvolved model, on
+        the observation's device; appends the loss.
+        Ref: lite/models.py:537-545."""
+        obs = self.observation
+        model = torch.as_tensor(self.get_model(convolve=True),
+                                device=obs.device)
+        self.loss.append(float(
+            -0.5 * torch.sum(obs.weights * (obs.images - model) ** 2)))
+        grad = obs.weights * (model - obs.images)
+        return obs.convolve(grad, grad=True)
+
+    def fit_spectra(self, clip=False):
+        """Joint linear least-squares fit of all SEDs given the current
+        morphologies (host numpy).  Ref: lite/models.py:547-581."""
+        from .initialization import multifit_seds
+
+        morphs = [to_numpy(c.morph) for c in self.components]
+        boxes = [c.bbox[1:] for c in self.components]
+        fit_seds = multifit_seds(self.observation, morphs, boxes)
+        for idx, component in enumerate(self.components):
+            sed = torch.from_numpy(np.maximum(fit_seds[idx], 0))
+            if isinstance(component._sed, LiteParameter):
+                component._sed.x = sed.to(component._sed.x.device)
+            else:
+                component._sed = sed
+
+        if clip:
+            components = []
+            for src in self.sources:
+                kept = [
+                    c for c in src.components
+                    if np.any(to_numpy(c.sed) > 0)
+                    and np.any(to_numpy(c.morph) > 0)
+                ]
+                src.components = kept
+                components.extend(kept)
+            self.components = components
+        else:
+            for c in self.components:
+                if isinstance(c, LiteFactorizedComponent):
+                    c._sed.x = c.prox_sed(c.sed)
+        return self
 
     @property
     def log_likelihood(self):

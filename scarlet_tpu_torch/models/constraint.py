@@ -10,6 +10,8 @@ Behavioral reference: scarlet/constraint.py (file:line cited per class).
 """
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -221,8 +223,10 @@ class MonotonicityConstraint(Constraint):
 
 # host round trips of MonotonicMaskConstraint since the last
 # reset_mask_constraint_counts(): calls (one read of the planes to the
-# host and one copy back each, whatever their number) and planes projected
-_mask_constraint_counts = {"calls": 0, "planes": 0}
+# host and one copy back each, whatever their number), planes projected
+# and the seconds of the host projection (host clock, from the end of the
+# read to the end of the projection)
+_mask_constraint_counts = {"calls": 0, "planes": 0, "seconds": 0.0}
 
 
 def mask_constraint_counts():
@@ -231,8 +235,7 @@ def mask_constraint_counts():
 
 
 def reset_mask_constraint_counts():
-    for k in _mask_constraint_counts:
-        _mask_constraint_counts[k] = 0
+    _mask_constraint_counts.update(calls=0, planes=0, seconds=0.0)
 
 
 class MonotonicMaskConstraint(Constraint):
@@ -255,6 +258,7 @@ class MonotonicMaskConstraint(Constraint):
 
     def __call__(self, morph, step):
         host = morph.detach().cpu().numpy()
+        t0 = time.perf_counter()
         _mask_constraint_counts["calls"] += 1
         _mask_constraint_counts["planes"] += 1 if morph.ndim == 2 \
             else len(host)
@@ -262,6 +266,7 @@ class MonotonicMaskConstraint(Constraint):
             out = self._prox(host, step)[1]
         else:
             out = np.array([self._prox(m, step)[1] for m in host])
+        _mask_constraint_counts["seconds"] += time.perf_counter() - t0
         return torch.from_numpy(out).to(morph.device)
 
 

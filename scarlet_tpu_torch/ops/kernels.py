@@ -46,6 +46,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from . import build
 from .prox import NEIGHBOR_OFFSETS, shift_zero
@@ -128,9 +129,14 @@ def _is_cpu(*tensors):
 # K1/K2: monotonicity projection
 # ---------------------------------------------------------------------------
 def _mono_pass(x, x0, w, keep, scale):
+    # one zero border, then each neighbour is a view of it: the values of
+    # shift_zero(x, dy, dx), with one pad per pass instead of eight
+    H, W = x.shape[-2:]
+    padded = F.pad(x, (1, 1, 1, 1))
     ref = torch.zeros_like(x)
     for d, (dy, dx) in enumerate(NEIGHBOR_OFFSETS):
-        ref = ref + w[..., d, :, :] * shift_zero(x, dy, dx)
+        ref = ref + w[..., d, :, :] * padded[..., 1 + dy:1 + dy + H,
+                                             1 + dx:1 + dx + W]
     return torch.where(keep, x0, torch.minimum(x0, ref * scale))
 
 

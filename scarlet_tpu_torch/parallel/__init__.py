@@ -15,6 +15,7 @@ from .batch import (  # noqa: F401
     fit_batch_device_converged,
     fit_batch_device_dispatch,
     fit_batch_device_collect,
+    LocalMesh,
     make_mesh,
     shard_batch,
     fit_batch_sharded,

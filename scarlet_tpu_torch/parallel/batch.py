@@ -40,6 +40,7 @@ __all__ = [
     "fit_batch_device_converged",
     "fit_batch_device_dispatch",
     "fit_batch_device_collect",
+    "LocalMesh",
     "make_mesh",
     "shard_batch",
     "fit_batch_sharded",
@@ -267,14 +268,38 @@ def fit_batch_device_collect(handle, max_iter):
 # ---------------------------------------------------------------------------
 # Across ranks: a ("blends", "bands") grid of torch.distributed ranks
 # ---------------------------------------------------------------------------
+class LocalMesh:
+    """The ("blends", "bands") mesh of one device without a process group,
+    as :func:`make_mesh` returns it when no group is initialized: its
+    groups are None, so :func:`shard_batch` puts the whole batch on its
+    device and :func:`fit_batch_sharded` fits it there, as on a group of
+    world size 1, without starting one."""
+
+    mesh_dim_names = ("blends", "bands")
+    shape = (1, 1)
+
+    def __init__(self, device_type="cuda"):
+        self.device_type = device_type
+
+    def get_group(self, mesh_dim=None):
+        return None
+
+    def size(self):
+        return 1
+
+
 def make_mesh(n_devices=None, bands=1, device_type="cuda"):
     """A ``DeviceMesh`` with dims ("blends", "bands") over the first
     ``n_devices`` ranks (default: all) of the already initialized default
     process group: rank ``r`` sits at (r // bands, r % bands).  Each rank
     works on ``cuda:<LOCAL_RANK or rank> % device_count`` (several ranks
     may share a card), or on the CPU with ``device_type="cpu"``.  Starts
-    no process group of its own: raises ``RuntimeError`` without one."""
+    no process group of its own: without one it returns the one-device
+    :class:`LocalMesh` (the current card, or the CPU), and raises
+    ``RuntimeError`` when asked for more than one device."""
     if not (dist.is_available() and dist.is_initialized()):
+        if n_devices in (None, 1) and bands == 1:
+            return LocalMesh(device_type)
         raise RuntimeError(
             "make_mesh needs an initialized torch.distributed process group "
             "(call torch.distributed.init_process_group first)")
@@ -298,9 +323,11 @@ def _cuda_index():
 
 
 def _rank_device(mesh):
-    if mesh.device_type == "cuda":
-        return torch.device("cuda", _cuda_index())
-    return torch.device(mesh.device_type)
+    if mesh.device_type != "cuda":
+        return torch.device(mesh.device_type)
+    if isinstance(mesh, LocalMesh):
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cuda", _cuda_index())
 
 
 def _mesh_size(mesh, name):
@@ -323,8 +350,8 @@ def shard_batch(data, state, mesh):
     on each device (scarlet_tpu/parallel/batch.py:439-464).  Raises
     ``ValueError`` when the blends do not split evenly."""
     group = mesh.get_group("blends")
-    parts = dist.get_world_size(group)
-    index = dist.get_rank(group)
+    parts, index = (1, 0) if group is None else (
+        dist.get_world_size(group), dist.get_rank(group))
     B = state.active.shape[0]
     if B % parts:
         raise ValueError(f"{B} blends do not split over blends={parts}")
@@ -418,5 +445,7 @@ def fit_batch_sharded(state, data, config, n_iter, mesh, shard_bands=False):
     else:
         state, losses = fit_batch(state, data, local_cfg, n_iter)
     group = mesh.get_group("blends")
+    if group is None:
+        return state, losses
     return (engine.map_tree(lambda x: _all_gather(x, group, 0), state),
             _all_gather(losses, group, 1))

@@ -38,14 +38,23 @@ def test_top_level_names():
 
 
 def test_module_namespaces():
-    """Every namespace of the reference's list but ``display``, which
-    waits for ROADMAP Queue 1 item 4; ``ops`` with its four modules,
-    ``optim`` and the profiling helpers of ``utils``."""
-    waiting = {"display"}
+    """Every namespace of the reference's list, ``display`` and
+    ``lite.display`` with the JAX modules' public names (and ``detect``'s
+    drawing helpers); ``ops`` with its four modules, ``optim`` and the
+    profiling helpers of ``utils``."""
+    waiting = set()
     missing = [n for n in ref.MODULES
                if n not in waiting and not hasattr(st, n)]
     assert not missing, f"missing module namespaces: {missing}"
-    assert not hasattr(st, "display")
+    for port, ref_mod in ((st.display, jst.display),
+                          (st.lite.display, jst.lite.display),
+                          (st.detect, jst.detect)):
+        public = [n for n in dir(ref_mod) if not n.startswith("_")
+                  and (callable(getattr(ref_mod, n)) or n == "panel_size")
+                  and not isinstance(getattr(ref_mod, n), type(np))]
+        assert port.__all__ == ref_mod.__all__
+        assert not [n for n in public if not hasattr(port, n)], port
+    assert st.display.panel_size == jst.display.panel_size
     for n in ("fft", "interpolation", "prox", "wavelet"):
         assert hasattr(st.ops, n), n
     assert hasattr(st.optim, "adaprox_step")

@@ -138,10 +138,15 @@ def test_batch_converged_stops_exactly_at_cap():
 
 
 def test_import_pulls_in_no_jax():
-    code = ("import sys, scarlet_tpu_torch, scarlet_tpu_torch.convert, "
+    code = ("import sys, importlib, scarlet_tpu_torch, "
+            "scarlet_tpu_torch.convert, "
             "scarlet_tpu_torch.checkpoint, scarlet_tpu_torch.detect, "
             "scarlet_tpu_torch.ops.wavelet, "
-            "scarlet_tpu_torch.ops.interpolation; "
+            "scarlet_tpu_torch.ops.interpolation, "
+            "scarlet_tpu_torch.display, scarlet_tpu_torch.lite.display; "
+            "from scarlet_tpu_torch.examples import NAMES; "
+            "[importlib.import_module('scarlet_tpu_torch.examples.' + n) "
+            "for n in NAMES]; "
             "bad = [m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'scarlet_tpu')]; "
             "assert not bad, bad")

@@ -200,3 +200,26 @@ def test_make_mesh_needs_a_process_group():
     assert not dist.is_initialized()
     with pytest.raises(RuntimeError, match="init_process_group"):
         parallel.make_mesh(2, device_type="cpu")
+
+
+def test_make_mesh_without_a_group_is_one_device(runs):
+    """Without a process group ``make_mesh()`` is the one-device
+    ``LocalMesh`` and starts none: ``shard_batch`` keeps the whole batch
+    and ``fit_batch_sharded`` fits it there, bit for bit with
+    ``fit_batch`` (the batched example's mesh)."""
+    from scarlet_tpu_torch import parallel
+
+    assert not dist.is_initialized()
+    mesh = parallel.make_mesh(device_type="cpu")
+    assert isinstance(mesh, parallel.LocalMesh) and mesh.size() == 1
+    cfg, data, state = runs["batches"]["adaprox"]
+    sdata, sstate = parallel.shard_batch(data, state, mesh)
+    assert torch.equal(sdata.images, data.images)
+    assert torch.equal(sstate.morphs[0], state.morphs[0])
+    out, losses = parallel.fit_batch_sharded(state, data, cfg, N_ITER, mesh,
+                                             shard_bands=True)
+    ref_state, ref_losses = runs["port"]["adaprox"]
+    assert_array_equal(losses.numpy(), ref_losses.numpy())
+    assert_array_equal(out.morphs[0].numpy(), ref_state.morphs[0].numpy())
+    assert_array_equal(out.seds[0].numpy(), ref_state.seds[0].numpy())
+    assert not dist.is_initialized()

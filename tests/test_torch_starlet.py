@@ -267,7 +267,9 @@ def test_monotonic_starlet_morphology(pair):
     x = np.abs(np.asarray(js.parameters[1].value))
     tcon.reset_mask_constraint_counts()
     assert_array_equal(tc(_t(x), 0.1).numpy(), np.asarray(jc(x, 0.1)))
-    assert tcon.mask_constraint_counts() == dict(calls=1, planes=len(x))
+    counts = tcon.mask_constraint_counts()
+    assert counts.pop("seconds") >= 0.0
+    assert counts == dict(calls=1, planes=len(x))
 
 
 def _gaussian_cut(size=41, radius=6, sigma=3.0):
@@ -364,7 +366,9 @@ def test_monotonic_starlet_fit_matches_jax(pair):
     tb.fit(3, e_rel=0)
     # one host round trip of all the planes per prox sub-iteration
     J1 = tsrc[0].parameters[1].shape[0]
-    assert tcon.mask_constraint_counts() == dict(calls=30, planes=30 * J1)
+    counts = tcon.mask_constraint_counts()
+    assert counts.pop("seconds") > 0.0
+    assert counts == dict(calls=30, planes=30 * J1)
     assert_allclose(tb.loss, jb.loss, rtol=1e-6)
 
 
