@@ -5,7 +5,9 @@ Run from the repository root, with one CUDA card:
 
     python3 chip_smoke.py
 
-1. Builds the CUDA kernels of ``scarlet_tpu_torch/ops/csrc`` with nvcc
+1. Builds the host C library of ``scarlet_tpu_torch/native`` (the host
+   compiler, its seconds and flags), then the CUDA kernels of
+   ``scarlet_tpu_torch/ops/csrc`` with nvcc
    (one compiler process per source, all at once), prints each kernel's
    registers and spills, the projection kernels' resident blocks per SM
    at box 59, and K3's and K4's registers, spill, shared bytes, blocks
@@ -146,7 +148,7 @@ Run from the repository root, with one CUDA card:
 13. The production host paths, each with the kernel counts zeroed just
    before it: (a) ``parallel.BlendPipeline`` with min(8, cores) CPU
    workers (spawned with the card hidden, one torch thread each) on the
-   host path's 128 blends as blobs (a warm-up, then two runs of
+   host path's 128 blends as blobs (a warm-up, then four runs of
    ``max_iter`` 100: ``last_timings``, blends/min beside the in-process
    host init of step 3; the same run with torch's default threads in
    every worker), its records held to the same fit of step 3's packed
@@ -197,7 +199,21 @@ Run from the repository root, with one CUDA card:
    Then starlet_source's recipe with ``monotonic=True``: the host mask
    projection's calls and seconds against the fit's wall (ROADMAP Queue 1
    item 6).
-15. Prints one JSON line with the kernels, the card's name and power
+15. The host C library (``scarlet_tpu_torch.native``, the host paths'
+   seeds and mask fills): one host init of the 128 host-path blends
+   recording every ``init_monotonic_morph`` seed, then NATIVE_RUNS timed
+   runs (s per 128); one monotonic starlet fit of step 14 recording every
+   plane of the mask projection, then NATIVE_RUNS timed fits (the mask
+   share); in worker processes, the C sweep on every recorded seed
+   against its numpy twin and every seed against the plain Jacobi route
+   (the projection at ``monotonic_depth`` passes), and the C fill with
+   orphans on every recorded plane against the twins', all bit for bit;
+   ``apply_filter`` with each blend's PSF on its detection image and
+   ``label_components`` of that image at NATIVE_LABEL_SIGMAS, bit for bit
+   against their twins; the pipeline's ``init_s`` and blends/min of step
+   13's steady runs (all but the first) and the starlet phase's mask
+   counts: medians and spreads.
+16. Prints one JSON line with the kernels, the card's name and power
    limit, then, last, the device line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without a CUDA device, or outside
@@ -3931,6 +3947,10 @@ def sharded_phase(dev, card, setup):
 # blends as blobs), the deblend CLI as a subprocess on generated npz files
 # and the regression harness on a generated set 4
 HP_WORKERS = 8
+# timed pipeline runs after the warm-up: the first also pays this
+# process' first set-up at the full batch (seconds of its setup_s), the
+# other NATIVE_RUNS are steady
+HP_RUNS = 4
 HP_CLI_FILES, HP_CLI_NOCAT, HP_CLI_NOVAR = 64, 8, 8
 HP_CLI_CPU_FILES = 8
 HP_DETECT_ITERS = 10
@@ -4059,7 +4079,8 @@ def hp_kernel_checks(dev, card, label, config, data, state):
 
 def hp_pipeline(dev, card, setup, init_s):
     """(a) ``BlendPipeline`` with min(HP_WORKERS, cores) workers on the
-    host path's 128 blobs: a warm-up run, the counted run and one more.
+    host path's 128 blobs: a warm-up run, the counted run and
+    HP_RUNS - 1 more.
     Records held to the same fit of ``pack_blends``'s batch in process;
     every worker sees no card.  Returns (counts, summary)."""
     import tempfile
@@ -4078,7 +4099,7 @@ def hp_pipeline(dev, card, setup, init_s):
                      build_kwargs={"record_dir": tmp}, max_iter=2)
             warm_s = time.perf_counter() - t0
             runs = []
-            for i in range(2):
+            for i in range(HP_RUNS):
                 kn.reset_launch_counts()
                 t1 = time.perf_counter()
                 records = pipe.run(blobs, hp_record_build,
@@ -4446,9 +4467,9 @@ EX_K34 = ("multiscale_deblending", "stream_deblending", "batched_deblending",
           "multiresolution", "hsc_hst_multires")
 # the JAX scripts' SCARLET_TPU_FAST depths (True) or their full depths
 EX_FAST = False
-# starlet_source's recipe with the host mask projection: a C copy of the
-# JAX package's native/kernels.cc is asked for above this share of the
-# fit's wall (ROADMAP Queue 1 item 6)
+# starlet_source's recipe with the host mask projection (the host C
+# library's fills): the share of the fit's wall above which the projection
+# binds the fit (ROADMAP Queue 1 item 6 asked for the library above it)
 EX_MASK_SHARE_LIMIT = 0.2
 
 
@@ -4693,17 +4714,17 @@ def ex_starlet_monotonic(dev, data, card):
     out = dict(iterations=int(it), logL=float(logL), fit_s=wall,
                calls=counts["calls"], planes=counts["planes"],
                host_projection_s=counts["seconds"], share=share,
-               c_copy_asked=share > EX_MASK_SHARE_LIMIT)
+               over_limit=share > EX_MASK_SHARE_LIMIT)
     if counts["calls"] == 0 or not np.isfinite(logL):
         raise AssertionError(f"starlet monotonic=True: {out}")
     log(f"starlet_source with monotonic=True: {it} iterations, logL "
         f"{logL:.1f}, fit {wall:.3f} s; the host mask projection "
         f"(MonotonicMaskConstraint) {counts['calls']} calls, "
         f"{counts['planes']} planes, {counts['seconds']:.3f} s = "
-        f"{100 * share:.1f}% of the fit's wall (a C copy of "
-        f"native/kernels.cc is asked for above "
-        f"{100 * EX_MASK_SHARE_LIMIT:.0f}%: "
-        f"{'asked' if out['c_copy_asked'] else 'not asked'}), on {card}")
+        f"{100 * share:.2f}% of the fit's wall (the C library's fills; "
+        f"{'over' if out['over_limit'] else 'under'} the "
+        f"{100 * EX_MASK_SHARE_LIMIT:.0f}% at which the projection binds "
+        f"the fit), on {card}")
     return out
 
 
@@ -4850,6 +4871,336 @@ def examples_phase(dev, card):
     return counts, checks, summary
 
 
+# ---------------------------------------------------------------------------
+# 15. the host C library (scarlet_tpu_torch.native) on the host paths
+# ---------------------------------------------------------------------------
+# runs of each number the phase re-measures (median and spread)
+NATIVE_RUNS = 3
+# worker processes holding the sweep and the fills to their numpy twins
+NATIVE_WORKERS = 8
+# the labels' threshold on a detection image, in its robust sigmas
+NATIVE_LABEL_SIGMAS = 3.0
+
+
+def _spread(values):
+    values = [float(v) for v in values]
+    return dict(median=float(np.median(values)), min=min(values),
+                max=max(values), runs=values)
+
+
+def _fmt(sp, unit="", digits=3, scale=1.0):
+    sp = {k: (v * scale if k != "runs" else v) for k, v in sp.items()}
+    return (f"{sp['median']:.{digits}f}{unit} (median of {len(sp['runs'])}; "
+            f"{sp['min']:.{digits}f}..{sp['max']:.{digits}f})")
+
+
+def jacobi_monotonic_morph(detect, center, full_box, grow=0, normalize=True,
+                           use_mask=True, thresh=0):
+    """``lite.init_monotonic_morph(use_mask=False)`` by the plain Jacobi
+    route the port took before its C library: the projection
+    (``ops.prox.prox_weighted_monotonic``, torch on the CPU) at
+    ``monotonic_depth`` passes in ``detect``'s dtype, then the trim."""
+    import torch
+    from scarlet_tpu_torch.bbox import Box
+    from scarlet_tpu_torch.initialization import trim_morphology
+    from scarlet_tpu_torch.ops import prox as prox_ops
+
+    assert not use_mask
+    weights = prox_ops.monotonic_weights(detect.shape, "angle", center)
+    n_iter = prox_ops.monotonic_depth(weights, detect.shape, center)
+    morph = prox_ops.prox_weighted_monotonic(
+        torch.from_numpy(np.ascontiguousarray(detect)), weights, n_iter,
+        min_gradient=0, center=center).numpy()
+    morph, bbox = trim_morphology(center, morph, bg_thresh=thresh)
+    if np.max(morph) == 0:
+        return Box((0, 0, 0)), None
+    if normalize:
+        morph = morph / np.max(morph)
+    return bbox, morph
+
+
+def plain_monotonic_mask(X, center, center_radius, variance, max_iter):
+    """``ops.prox.prox_monotonic_mask`` composed of the C functions'
+    numpy twins (``native.plain_*``)."""
+    from scarlet_tpu_torch import native
+    from scarlet_tpu_torch.ops import prox as prox_ops
+
+    if center_radius > 0:
+        i, j = prox_ops.get_center(X, center, center_radius)
+    else:
+        i, j = int(np.round(center[0])), int(np.round(center[1]))
+    i, j = int(i), int(j)
+    unchecked = np.ones(X.shape, np.uint8)
+    unchecked[i, j] = 0
+    orphans = np.zeros(X.shape, np.uint8)
+    bounds = np.array([i, i, j, j], np.int32)
+    X32 = np.ascontiguousarray(X, np.float32)
+    native.plain_get_valid_monotonic_pixels(X32, i, j, unchecked, orphans,
+                                            variance, bounds)
+    model = X32.copy()
+    it = 0
+    while np.sum((orphans > 0) & (unchecked > 0)) > 0 and it < max_iter:
+        it += 1
+        rows, cols = np.where(orphans > 0)
+        native.plain_linear_interpolate_invalid_pixels(
+            rows, cols, unchecked, model, orphans, variance, True, bounds)
+    valid = (unchecked == 0) & (orphans == 0)
+    return valid, (model * valid).astype(X.dtype), bounds
+
+
+def native_twin_job(job):
+    """One worker's share of the twin checks (one torch thread):
+    ``("seeds", items)``, items (detect, center, kwargs, (bbox, morph)) of
+    the host init's ``init_monotonic_morph`` calls: the C sweep against
+    its twin and the seed against the plain Jacobi route;
+    ``("masks", items)``, items (plane, center, radius, variance,
+    max_iter, (valid, model, bounds)) of the starlet fit's
+    ``prox_monotonic_mask`` calls: the fit's result and the C library's
+    here against the twins'.
+    Returns (items, mismatches, C seconds, twin seconds, Jacobi
+    seconds)."""
+    import torch
+
+    torch.set_num_threads(1)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from scarlet_tpu_torch import native
+    from scarlet_tpu_torch.ops import prox as prox_ops
+
+    kind, items = job
+    bad, c_s, twin_s, ref_s = [], 0.0, 0.0, 0.0
+    for n, item in enumerate(items):
+        if kind == "seeds":
+            detect, center, kw, (bbox, morph) = item
+            H, W = detect.shape
+            weights = prox_ops.getRadialMonotonicWeights(
+                detect.shape, "angle", center).astype(np.float32)
+            offsets = np.array([W * dy + dx for dy, dx in
+                                prox_ops.NEIGHBOR_OFFSETS], np.int64)
+            didx = prox_ops.sort_by_radius(detect.shape, center)[1:]
+            flat = detect.astype(np.float32).reshape(-1)
+            t0 = time.perf_counter()
+            got = native.prox_weighted_monotonic(flat.copy(), weights,
+                                                 offsets, didx, 0.0)
+            t1 = time.perf_counter()
+            twin = native.plain_prox_weighted_monotonic(
+                flat.copy(), weights, offsets, didx, 0.0)
+            t2 = time.perf_counter()
+            jbox, jmorph = jacobi_monotonic_morph(detect, center, None, **kw)
+            t3 = time.perf_counter()
+            same_seed = (morph is None) == (jmorph is None) and (
+                morph is None or (bbox.shape == jbox.shape
+                                  and bbox.origin == jbox.origin
+                                  and np.array_equal(morph, jmorph)))
+            if not (np.array_equal(got, twin) and same_seed):
+                bad.append(n)
+        else:
+            plane, center, radius, variance, max_iter, fit_out = item
+            t0 = time.perf_counter()
+            got = prox_ops.prox_monotonic_mask(plane, 0, center, radius,
+                                               variance, max_iter)
+            t1 = time.perf_counter()
+            twin = plain_monotonic_mask(plane, center, radius, variance,
+                                        max_iter)
+            t2 = t3 = time.perf_counter()
+            if not all(np.array_equal(a, b) and np.array_equal(a, c)
+                       for a, b, c in zip(fit_out, got, twin)):
+                bad.append(n)
+        c_s += t1 - t0
+        twin_s += t2 - t1
+        ref_s += t3 - t2
+    return len(items), bad, c_s, twin_s, ref_s
+
+
+def _twin_jobs(kind, items, workers):
+    chunks = [items[k::workers] for k in range(workers)]
+    return [(kind, c) for c in chunks if c]
+
+
+def native_phase(dev, card, built, hp_summary, ex_summary, sl_summary):
+    """The host C library: its build (done at the start of the run, the
+    first thing that needed it), the five C functions against their numpy
+    twins at the host paths' shapes, all 128 host-path blends' seeds
+    against the plain Jacobi route, and the numbers the library moves,
+    NATIVE_RUNS runs each: the host init s per 128, the pipeline's
+    ``init_s`` and blends/min (step 13's steady runs), the monotonic starlet
+    fit's mask share, and the starlet phase's mask counts.  Returns the
+    summary."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from scarlet_tpu_torch import lite, native
+    from scarlet_tpu_torch.lite import initialization as linit
+    from scarlet_tpu_torch.ops import interpolation
+    from scarlet_tpu_torch.ops import prox as prox_ops
+    from scarlet_tpu_torch.testing import example_data, generate_blend
+
+    t_phase = time.perf_counter()
+    path, build_s, cxx, _ = built
+    summary = dict(library=path.name, build_s=build_s, compiler=cxx)
+
+    # the host init of the 128 blends: one run recording every seed call,
+    # then NATIVE_RUNS timed runs
+    rng = np.random.default_rng(SEED)
+    raw = [generate_blend(rng) for _ in range(N_BLENDS)]
+    seed_calls = []
+    orig = linit.init_monotonic_morph
+
+    def recorded(detect, center, full_box, **kw):
+        out = orig(detect, center, full_box, **kw)
+        if not kw.get("use_mask", True):
+            seed_calls.append((np.array(detect), tuple(center), kw, out))
+        return out
+
+    linit.init_monotonic_morph = recorded
+    try:
+        for d in raw:
+            parameterized(lite, build_seeds(lite, d))
+    finally:
+        linit.init_monotonic_morph = orig
+    init_s = []
+    for _ in range(NATIVE_RUNS):
+        t0 = time.perf_counter()
+        for d in raw:
+            parameterized(lite, build_seeds(lite, d))
+        init_s.append((time.perf_counter() - t0) * 128 / N_BLENDS)
+    summary["host_init_s_per_128"] = _spread(init_s)
+
+    # the starlet recipe with monotonic=True: one run recording every
+    # plane the mask projection sees, then NATIVE_RUNS timed runs
+    data = example_data.hsc_cosmos_35()
+    mask_calls = []
+    orig_mask = prox_ops.prox_monotonic_mask
+
+    def recorded_mask(X, step=0, center=None, center_radius=1,
+                      variance=0.0, max_iter=3):
+        out = orig_mask(X, step, center, center_radius, variance, max_iter)
+        mask_calls.append((np.array(X), center, center_radius, variance,
+                           max_iter, out))
+        return out
+
+    prox_ops.prox_monotonic_mask = recorded_mask
+    try:
+        ex_starlet_monotonic(dev, data, card)
+    finally:
+        prox_ops.prox_monotonic_mask = orig_mask
+    mono = [ex_starlet_monotonic(dev, data, card)
+            for _ in range(NATIVE_RUNS)]
+    summary["starlet_monotonic"] = dict(
+        share=_spread([m["share"] for m in mono]),
+        host_projection_s=_spread([m["host_projection_s"] for m in mono]),
+        fit_s=_spread([m["fit_s"] for m in mono]),
+        calls=[m["calls"] for m in mono], planes=[m["planes"] for m in mono],
+        iterations=[m["iterations"] for m in mono],
+        logL=[m["logL"] for m in mono],
+        examples_phase_share=ex_summary["starlet_monotonic"]["share"])
+
+    # the sweep, the seeds and the fills against their twins, in workers
+    workers = min(NATIVE_WORKERS, os.cpu_count())
+    t0 = time.perf_counter()
+    jobs = _twin_jobs("seeds", seed_calls, workers) + \
+        _twin_jobs("masks", mask_calls, workers)
+    with ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        results = list(pool.map(native_twin_job, jobs))
+    twin_wall = time.perf_counter() - t0
+    n_seed_jobs = len(_twin_jobs("seeds", seed_calls, workers))
+    for label, res in (("seeds", results[:n_seed_jobs]),
+                       ("masks", results[n_seed_jobs:])):
+        n = sum(r[0] for r in res)
+        bad = sum(len(r[1]) for r in res)
+        summary[f"twins_{label}"] = dict(
+            items=n, mismatches=bad, c_s=sum(r[2] for r in res),
+            twin_s=sum(r[3] for r in res), jacobi_s=sum(r[4] for r in res))
+        if n == 0 or bad:
+            raise AssertionError(f"native {label}: {bad} of {n} differ from "
+                                 "their twins or the Jacobi route")
+    ts, tm = summary["twins_seeds"], summary["twins_masks"]
+    shapes = sorted({m[0].shape for m in mask_calls})
+    log(f"host C library ({summary['library']}, built in {build_s:.2f} s by "
+        f"{cxx}): the sweep on the {ts['items']} seeds of the {N_BLENDS} "
+        f"host-path blends (detection images {seed_calls[0][0].shape}) "
+        f"equals its numpy twin bit for bit, and every seed the plain "
+        f"Jacobi route's (C {1e3 * ts['c_s'] / ts['items']:.3f} ms, twin "
+        f"{1e3 * ts['twin_s'] / ts['items']:.2f} ms, Jacobi "
+        f"{1e3 * ts['jacobi_s'] / ts['items']:.2f} ms per seed, one "
+        f"thread); the fill with orphans on the {tm['items']} starlet "
+        f"planes of the monotonic starlet fit (shapes {shapes}) equals the "
+        f"twins' bit for bit (C {1e3 * tm['c_s'] / tm['items']:.3f} ms, "
+        f"twins {1e3 * tm['twin_s'] / tm['items']:.2f} ms per plane); "
+        f"{workers} workers, {twin_wall:.1f} s")
+
+    # apply_filter with each blend's first PSF on its detection image, and
+    # the labels of the thresholded detection image
+    filt = dict(c_s=0.0, twin_s=0.0)
+    lab = dict(c_s=0.0, twin_s=0.0, components=[])
+    for d in raw:
+        detect = np.sum(d["images"] / d["variance"].mean(axis=(1, 2))[
+            :, None, None], axis=0).astype(np.float32)
+        psf = d["psfs"][0].astype(np.float32)
+        coords = interpolation.get_filter_coords(psf)
+        fb = interpolation.get_filter_bounds(coords.reshape(-1, 2))
+        t0 = time.perf_counter()
+        got = native.apply_filter(detect, psf.reshape(-1), *fb)
+        t1 = time.perf_counter()
+        twin = native.plain_apply_filter(detect, psf.reshape(-1), *fb)
+        t2 = time.perf_counter()
+        filt["c_s"] += t1 - t0
+        filt["twin_s"] += t2 - t1
+        if not np.array_equal(got, twin):
+            raise AssertionError("native apply_filter differs from its twin")
+        sigma = 1.4826 * np.median(np.abs(detect - np.median(detect)))
+        thresh = float(NATIVE_LABEL_SIGMAS * sigma)
+        t0 = time.perf_counter()
+        labels, n = native.label_components(detect, thresh)
+        t1 = time.perf_counter()
+        tl, tn = native.plain_label_components(detect, thresh)
+        t2 = time.perf_counter()
+        lab["c_s"] += t1 - t0
+        lab["twin_s"] += t2 - t1
+        lab["components"].append(n)
+        if n != tn or not np.array_equal(labels, tl) or n == 0:
+            raise AssertionError(f"native label_components: {n} against the "
+                                 f"twin's {tn}, labels equal "
+                                 f"{np.array_equal(labels, tl)}")
+    summary["apply_filter"] = dict(filter=list(raw[0]["psfs"][0].shape),
+                                   image=list(detect.shape), **filt)
+    summary["label_components"] = lab
+    log(f"host C library: apply_filter with each blend's "
+        f"{raw[0]['psfs'][0].shape} PSF on its {detect.shape} detection "
+        f"image ({N_BLENDS} calls) equals its twin bit for bit (C "
+        f"{1e3 * filt['c_s'] / N_BLENDS:.3f} ms, twin "
+        f"{1e3 * filt['twin_s'] / N_BLENDS:.2f} ms per call); "
+        f"label_components at {NATIVE_LABEL_SIGMAS} sigma equals its twin "
+        f"bit for bit ({min(lab['components'])}..{max(lab['components'])} "
+        f"components; C {1e3 * lab['c_s'] / N_BLENDS:.3f} ms, twin "
+        f"{1e3 * lab['twin_s'] / N_BLENDS:.2f} ms per image)")
+
+    first, *runs = hp_summary["pipeline"]["runs"]
+    summary["pipeline"] = dict(
+        init_s=_spread([r["init_s"] for r in runs]),
+        blends_per_min=_spread([r["blends_per_min"] for r in runs]),
+        wall_s=_spread([r["wall_s"] for r in runs]),
+        first_run=first)
+    summary["starlet_phase_mask_counts"] = sl_summary["lsbg"][
+        "mask_constraint"]
+    sm = summary["starlet_monotonic"]
+    summary["phase_s"] = time.perf_counter() - t_phase
+    log(f"host C library, re-measured: host init "
+        f"{_fmt(summary['host_init_s_per_128'], ' s')} per 128 blends in "
+        f"process; pipeline init_s "
+        f"{_fmt(summary['pipeline']['init_s'], ' s')}, "
+        f"{_fmt(summary['pipeline']['blends_per_min'], ' blends/min', 1)} "
+        f"in its steady runs (the first "
+        f"{first['blends_per_min']:.1f} blends/min, set-up "
+        f"{first['setup_s']:.3f} s); the monotonic starlet fit's mask share "
+        f"{_fmt(sm['share'], '%', 2, 100.0)} "
+        f"({sm['calls'][0]} calls, {sm['planes'][0]} planes, fit "
+        f"{_fmt(sm['fit_s'], ' s')}); the starlet phase's mask counts "
+        f"{summary['starlet_phase_mask_counts']}; phase "
+        f"{summary['phase_s']:.1f} s on {card}")
+    return summary
+
+
 def main():
     import torch
 
@@ -4873,6 +5224,11 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
+    from scarlet_tpu_torch.native import build as native_build
+    native_built = native_build.build()
+    log(f"host C library built in {native_built[1]:.2f} s by "
+        f"{native_built[2]} ({' '.join(native_build.FLAGS)}): "
+        f"{native_built[0].name}")
     path, secs, report = build.build()
     log(f"kernels built in {secs:.2f} s: {path.name}")
     for line in report.splitlines():
@@ -5010,6 +5366,11 @@ def main():
         kres[name]["examples_shapes"] = {
             ex: [{k: r[k] for k in keep if k in r} for r in chk[name]]
             for ex, chk in ex_checks.items() if chk[name]}
+
+    # the host C library: twins, seeds, and the numbers it moves
+    native_summary = native_phase(dev, card, native_built, hp_summary,
+                                  ex_summary, sl_summary)
+    log(f"native summary: {json.dumps(native_summary)}")
 
     # each kernel's launches from the run of the path that drives it:
     # K1, K3 and K4 from one device-stream run, K5 and K6 from the fit of

@@ -88,8 +88,11 @@ def init_monotonic_morph(detect, center, full_box, grow=0, normalize=True,
     (:func:`prox_ops.prox_monotonic_mask`, no orphan interpolation), their
     bounds grown by ``grow`` and centered in the smallest quantized box.
     ``use_mask=False`` (the scarlet-main recipe): the detection image
-    projected with the exact Jacobi formulation at ``n_iter =
-    monotonic_depth`` (equal to the reference's sequential sweep) and
+    projected by the reference's sequential sweep in the host C library
+    (:func:`prox_ops.prox_weighted_monotonic_seq`: one radius-ordered
+    pass in float32, cast back to ``detect``'s dtype, as
+    scarlet_tpu/lite/initialization.py:102-111 does; equal bit for bit to
+    the Jacobi projection at ``monotonic_depth`` passes in float32) and
     trimmed at ``thresh``.  Returns (bbox, morph), morph None when the
     seed is empty.
     """
@@ -106,11 +109,10 @@ def init_monotonic_morph(detect, center, full_box, grow=0, normalize=True,
         if normalize:
             morph = morph / np.max(morph)
         return bbox, morph
-    weights = prox_ops.monotonic_weights(detect.shape, "angle", center)
-    n_iter = prox_ops.monotonic_depth(weights, detect.shape, center)
-    morph = to_numpy(prox_ops.prox_weighted_monotonic(
-        torch.from_numpy(np.ascontiguousarray(detect)), weights, n_iter,
-        min_gradient=0, center=center))
+    prox = prox_ops.prox_weighted_monotonic_seq(
+        detect.shape, neighbor_weight="angle", min_gradient=0,
+        center=center)
+    morph = np.asarray(prox(detect, 0), dtype=detect.dtype)
     morph, bbox = trim_morphology(center, morph, bg_thresh=thresh)
     if np.max(morph) == 0:
         return Box((0, 0, 0)), None

@@ -154,7 +154,8 @@ class MonotonicityConstraint(Constraint):
     the box edge, scarlet_tpu/models/constraint.py:176-205) and the
     kernel reads the candidate's index from the device, so nothing waits
     on the host.  ``use_mask`` overwrites the pixels the host flood fill
-    reaches with the mask model (host-side, for initialization).
+    reaches with the mask model (host-side, for initialization: the C
+    library's fill through :func:`prox_ops.prox_monotonic_mask`).
     """
 
     def __init__(self, neighbor_weight="flat", min_gradient=0.1,
@@ -240,9 +241,10 @@ def reset_mask_constraint_counts():
 
 class MonotonicMaskConstraint(Constraint):
     """Flood-fill monotonicity from the center (host-side): each call
-    reads the planes to the host, projects them one by one and copies
-    the result back (counted by :func:`mask_constraint_counts`).
-    Ref: constraint.py:237-259."""
+    reads the planes to the host, projects them one by one with
+    :func:`prox_ops.prox_monotonic_mask` (the host C library's flood fill
+    and orphan fill) and copies the result back (counted by
+    :func:`mask_constraint_counts`).  Ref: constraint.py:237-259."""
 
     def __init__(self, center, center_radius=1, variance=0.0, max_iter=3):
         self.center = center

@@ -143,7 +143,8 @@ def test_import_pulls_in_no_jax():
             "scarlet_tpu_torch.checkpoint, scarlet_tpu_torch.detect, "
             "scarlet_tpu_torch.ops.wavelet, "
             "scarlet_tpu_torch.ops.interpolation, "
-            "scarlet_tpu_torch.display, scarlet_tpu_torch.lite.display; "
+            "scarlet_tpu_torch.display, scarlet_tpu_torch.lite.display, "
+            "scarlet_tpu_torch.native, scarlet_tpu_torch.native.build; "
             "from scarlet_tpu_torch.examples import NAMES; "
             "[importlib.import_module('scarlet_tpu_torch.examples.' + n) "
             "for n in NAMES]; "
