@@ -213,7 +213,27 @@ Run from the repository root, with one CUDA card:
    against their twins; the pipeline's ``init_s`` and blends/min of step
    13's steady runs (all but the first) and the starlet phase's mask
    counts: medians and spreads.
-16. Prints one JSON line with the kernels, the card's name and power
+16. The JAX package's last stream and engine options: (a)
+   ``upload_dtype=torch.bfloat16`` on the het stream, bulk and overlap in
+   turns with float32 (UPLOAD_RUNS runs each; K1, K3 and K4 counted from
+   zero over one bf16 bulk run): the quantized stacks on the card bit
+   for bit the host rounding, bytes copied, the host's quantization into
+   pinned memory (s) and the copies (ms, CUDA events) beside float32's,
+   blends/min, logL and flux drift against the float32 records, the
+   blends whose component counts or init decisions (boxes, origins,
+   splits, PSF fallbacks) moved, bulk and overlap records bit for bit;
+   (b) ``upload="auto"``: the probe's MB/s, the mode the stream chose
+   (its log line) and records bit for bit with bulk; (c) the bf16 tiers
+   of the DFT convolution at the host path's shapes: device ms of
+   "float32", "high" and "default" beside cuFFT, the error of each
+   against float64 inside the tier's band (TIER_ERR: no fall-back to
+   float32 or to a bf16 result), the bf16 GEMM kernels each tier call
+   launches, its four products against their plain version on the CPU
+   (BF16_PRODUCT_RTOL); 15-iteration loss trajectories of each tier
+   against "float32" on het blends CPU_BLENDS; converged fits of het
+   chunk 0 with ``conv_mode="dft"`` at each tier in turns (blends/min,
+   logL drift; K1, K3 and K4 counted over one fit at "high").
+17. Prints one JSON line with the kernels, the card's name and power
    limit, then, last, the device line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without a CUDA device, or outside
@@ -5201,6 +5221,435 @@ def native_phase(dev, card, built, hp_summary, ex_summary, sl_summary):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# 16. The JAX package's last stream and engine options: quantized uploads,
+# the upload bandwidth probe and the bf16 tiers of the DFT convolution
+# ---------------------------------------------------------------------------
+UPLOAD_RUNS = 3     # het stream runs of each upload form, in turns
+TIER_NAMES = ("float32", "high", "default")
+# a tier convolution against float64, as a share of its largest value: the
+# tier's own error (the CPU tests measure 4.0e-3 to 4.3e-3 at one pass and
+# 6.7e-6 to 7.8e-6 at three) and, below, float32's (~3e-7): a tier that
+# fell back to float32, or to a bf16 result, leaves its band
+TIER_ERR = {"high": (1e-6, 1e-4), "default": (1e-4, 2e-2)}
+# the bf16 product on the card against its plain version on the CPU, on
+# the same operands (exact products; float32 sums in another order)
+BF16_PRODUCT_RTOL = 1e-6
+
+
+def _stream_records_key(records):
+    return [(r["iterations"], r["logL"], r["n_components"],
+             np.asarray(r["flux"]).tobytes()) for r in records]
+
+
+def _het_stream(dev, het, stacks, **kw):
+    """One device-stream run of the het cell on ``stacks`` (images,
+    variance, psfs): (result, wall s after a synchronize)."""
+    import torch
+    from scarlet_tpu_torch.parallel import stream
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = stream.deblend_device_stream(
+        *stacks, het["centers"], model_psf(), center_active=het["active"],
+        device=dev, **dict(HET, **kw))
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def _staging(dev, stacks, qdtype):
+    """The bulk path's two halves for ``stacks`` at ``qdtype``: host s to
+    quantize into pinned memory (host clock), device ms of the copies
+    (CUDA events), bytes copied."""
+    import torch
+    from scarlet_tpu_torch.parallel import stream
+
+    t0 = time.perf_counter()
+    staged = [stream._host_stack(x, qdtype, pin=True) for x in stacks]
+    host_s = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for t in staged:
+        t.to(dev, non_blocking=True)
+    end.record()
+    torch.cuda.synchronize()
+    return dict(host_s=host_s, upload_ms=start.elapsed_time(end),
+                bytes=int(sum(t.numel() * t.element_size() for t in staged)))
+
+
+def _init_changes(dev, het, qdtype):
+    """Het blends whose init decisions the quantization moves: the
+    float32 stacks and their quantized values (cast back to float32)
+    through ``stream_setup`` chunk by chunk; a blend counts where its box
+    sizes, origins, active slots, splits, PSF fallbacks or component
+    count differ."""
+    import torch
+    from scarlet_tpu_torch.parallel import stream
+
+    changed = {k: set() for k in ("boxes", "origins", "components",
+                                  "split", "psf_fallback")}
+    mp = model_psf()
+    for lo in range(0, N_HET, HET["chunk"]):
+        sl = slice(lo, lo + HET["chunk"])
+        outs = []
+        for q in (None, qdtype):
+            x = [torch.from_numpy(het[k][sl]) for k in
+                 ("images", "variance", "psfs")]
+            if q is not None:
+                x = [t.to(q).to(torch.float32) for t in x]
+            outs.append(stream.stream_setup(
+                *(t.to(dev) for t in x), het["centers"][sl], mp,
+                center_active=het["active"][sl], box_size=HET["box_size"],
+                n_slots=HET["n_slots"], device=dev))
+        (_, d0, s0, a0), (_, d1, s1, a1) = outs
+        diffs = dict(
+            boxes=(d0.box_masks[0].sum(dim=(-2, -1))
+                   != d1.box_masks[0].sum(dim=(-2, -1))).any(dim=1),
+            origins=(s0.origins[0] != s1.origins[0]).any(dim=-1).any(dim=1),
+            components=a0["n_active"].reshape(-1)
+            != a1["n_active"].reshape(-1),
+            split=(a0["split"] != a1["split"]).reshape(
+                a0["split"].shape[0], -1).any(dim=1),
+            psf_fallback=(a0["psf_fallback"] != a1["psf_fallback"]).reshape(
+                a0["psf_fallback"].shape[0], -1).any(dim=1))
+        for k, v in diffs.items():
+            changed[k].update(lo + int(i) for i in
+                              torch.nonzero(v).reshape(-1).cpu())
+    out = {k: sorted(v) for k, v in changed.items()}
+    out["any"] = sorted(set().union(*changed.values()))
+    return out
+
+
+def _drift(records, ref):
+    """Per blend: |logL - ref| / |ref| and max |flux - ref flux| / max
+    |ref flux|."""
+    dl = np.array([abs(a["logL"] - b["logL"]) / abs(b["logL"])
+                   for a, b in zip(records, ref)])
+    df = []
+    for a, b in zip(records, ref):
+        fa, fb = np.asarray(a["flux"]), np.asarray(b["flux"])
+        ok = np.isfinite(fa) & np.isfinite(fb)
+        scale = np.abs(fb[ok]).max() if ok.any() else 1.0
+        df.append(float(np.abs(fa[ok] - fb[ok]).max() / scale)
+                  if ok.any() else 0.0)
+    return dl, np.array(df)
+
+
+def upload_phase(dev, card, het):
+    """(a) ``upload_dtype=torch.bfloat16`` on the het stream, bulk and
+    overlap, in turns with float32; (b) ``upload="auto"``.  Returns
+    (launch counts of one bf16 bulk run, summary)."""
+    import logging
+
+    import torch
+    from scarlet_tpu_torch.ops import kernels as kn
+    from scarlet_tpu_torch.parallel import stream
+
+    q = torch.bfloat16
+    host_in = (het["images"], het["variance"], het["psfs"])
+    # the quantized stacks on the card, bit for bit the plain rounding
+    for name, x in zip(("images", "variance", "psfs"), host_in):
+        plain = torch.from_numpy(x).to(q)
+        up = stream._upload(x, dev, q)
+        staged = stream._host_stack(x[HET["chunk"]:], q, pin=True)
+        torch.cuda.synchronize()
+        if not (torch.equal(up.cpu().view(torch.int16),
+                            plain.view(torch.int16))
+                and torch.equal(staged.view(torch.int16),
+                                plain[HET["chunk"]:].view(torch.int16))):
+            raise AssertionError(f"the quantized {name} stack is not the "
+                                 "host rounding's bits")
+    staging = {}
+    for label, qd in (("float32", None), ("bfloat16", q)):
+        runs = [_staging(dev, host_in, qd) for _ in range(UPLOAD_RUNS)]
+        staging[label] = dict(
+            bytes=runs[0]["bytes"],
+            host_s=sorted(r["host_s"] for r in runs),
+            upload_ms=sorted(r["upload_ms"] for r in runs))
+
+    forms = {"float32 bulk": dict(upload="bulk"),
+             "bfloat16 bulk": dict(upload="bulk", upload_dtype=q),
+             "float32 overlap": dict(upload="overlap"),
+             "bfloat16 overlap": dict(upload="overlap", upload_dtype=q)}
+    for kw in forms.values():
+        _het_stream(dev, het, host_in, **kw)
+    walls = {f: [] for f in forms}
+    recs = {}
+    for r in range(UPLOAD_RUNS):
+        for f, kw in forms.items():
+            if r == 0 and f == "bfloat16 bulk":
+                kn.reset_launch_counts()
+            res, t = _het_stream(dev, het, host_in, **kw)
+            if r == 0 and f == "bfloat16 bulk":
+                counts = kn.launch_counts()
+            walls[f].append(t)
+            key = _stream_records_key(res[0])
+            if f in recs and recs[f][1] != key:
+                raise AssertionError(f"het stream {f}: records differ "
+                                     "between runs")
+            recs.setdefault(f, (res[0], key))
+    for name in PATH_KERNELS:
+        if counts[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 "bf16-upload stream")
+    for a, b in (("float32 bulk", "float32 overlap"),
+                 ("bfloat16 bulk", "bfloat16 overlap")):
+        if recs[a][1] != recs[b][1]:
+            raise AssertionError(f"het stream: {a} and {b} records differ")
+    r16, r32 = recs["bfloat16 bulk"][0], recs["float32 bulk"][0]
+    for i, r in enumerate(r16):
+        if not (np.isfinite(r["logL"]) and np.all(np.isfinite(r["flux"]))):
+            raise AssertionError(f"bf16-upload stream record {i} is not "
+                                 "finite")
+    dl, df = _drift(r16, r32)
+    comp = [i for i, (a, b) in enumerate(zip(r16, r32))
+            if a["n_components"] != b["n_components"]]
+    changes = _init_changes(dev, het, q)
+    bpm = {f: [N_HET / t * 60.0 for t in w] for f, w in walls.items()}
+
+    # (b) "auto": the probe, then a run that it decides, as bulk's bits
+    probe = [stream._upload_bandwidth_mbs(dev) for _ in range(3)]
+    chosen = []
+
+    class Grab(logging.Handler):
+        def emit(self, record):
+            chosen.append(record.args)
+
+    log_ = logging.getLogger("scarlet_tpu_torch.parallel.stream")
+    grab, level = Grab(), log_.level
+    log_.addHandler(grab)
+    log_.setLevel(logging.INFO)
+    try:
+        auto, auto_s = _het_stream(dev, het, host_in, upload="auto")
+    finally:
+        log_.removeHandler(grab)
+        log_.setLevel(level)
+    if len(chosen) != 1 or \
+            _stream_records_key(auto[0]) != recs["float32 bulk"][1]:
+        raise AssertionError(f"upload='auto' ({chosen}) did not give the "
+                             "bulk records")
+    summary = dict(
+        staging=staging, blends_per_min=bpm,
+        logL_rel_drift=dict(median=float(np.median(dl)),
+                            p95=float(np.percentile(dl, 95)),
+                            max=float(dl.max()), argmax=int(dl.argmax())),
+        flux_rel_drift=dict(median=float(np.median(df)),
+                            p95=float(np.percentile(df, 95)),
+                            max=float(df.max())),
+        component_count_changed=comp, init_changes=changes,
+        probe_mbs=probe, auto=dict(measured_mbs=float(chosen[0][0]),
+                                   mode=chosen[0][1], wall_s=auto_s))
+    log(f"upload_dtype=bfloat16 on the het stream ({N_HET} blends): bytes "
+        f"{staging['bfloat16']['bytes']} vs float32 "
+        f"{staging['float32']['bytes']}; host quantize into pinned memory "
+        f"{[round(x, 4) for x in staging['bfloat16']['host_s']]} s vs pin "
+        f"only {[round(x, 4) for x in staging['float32']['host_s']]} s; "
+        f"upload {[round(x, 3) for x in staging['bfloat16']['upload_ms']]} "
+        f"ms vs {[round(x, 3) for x in staging['float32']['upload_ms']]} "
+        f"ms (events) on {card}")
+    for f, v in bpm.items():
+        log(f"  het stream {f}: blends/min {[round(x, 1) for x in v]} "
+            f"(median {np.median(v):.1f}) on {card}")
+    log(f"  bf16 against float32 records: logL rel drift median "
+        f"{np.median(dl):.3g}, p95 {np.percentile(dl, 95):.3g}, max "
+        f"{dl.max():.3g} (blend {int(dl.argmax())}); flux drift median "
+        f"{np.median(df):.3g}, p95 {np.percentile(df, 95):.3g}, max "
+        f"{df.max():.3g}; component counts changed in {len(comp)} blends "
+        f"{comp}; init decisions moved in {len(changes['any'])} blends "
+        f"(boxes {changes['boxes']}, origins {changes['origins']}, "
+        f"components {changes['components']}, splits {changes['split']}, "
+        f"PSF fallbacks {changes['psf_fallback']}); bulk and overlap "
+        "records bit for bit; the quantized stacks bit for bit the host "
+        "rounding")
+    log(f"upload='auto': probe {[round(x, 1) for x in probe]} MB/s; the "
+        f"stream measured {chosen[0][0]:.1f} MB/s and chose "
+        f"{chosen[0][1]!r} (threshold 100 MB/s); records bit for bit with "
+        f"bulk, {auto_s:.3f} s on {card}")
+    log(f"bf16-upload stream kernel launches (one run): {counts}")
+    return counts, summary
+
+
+def tier_convolutions(dev, card, setup):
+    """The DFT convolution at each tier at the host path's shapes: device
+    ms (kernels summed, ``torch.profiler``) and events ms beside cuFFT's,
+    the error against float64, the bf16 GEMMs a tier call launches, and
+    its four products against their plain version on the CPU."""
+    import torch
+    from scarlet_tpu_torch.lite import engine
+    from scarlet_tpu_torch.ops import fft
+
+    config, data, state = setup
+    C, H, W = config.scene_shape
+    scene = engine.make_scene(state, config).contiguous()
+    kr = data.kernel_rfft
+    ref64 = fft.convolve_fft(scene.cpu().double(),
+                             kr.cpu().to(torch.complex128), config.fft_shape)
+    scale = float(ref64.abs().max())
+    calls = {"fft": lambda: fft.convolve_fft(scene, kr, config.fft_shape)}
+    for tier in TIER_NAMES:
+        ops = fft.dft_conv_operators((H, W), config.fft_shape, torch.float32,
+                                     dev, tier)
+        calls[tier] = lambda ops=ops: fft.convolve_dft(scene, kr, ops)
+    out = {}
+    reps = 20
+    for name, f in calls.items():
+        res = f()
+        r = out[name] = dict(
+            event_ms=time_ms(f, reps), dtype=str(res.dtype),
+            rel_err=float((res.cpu().double() - ref64).abs().max()) / scale,
+            ms=None, launches=None, bf16_gemms=None, gemm_kernel=None)
+        # one profiled window of ``reps`` calls: device ms, kernels per
+        # call and the bf16 GEMMs among them.  The profiler has come back
+        # empty late in a full run: then CUDA events alone, said so
+        try:
+            kern = kernel_events(f, reps)
+        except AssertionError as e:
+            log(f"convolution {name}: {e}; CUDA events only")
+            continue
+        gemm = [e.name for e in kern
+                if "gemm" in e.name.lower() and "bf16" in e.name.lower()]
+        r.update(ms=sum(e.time_range.elapsed_us() for e in kern) / reps
+                 / 1e3, launches=len(kern) / reps,
+                 bf16_gemms=len(gemm) / reps,
+                 gemm_kernel=gemm[0] if gemm else None)
+    # no fall-back: float32 runs no bf16 GEMM and keeps float32's error;
+    # each tier lies in its own error band, with a float32 result (its
+    # products against their plain version follow)
+    f32_err = out["float32"]["rel_err"]
+    if out["float32"]["bf16_gemms"] or f32_err > 1e-5:
+        raise AssertionError("the float32 DFT route left float32")
+    for tier, (lo, hi) in TIER_ERR.items():
+        r = out[tier]
+        if r["dtype"] != "torch.float32" or r["bf16_gemms"] == 0 \
+                or not lo < r["rel_err"] < hi or r["rel_err"] < 5 * f32_err:
+            raise AssertionError(f"DFT tier {tier!r}: {r}")
+    # the four products of one tier call, card against the CPU plain
+    # version on the card's own operands
+    prod = {}
+    orig = fft.bf16_matmul
+    for tier in ("high", "default"):
+        seen = []
+
+        def spy(a, b, passes):
+            res = orig(a, b, passes)
+            seen.append((a, b, passes, res))
+            return res
+
+        fft.bf16_matmul = spy
+        try:
+            calls[tier]()
+        finally:
+            fft.bf16_matmul = orig
+        errs = []
+        for a, b, passes, res in seen:
+            plain = orig(a.cpu(), b.cpu(), passes)
+            errs.append(float((res.cpu() - plain).abs().max())
+                        / float(plain.abs().max()))
+        prod[tier] = dict(products=len(seen), rel_errs=errs,
+                          shapes=[f"{tuple(a.shape)}x{tuple(b.shape)}"
+                                  for a, b, _, _ in seen])
+        if len(seen) != 4 or max(errs) > BF16_PRODUCT_RTOL:
+            raise AssertionError(f"tier {tier!r}: bf16 products against "
+                                 f"their plain version {errs}")
+    for name, r in out.items():
+        prof = ("not profiled" if r["ms"] is None else
+                f"{r['ms']:.4f} ms device in {r['launches']:.1f} kernels, "
+                f"{r['bf16_gemms']:.2f} bf16 GEMMs per call")
+        log(f"convolution {name} at B={scene.shape[0]} C={C} {H}x{W} fft "
+            f"{config.fft_shape}: {prof} ({r['event_ms']:.4f} ms events), "
+            f"rel err vs float64 {r['rel_err']:.3g}, {r['dtype']} out"
+            + (f" ({r['gemm_kernel'][:80]})" if r["gemm_kernel"] else "")
+            + f" on {card}")
+    for tier, p in prod.items():
+        log(f"  {tier}: its {p['products']} bf16 products {p['shapes']} "
+            f"against the CPU plain version: rel err "
+            f"{[f'{e:.3g}' for e in p['rel_errs']]} (limit "
+            f"{BF16_PRODUCT_RTOL})")
+    return dict(routes=out, products=prod)
+
+
+def tier_fits(dev, card, het):
+    """15-iteration loss trajectories at each tier against "float32" on
+    the well-conditioned het blends, and converged fits of het chunk 0 at
+    each tier in turns (blends/min, logL against float32)."""
+    import torch
+    from scarlet_tpu_torch.lite import engine
+    from scarlet_tpu_torch.ops import kernels as kn
+    from scarlet_tpu_torch.parallel import batch
+
+    cfg, dat, st, _ = het_setup(dev, het, CPU_BLENDS)
+    cfgs = {t: dataclasses.replace(cfg, conv_mode="dft", conv_precision=t)
+            for t in TIER_NAMES}
+    traj = {t: engine.fit_scan(st, dat, c, DFT_ITERS)[1]
+            for t, c in cfgs.items()}
+    rel = {t: _rel_trajectories(traj[t], traj["float32"]).tolist()
+           for t in TIER_NAMES[1:]}
+    cfg, dat, st, _ = het_setup(dev, het, slice(0, HET["chunk"]))
+    cfgs = {t: dataclasses.replace(cfg, conv_mode="dft", conv_precision=t)
+            for t in TIER_NAMES}
+    for c in cfgs.values():
+        batch.fit_batch_device_converged(st, dat, c, MAX_ITER, CHECK_EVERY)
+    B = st.active.shape[0]
+    bpm = {t: [] for t in TIER_NAMES}
+    final = {}
+    for r in range(DFT_RUNS):
+        for t, c in cfgs.items():
+            if r == 0 and t == "high":
+                kn.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            o, _ = batch.fit_batch_device_converged(st, dat, c, MAX_ITER,
+                                                    CHECK_EVERY)
+            torch.cuda.synchronize()
+            bpm[t].append(B / (time.perf_counter() - t0) * 60.0)
+            if r == 0 and t == "high":
+                counts = kn.launch_counts()
+            final[t] = (o.last_loss.cpu().double().numpy(),
+                        o.it.cpu().numpy())
+    for name in PATH_KERNELS:
+        if counts[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched in the "
+                                 "fit at 'high'")
+    drift = {}
+    for t in TIER_NAMES[1:]:
+        d = np.abs(final[t][0] - final["float32"][0]) / np.abs(
+            final["float32"][0])
+        if not np.isfinite(final[t][0]).all():
+            raise AssertionError(f"tier {t!r}: non-finite logL")
+        drift[t] = dict(median=float(np.median(d)), max=float(d.max()),
+                        iterations_changed=int((final[t][1]
+                                                != final["float32"][1])
+                                               .sum()))
+    for t in TIER_NAMES[1:]:
+        log(f"DFT tier {t!r} against 'float32' on het blends {CPU_BLENDS} "
+            f"({DFT_ITERS} iterations): loss trajectories max rel diff per "
+            f"blend {[f'{x:.3g}' for x in rel[t]]}; het chunk 0 converged: "
+            f"logL rel drift median {drift[t]['median']:.3g}, max "
+            f"{drift[t]['max']:.3g}, {drift[t]['iterations_changed']} "
+            "blends' iterations changed")
+    for t, v in bpm.items():
+        log(f"  het chunk 0 conv_mode='dft' at {t!r}: blends/min "
+            f"{[round(x, 1) for x in v]} (median {np.median(v):.1f}) on "
+            f"{card}")
+    log(f"fit at 'high' kernel launches: {counts}")
+    return counts, dict(trajectories=rel, chunk0_drift=drift,
+                        blends_per_min=bpm)
+
+
+def options_phase(dev, card, setup, het):
+    """Phase 16: (a) and (b) ``upload_phase``, (c) the DFT tiers.  Returns
+    ({path: launch counts}, summary)."""
+    t0 = time.perf_counter()
+    up_counts, up = upload_phase(dev, card, het)
+    conv = tier_convolutions(dev, card, setup)
+    tier_counts, fits = tier_fits(dev, card, het)
+    summary = dict(upload=up, tier_convolutions=conv, tier_fits=fits,
+                   wall_s=time.perf_counter() - t0)
+    log(f"the options phase took {summary['wall_s']:.1f} s")
+    return dict(upload_dtype=up_counts, dft_high=tier_counts), summary
+
+
 def main():
     import torch
 
@@ -5345,7 +5794,6 @@ def main():
         f"{time.perf_counter() - t_start:.1f} s")
     hp_counts, hp_checks, hp_summary = host_paths_phase(dev, card, setup,
                                                         init_s)
-    del setup
     log(f"host paths summary: {json.dumps(hp_summary)}")
     for name in PATH_KERNELS:
         kres[name]["launches_pipeline"] = int(hp_counts["pipeline"][name])
@@ -5371,6 +5819,15 @@ def main():
     native_summary = native_phase(dev, card, native_built, hp_summary,
                                   ex_summary, sl_summary)
     log(f"native summary: {json.dumps(native_summary)}")
+
+    # the last stream and engine options, each path counted from zero
+    opt16_counts, opt16_summary = options_phase(dev, card, setup, het)
+    del setup
+    log(f"options summary: {json.dumps(opt16_summary)}")
+    for name in PATH_KERNELS:
+        kres[name]["launches_upload_dtype"] = \
+            int(opt16_counts["upload_dtype"][name])
+        kres[name]["launches_dft_high"] = int(opt16_counts["dft_high"][name])
 
     # each kernel's launches from the run of the path that drives it:
     # K1, K3 and K4 from one device-stream run, K5 and K6 from the fit of

@@ -32,9 +32,14 @@ the layout stays, but the config takes the same branch of the morphology
 update as the JAX ``fit_step`` (:func:`_morph_update`): the packed
 branch's per-slot threshold cutoff, its one-pass prox chain
 (``packed_prox_chain``, kernel ``prox_chain``) and the fused update
-(``fuse_morph``, kernel ``fused_morph_update``).  The bf16 matmul tiers
-of the DFT convolution raise ``NotImplementedError`` (see
-:func:`check_supported`).
+(``fuse_morph``, kernel ``fused_morph_update``).  :func:`pack_state` and
+:func:`unpack_state` convert a state to and from the JAX package's packed
+layout (public API; the fit itself never needs them).  The DFT
+convolution (``conv_mode="dft"``) runs at every ``conv_precision`` of
+the JAX package: "float32"/"highest" in float32 (TF32 off), and the bf16
+tiers "high"/"tensorfloat32" (XLA's bf16_3x) and "default"/"bfloat16"
+(one pass) on the card's bf16 tensor cores with float32 sums and results
+(``ops.fft.convolve_dft``; tests/test_torch_dft.py).
 
 The band axis (``band_axis``): a fit whose ranks each hold C/bands
 channels of every blend (``parallel.fit_batch_sharded``) sums its
@@ -74,6 +79,8 @@ __all__ = [
     "check_supported",
     "band_group",
     "packed_morphs_ok",
+    "pack_state",
+    "unpack_state",
     "make_scene",
     "render",
     "fit_step",
@@ -94,8 +101,8 @@ class LiteFitConfig:
     morphology update as in the JAX package (:func:`packed_morphs_ok`);
     the tensors' device picks kernel or plain version, and the layout is
     always (…, K, hb, wb).  ``pallas_interpret`` is carried for the
-    conversion and changes nothing here; ``conv_precision`` must stay
-    "float32" (the JAX package's bf16 tiers have no exact counterpart).
+    conversion and changes nothing here; ``conv_precision`` is a name of
+    ``ops.fft.PRECISION_PASSES`` (the matmul tier of ``conv_mode="dft"``).
     ``band_axis`` names a band process group (:func:`band_group`), as
     ``parallel.fit_batch_sharded`` sets it.
     """
@@ -144,7 +151,7 @@ class LiteFitConfig:
     packed_morphs: bool = False   # the packed branch (packed_morphs_ok)
     packed_prox_chain: bool = False  # its one-pass prox chain (K5)
     conv_mode: str = "fft"        # "fft" | "dft" (the folded matmul DFT)
-    conv_precision: str = "float32"   # of the DFT: only "float32"
+    conv_precision: str = "float32"   # of the DFT: a PRECISION_PASSES name
     pallas_interpret: bool = False
     scene_pad: int = -1           # -1: one full (largest) box
     # the band axis of a sharded fit: its cross-band reductions sum over
@@ -216,11 +223,10 @@ def map_tree(fn, tree, *rest):
 
 
 def check_supported(config):
-    """Raise ``ValueError`` for an unknown optimizer or convolution mode
-    and for a band axis that names no band process group (outside
-    ``parallel.fit_batch_sharded``), and ``NotImplementedError`` for the
-    bf16 matmul tiers of the DFT convolution, which the port does not
-    run."""
+    """Raise ``ValueError`` for an unknown optimizer, convolution mode or
+    DFT precision (``conv_precision`` is read in ``conv_mode="dft"``
+    only, as in the JAX package) and for a band axis that names no band
+    process group (outside ``parallel.fit_batch_sharded``)."""
     for name, known in (("optimizer", ("adaprox", "fista")),
                         ("conv_mode", ("fft", "dft"))):
         if getattr(config, name) not in known:
@@ -230,10 +236,11 @@ def check_supported(config):
         raise ValueError(
             f"LiteFitConfig.band_axis={config.band_axis!r} names no band "
             "process group: run the fit through parallel.fit_batch_sharded")
-    if config.conv_mode == "dft" and config.conv_precision != "float32":
-        raise NotImplementedError(
-            f"LiteFitConfig.conv_precision={config.conv_precision!r} is not "
-            "ported yet (supported: 'float32')")
+    if config.conv_mode == "dft" \
+            and config.conv_precision not in fft_ops.PRECISION_PASSES:
+        raise ValueError(
+            f"LiteFitConfig.conv_precision={config.conv_precision!r}: one "
+            f"of {tuple(fft_ops.PRECISION_PASSES)}")
 
 
 # the process groups of the band axes of the fits running in this
@@ -285,6 +292,51 @@ def packed_morphs_ok(config):
         return False
     hb, wb = config.box_shapes[0]
     return config.bucket_counts[0] * wb <= 4096
+
+
+def _pack_morph(x, hb, wb):
+    """(…, K, hb, wb) -> the lane-packed (…, hb, K wb)."""
+    K = x.shape[-3]
+    return x.transpose(-3, -2).reshape(*x.shape[:-3], hb, K * wb)
+
+
+def _unpack_morph(x, K, hb, wb):
+    """(…, hb, K wb) -> (…, K, hb, wb), contiguous."""
+    v = x.reshape(*x.shape[:-2], hb, K, wb)
+    return v.transpose(-3, -2).contiguous()
+
+
+def pack_state(state, config):
+    """A BlendState's morphologies and their optimizer moments in the JAX
+    package's packed layout (…, hb, K wb) (scarlet_tpu/lite/engine.py:
+    356-395); a no-op unless :func:`packed_morphs_ok`; single and batched
+    states.  The port's fit keeps the unpacked layout and reads the packed
+    view through strides (module docstring), so this is for states that
+    cross to or from the JAX package's layout; :func:`unpack_state` is
+    its inverse."""
+    if not packed_morphs_ok(config):
+        return state
+    hb, wb = config.box_shapes[0]
+
+    def conv(m):
+        return _pack_morph(m, hb, wb)
+
+    return state._replace(morphs=(conv(state.morphs[0]),),
+                          morph_opt=(map_tree(conv, state.morph_opt[0]),))
+
+
+def unpack_state(state, config):
+    """The inverse of :func:`pack_state`."""
+    if not packed_morphs_ok(config):
+        return state
+    hb, wb = config.box_shapes[0]
+    K = config.bucket_counts[0]
+
+    def conv(m):
+        return _unpack_morph(m, K, hb, wb)
+
+    return state._replace(morphs=(conv(state.morphs[0]),),
+                          morph_opt=(map_tree(conv, state.morph_opt[0]),))
 
 
 def _fused_ok(config, grow):
@@ -460,7 +512,8 @@ def _convolve(scene, kernel_rfft, config):
         return scene
     if config.conv_mode == "dft":
         ops = fft_ops.dft_conv_operators(scene.shape[-2:], config.fft_shape,
-                                         scene.dtype, scene.device)
+                                         scene.dtype, scene.device,
+                                         config.conv_precision)
         return fft_ops.convolve_dft(scene, kernel_rfft, ops)
     return fft_ops.convolve_fft(scene, kernel_rfft, config.fft_shape,
                                 (-2, -1))

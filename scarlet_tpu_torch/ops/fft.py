@@ -15,7 +15,9 @@ Conventions (behavioral reference: scarlet/fft.py:9-167):
 Kernel transforms are complex tensors.  :func:`convolve_dft` computes the
 same convolution as :func:`convolve_fft` by four matrix products with the
 pad, shift and crop folded into the DFT matrices
-(:func:`dft_conv_matrices`): the JAX package's ``conv_mode="dft"``.
+(:func:`dft_conv_matrices`): the JAX package's ``conv_mode="dft"``, at
+its matmul precisions (:data:`PRECISION_PASSES`): float32, or the bf16
+tiers on the card's tensor cores (:func:`bf16_matmul`).
 """
 from __future__ import annotations
 
@@ -41,6 +43,10 @@ __all__ = [
     "convolve_fft",
     "dft_conv_matrices",
     "DftOperators",
+    "DftTierOperators",
+    "PRECISION_PASSES",
+    "bf16_split",
+    "bf16_matmul",
     "dft_conv_operators",
     "convolve_dft",
     "match_psf",
@@ -347,26 +353,104 @@ class DftOperators(NamedTuple):
     iB_il: torch.Tensor
 
 
-def dft_conv_operators(in_shape, fft_shape, dtype, device):
-    """:class:`DftOperators` of :func:`dft_conv_matrices` on ``device``,
-    built and uploaded once per (shapes, dtype, device) and shared by every
-    caller."""
+class DftTierOperators(NamedTuple):
+    """:func:`dft_conv_matrices` as the real right operands of the four
+    products of :func:`convolve_dft` at a bf16 tier, each already split
+    by :func:`bf16_split` (bfloat16): ``B`` of [Re B | Im B] (Ws, 2 Wh),
+    ``A`` of [[Re A^T, Im A^T], [-Im A^T, Re A^T]] (2 Hs, 2 Hf), ``iA``
+    of the same block of iA^T (2 Hf, 2 Hs) and ``iB`` of
+    [Re iB; -Im iB] (2 Wh, Ws); ``passes`` is 1 or 3."""
+    B: torch.Tensor
+    A: torch.Tensor
+    iA: torch.Tensor
+    iB: torch.Tensor
+    passes: int
+
+
+# the JAX package's ``conv_precision`` names (those ``jax.lax.Precision``
+# takes) -> bf16 passes of each product of the DFT convolution, 0 for
+# float32.  Each tier means what it meant on the TPU where it was measured
+# (scarlet_tpu/ops/fft.py:378-384), not TF32 on the card: "default" one
+# pass of bf16 operands, "high" XLA's bf16_3x
+PRECISION_PASSES = {"float32": 0, "highest": 0, "high": 3,
+                    "tensorfloat32": 3, "default": 1, "bfloat16": 1,
+                    "fastest": 1}
+
+
+def bf16_split(x, passes, left):
+    """The bfloat16 operands of a product at ``passes`` (1 or 3) bf16
+    passes: ``hi = bf16(x)``, rounded to nearest even, and for 3 passes
+    also ``lo = bf16(x - hi)``, concatenated along the contracted axis
+    as (hi, lo, hi) for the left operand (last axis) and (lo, hi, hi) for
+    the right one (first axis), so that one product over the tripled
+    depth sums hi lo' + lo hi' + hi hi'."""
+    hi = x.to(torch.bfloat16)
+    if passes == 1:
+        return hi
+    lo = (x - hi.to(x.dtype)).to(torch.bfloat16)
+    if left:
+        return torch.cat((hi, lo, hi), dim=-1)
+    return torch.cat((lo, hi, hi), dim=-2)
+
+
+def bf16_matmul(a, b, passes):
+    """``a @ b`` at a bf16 tier: ``a`` float32 (M, K), ``b`` the right
+    operand already split by :func:`bf16_split` (passes K, N) bfloat16.
+    Every product of two bf16 values is exact in float32, and the sums
+    run in float32 along the concatenated depth (the hi lo' terms, then
+    lo hi', then hi hi' for 3 passes), with a float32 result.  On the
+    card one tensor-core product with a float32 output
+    (``torch.mm(..., out_dtype=torch.float32)``: bf16 operands, float32
+    accumulation; a bf16 ``torch.mm`` would round its output to bf16); on
+    the CPU, its plain version, the same operands in float32 through a
+    float32 product (only the order of the float32 sums differs)."""
+    a = bf16_split(a, passes, left=True)
+    if a.device.type == "cuda":
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.to(torch.float32), b.to(torch.float32))
+
+
+def dft_conv_operators(in_shape, fft_shape, dtype, device,
+                       precision="float32"):
+    """The operators of :func:`convolve_dft` at ``precision`` (a name of
+    :data:`PRECISION_PASSES`, else ``ValueError``) on ``device``, built
+    and uploaded once per (shapes, dtype, precision, device) and shared
+    by every caller: :class:`DftOperators` of :func:`dft_conv_matrices`
+    at float32, :class:`DftTierOperators` (float32 matrices) at a bf16
+    tier."""
     from ..cache import Cache
 
-    key = (tuple(in_shape), tuple(fft_shape), dtype, torch.device(device))
+    if precision not in PRECISION_PASSES:
+        raise ValueError(f"DFT convolution precision {precision!r}: one of "
+                         f"{tuple(PRECISION_PASSES)}")
+    passes = PRECISION_PASSES[precision]
+    key = (tuple(in_shape), tuple(fft_shape),
+           torch.float32 if passes else dtype, passes, torch.device(device))
     try:
         return Cache.check("dft_conv_operators", key)
     except KeyError:
         pass
     A, B, iA, iB = dft_conv_matrices(
-        in_shape, fft_shape, torch.empty(0, dtype=dtype).numpy().dtype)
+        in_shape, fft_shape,
+        np.float32 if passes else torch.empty(0, dtype=dtype).numpy().dtype)
 
     def up(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-    out = DftOperators(
-        *(torch.complex(up(m[0]), up(m[1])) for m in (A, B, iA)),
-        up(np.stack([iB[0], -iB[1]], 1).reshape(-1, iB.shape[-1])))
+    if passes:
+        def right(m):
+            return bf16_split(torch.from_numpy(np.ascontiguousarray(m)),
+                              passes, left=False).to(device)
+
+        out = DftTierOperators(
+            right(np.concatenate([B[0], B[1]], 1)),
+            right(np.block([[A[0].T, A[1].T], [-A[1].T, A[0].T]])),
+            right(np.block([[iA[0].T, iA[1].T], [-iA[1].T, iA[0].T]])),
+            right(np.concatenate([iB[0], -iB[1]], 0)), passes)
+    else:
+        out = DftOperators(
+            *(torch.complex(up(m[0]), up(m[1])) for m in (A, B, iA)),
+            up(np.stack([iB[0], -iB[1]], 1).reshape(-1, iB.shape[-1])))
     Cache.set("dft_conv_operators", key, out)
     return out
 
@@ -374,18 +458,54 @@ def dft_conv_operators(in_shape, fft_shape, dtype, device):
 def convolve_dft(image, kernel_rfft, ops):
     """Centered convolution by the folded matmul DFT: ``Y = (A @ X) @ B``,
     then ``Re((iA @ (Y K)) @ iB)`` (:func:`dft_conv_matrices`, ``ops`` from
-    :func:`dft_conv_operators`), each a matrix product in that fixed
+    :func:`dft_conv_operators`); leading batch axes broadcast.  The same
+    function as :func:`convolve_fft` with ``real_shape == image.shape``.
+    Ref: scarlet_tpu/ops/fft.py:369-392, at the precision of ``ops``.
+
+    At float32 (:class:`DftOperators`) each product runs in that fixed
     order, complex64, the last one as the real product of the interleaved
     (re, im) view of ``iA @ (Y K)`` with ``iB_il`` (the real part alone,
-    contiguous); leading batch axes broadcast.  The same function as
-    :func:`convolve_fft` with ``real_shape == image.shape``, to float32
-    roundoff.  Ref: scarlet_tpu/ops/fft.py:369-392 at its
-    ``precision="float32"``; the products run in float32 (TF32 stays off
-    on the card: ``lite.engine.pin_float32``, which governs complex
-    products too)."""
+    contiguous), to float32 roundoff; the products run in float32 (TF32
+    stays off on the card: ``lite.engine.pin_float32``, which governs
+    complex products too).
+
+    At a bf16 tier (:class:`DftTierOperators`) the complex products are
+    real products of the (re, im) parts, four in all, each one
+    :func:`bf16_matmul` at the tier, with float32 results between them:
+    ``U = X [Re B | Im B]``, then ``Y^T = (A U)^T`` as
+    [Re U^T | Im U^T] times the real block of A^T, ``Z^T = Y^T K^T`` in
+    float32 complex arithmetic, ``Q^T = (iA Z)^T`` the same way, and
+    ``Re(Q iB)`` as [Re Q | Im Q] times [Re iB; -Im iB].  Each product's
+    left operand is rounded to bf16 there (``bf16_split``), as XLA
+    rounds the operands of each dot at that precision."""
+    if isinstance(ops, DftTierOperators):
+        return _convolve_dft_bf16(image, kernel_rfft, ops)
     y = torch.matmul(torch.matmul(ops.A, image.to(ops.A.dtype)), ops.B)
     q = torch.matmul(ops.iA, y * kernel_rfft)              # (..., Hs, Wh)
     return torch.matmul(torch.view_as_real(q).flatten(-2), ops.iB_il)
+
+
+def _convolve_dft_bf16(image, kernel_rfft, ops):
+    """:func:`convolve_dft` at a bf16 tier (its docstring)."""
+    Hs, Ws = image.shape[-2:]
+    Wh, Hf = ops.B.shape[-1] // 2, ops.A.shape[-1] // 2
+
+    def mm(a, b):
+        return bf16_matmul(a, b, ops.passes)
+
+    # rows (n, h): [Re U | Im U]; then rows (n, w): [Re U^T | Im U^T]
+    u = mm(image.to(torch.float32).reshape(-1, Ws), ops.B)
+    v = u.view(-1, Hs, 2, Wh).permute(0, 3, 2, 1).reshape(-1, 2 * Hs)
+    yt = mm(v, ops.A).view(*image.shape[:-2], Wh, 2, Hf)
+    yr, yi = yt.unbind(-2)
+    kt = kernel_rfft.transpose(-2, -1)
+    kr, ki = kt.real, kt.imag
+    zt = torch.stack((yr * kr - yi * ki, yr * ki + yi * kr), dim=-2)
+    lead = zt.shape[:-3]
+    # rows (n, w): [Re Q^T | Im Q^T]; then rows (n, h): [Re Q | Im Q]
+    qt = mm(zt.reshape(-1, 2 * Hf), ops.iA)
+    q = qt.view(-1, Wh, 2, Hs).permute(0, 3, 2, 1).reshape(-1, 2 * Wh)
+    return mm(q, ops.iB).view(*lead, Hs, Ws)
 
 
 def convolve(image, kernel, padding=3, axes=(-2, -1), return_fourier=True):

@@ -28,12 +28,20 @@ followed by a cold refit with the grown catalog.
 
 The fit options of the engine pass through: logical box growth
 (``box_grow``) and the scheduled projection tolerance
-(``mono_tol_early``, ``mono_tol_switch``, ``mono_every``).  Options of
-the JAX stream that the port does not run raise ``NotImplementedError``:
-quantized uploads (``upload_dtype``) and the upload bandwidth probe
-(``upload="auto"``).
+(``mono_tol_early``, ``mono_tol_switch``, ``mono_every``).  Every option
+of the JAX stream runs here, the upload options too: ``upload="bulk"``,
+``"overlap"`` or ``"auto"`` (one probe of the host -> device rate,
+:func:`_upload_bandwidth_mbs`, picks one of the other two) and quantized
+uploads (``upload_dtype=torch.bfloat16`` or ``torch.float16``: the
+floating host stacks cross to the device in that type and are cast back
+to float32 there, chunk by chunk).  Tests:
+tests/test_torch_upload.py (against the JAX stream on the CPU) and
+tests/test_torch_cuda.py (the quantized upload on the card).
 """
 from __future__ import annotations
+
+import logging
+import time
 
 import numpy as np
 import torch
@@ -51,6 +59,8 @@ from .batch import (_SHARED_FIELDS, fit_batch_device_collect,
 from .detection import _masked_median_sigma, _ordered_sum, detect_peaks_device
 
 __all__ = ["stream_setup", "stream_records", "deblend_device_stream"]
+
+logger = logging.getLogger("scarlet_tpu_torch.parallel.stream")
 
 TINY = 1e-20
 
@@ -98,6 +108,19 @@ def _sanitize_stacks(images, variance):
              / vcnt)[..., None, None]
     variance = torch.where(bad, vfill, variance)
     return images, variance, bad
+
+
+def _sanitize_host(images, variance):
+    """:func:`_sanitize_stacks` on numpy stacks, in numpy (the JAX
+    package's ``_sanitize_stacks(xp=np)``, so the same bits): the
+    redetect passes quantize what this returns."""
+    bad = ~(np.isfinite(images) & np.isfinite(variance)) | (variance < 0)
+    zero = np.zeros((), images.dtype)
+    images = np.where(bad, zero, images)
+    vcnt = np.maximum(np.sum(~bad, axis=(-2, -1)), 1).astype(variance.dtype)
+    vfill = (np.sum(np.where(bad, zero, variance), axis=(-2, -1))
+             / vcnt)[..., None, None]
+    return images, np.where(bad, vfill, variance)
 
 
 def _quantized_boxsize(size, cap, min_size=21, increment=10):
@@ -821,20 +844,37 @@ def deblend_device_stream(images, variance, psfs, centers, model_psf,
                           *, box_size, n_slots, max_iter=100, check_every=25,
                           min_snr=50, e_rel=1e-4, reweight=False, chunk=None,
                           compact=None, upload_dtype=None, upload="bulk",
-                          redetect=0, redetect_radius=3.0,
-                          retry_overflow=False, device=None, **kw):
+                          upload_bw_mbs=100.0, redetect=0,
+                          redetect_radius=3.0, retry_overflow=False,
+                          device=None, **kw):
     """One-call production path: device init, device fit and records for
     a stream of blends (stream.py:1035-1258 of the JAX package).
 
     ``chunk`` splits the stream into sub-batches, each initialized and fit
     in turn.  ``upload`` moves host (numpy) stacks to a CUDA ``device``:
     "bulk" copies each whole stack once, from pinned memory, before the
-    first chunk; "overlap" copies chunk i+1's slices on a side stream
-    while chunk i fits, ordered by events.  Tensor inputs and single-chunk
-    calls ignore it.  ``compact`` (an iteration count or a list of them)
-    runs every chunk to the first point, then only the still-active blends
-    of all chunks as one residual batch (padded to 32 rows) to each next
-    point and ``max_iter``.  ``retry_overflow`` re-initializes and refits
+    first chunk; "overlap" stages chunk i+1's slices in pinned memory and
+    copies them on a side stream while chunk i fits, ordered by events;
+    "auto" times one 4 MB host -> device copy of the bulk path's kind
+    (:func:`_upload_bandwidth_mbs`) and takes "overlap" below
+    ``upload_bw_mbs`` MB/s, "bulk" above (logged).  Tensor inputs and
+    single-chunk calls ignore it, and on the CPU there is no copy.
+    ``upload_dtype`` (``torch.bfloat16`` or ``torch.float16``, or the
+    names "bfloat16" and "float16") quantizes the floating host stacks
+    (images, variance, psfs, weights, scene_valid) to that type for the
+    transfer only, rounding to nearest even (``Tensor.to``, the rounding
+    of the JAX package's ``astype``); each chunk's slices are cast back to
+    float32 on the device before :func:`stream_setup`, which sanitizes
+    after the cast.  Every program computes in float32; only the inputs
+    are quantized, once (~0.4% per value for bfloat16), and that can flip
+    discrete init decisions (SNR gates, boxes, splits) of marginal
+    sources.  Tensor inputs are left as they are; the overflow retry
+    reads the unquantized stacks, as the JAX stream's does after
+    per-chunk uploads (after bulk ones it raises there).  ``compact`` (an
+    iteration count or a list of them) runs every chunk to the first
+    point, then only the still-active blends of all chunks as one
+    residual batch (padded to 32 rows) to each next point and
+    ``max_iter``.  ``retry_overflow`` re-initializes and refits
     the blends whose init wanted more than ``n_slots`` components at a
     larger slot count (in steps of 4) and splices their records back.
     ``centers=None`` detects each chunk's catalog on the device
@@ -851,13 +891,9 @@ def deblend_device_stream(images, variance, psfs, centers, model_psf,
     ``compact``) state/losses/aux are per-chunk lists, with ``compact``
     they are merged; an overflow retry appends its own entry.
     """
-    if upload_dtype is not None:
-        raise NotImplementedError("upload_dtype is not ported yet")
-    if upload == "auto":
-        raise NotImplementedError(
-            "upload='auto' (the bandwidth probe) is not ported")
-    if upload not in ("bulk", "overlap"):
+    if upload not in ("bulk", "overlap", "auto"):
         raise ValueError(f"unknown upload mode {upload!r}")
+    qdtype = _quant_dtype(upload_dtype)
     device = default_device(device, images)
     if redetect:
         return _deblend_redetect(
@@ -865,7 +901,8 @@ def deblend_device_stream(images, variance, psfs, centers, model_psf,
             center_active, scene_valid, box_size=box_size, n_slots=n_slots,
             max_iter=max_iter, check_every=check_every, min_snr=min_snr,
             e_rel=e_rel, reweight=reweight, chunk=chunk, compact=compact,
-            redetect=int(redetect), redetect_radius=float(redetect_radius),
+            qdtype=qdtype, redetect=int(redetect),
+            redetect_radius=float(redetect_radius),
             retry_overflow=retry_overflow, device=device, kw=kw)
 
     B = len(images)
@@ -874,27 +911,38 @@ def deblend_device_stream(images, variance, psfs, centers, model_psf,
     else:
         spans = [slice(i, min(i + chunk, B)) for i in range(0, B, chunk)]
     host = not isinstance(images, torch.Tensor)
-    mode = upload if host and len(spans) > 1 and device.type == "cuda" \
-        else "bulk"
+    mode = upload if host and len(spans) > 1 else "bulk"
+    if mode == "auto":
+        bw = _upload_bandwidth_mbs(device)
+        mode = "overlap" if bw < float(upload_bw_mbs) else "bulk"
+        logger.info("deblend_device_stream: measured %.1f MB/s idle upload "
+                    "-> %s uploads", bw, mode)
+    if device.type != "cuda":
+        mode = "bulk"
 
     stacks = dict(images=images, variance=variance, psfs=psfs,
                   weights=weights, scene_valid=scene_valid)
     if mode == "bulk":
-        stacks = {k: _upload(v, device) for k, v in stacks.items()}
+        stacks = {k: _upload(v, device, qdtype) for k, v in stacks.items()}
     else:
-        stacks = {k: None if v is None
-                  else torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
-                  for k, v in stacks.items()}
         copy_stream = torch.cuda.Stream(device)
+
+    def dequantize(x):
+        # quantized uploads compute in float32
+        if x is None or qdtype is None or x.dtype != qdtype:
+            return x
+        return x.to(torch.float32)
 
     def chunk_args(sl):
         if mode == "bulk":
             return {k: None if v is None else v[sl]
                     for k, v in stacks.items()}, None
+        staged = {k: None if v is None
+                  else _host_stack(np.asarray(v)[sl], qdtype, pin=True)
+                  for k, v in stacks.items()}
         with torch.cuda.stream(copy_stream):
-            out = {k: None if v is None else v[sl].to(device,
-                                                      non_blocking=True)
-                   for k, v in stacks.items()}
+            out = {k: None if v is None else v.to(device, non_blocking=True)
+                   for k, v in staged.items()}
             done = torch.cuda.Event()
             done.record(copy_stream)
         return out, done
@@ -922,6 +970,7 @@ def deblend_device_stream(images, variance, psfs, centers, model_psf,
             for t in args.values():
                 if t is not None:
                     t.record_stream(cur)
+        args = {k: dequantize(v) for k, v in args.items()}
         config, data, state, aux = stream_setup(
             args["images"], args["variance"], args["psfs"],
             sub(centers, sl), model_psf, weights=args["weights"],
@@ -961,15 +1010,65 @@ def deblend_device_stream(images, variance, psfs, centers, model_psf,
     return result
 
 
-def _upload(x, device):
-    """One host -> device copy of a numpy stack, from pinned memory on a
-    CUDA device; tensors and None pass through."""
+# the types ``upload_dtype`` takes, by the names ``jnp.dtype`` knows them by
+_UPLOAD_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def _quant_dtype(upload_dtype):
+    """``upload_dtype`` as a torch dtype (None: no quantization)."""
+    if upload_dtype is None:
+        return None
+    if upload_dtype in _UPLOAD_DTYPES.values():
+        return upload_dtype
+    if isinstance(upload_dtype, str) and upload_dtype in _UPLOAD_DTYPES:
+        return _UPLOAD_DTYPES[upload_dtype]
+    raise ValueError(f"upload_dtype {upload_dtype!r}: one of "
+                     f"{sorted(_UPLOAD_DTYPES)} or their torch dtypes")
+
+
+def _host_stack(x, qdtype=None, pin=False):
+    """A numpy stack as a CPU tensor, quantized to ``qdtype`` (rounded to
+    nearest even) where it is floating, in pinned memory if ``pin``: one
+    pass over the stack, none where nothing changes."""
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    dtype = qdtype if qdtype is not None and t.is_floating_point() \
+        else t.dtype
+    if pin:
+        return torch.empty(t.shape, dtype=dtype, pin_memory=True).copy_(t)
+    return t.to(dtype)
+
+
+def _upload(x, device, qdtype=None):
+    """One host -> device copy of a numpy stack (quantized to ``qdtype``
+    where it is floating), from pinned memory on a CUDA device; tensors
+    and None pass through."""
     if x is None or isinstance(x, torch.Tensor):
         return x
-    t = torch.from_numpy(np.ascontiguousarray(x))
-    if device.type != "cuda":
-        return t
-    return t.pin_memory().to(device, non_blocking=True)
+    cuda = device.type == "cuda"
+    t = _host_stack(x, qdtype, pin=cuda)
+    return t.to(device, non_blocking=True) if cuda else t
+
+
+def _upload_bandwidth_mbs(device, nbytes=4 << 20):
+    """Idle host -> device rate (MB/s) of the bulk path's transfer
+    (:func:`_upload`: a numpy buffer pinned, then copied): one full-size
+    warm-up transfer, then one timed transfer of the same size, by the
+    host clock up to ``torch.cuda.synchronize``.  The warm-up is full
+    size because a link may ramp its bulk path only after a large
+    transfer (JAX package, stream.py:59-79); on the CPU there is no
+    transfer to time.  ``deblend_device_stream(upload="auto")`` reads
+    it."""
+    buf = np.zeros(nbytes, np.uint8)
+
+    def put():
+        _upload(buf, device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    put()
+    t0 = time.perf_counter()
+    put()
+    return nbytes / max(time.perf_counter() - t0, 1e-9) / 1e6
 
 
 def _retry_overflow(result, images, variance, psfs, centers, model_psf,
@@ -1077,19 +1176,39 @@ def _union_catalogs(centers, active, det_c, det_a, radius, cap):
 def _deblend_redetect(images, variance, psfs, centers, model_psf, weights,
                       center_active, scene_valid, *, box_size, n_slots,
                       max_iter, check_every, min_snr, e_rel, reweight, chunk,
-                      compact, redetect, redetect_radius, retry_overflow,
-                      device, kw):
+                      compact, qdtype, redetect, redetect_radius,
+                      retry_overflow, device, kw):
     """detect -> fit -> detect on the residuals -> refit, for
     ``deblend_device_stream(redetect=N)`` (stream.py:1365-1471 of the JAX
-    package).  The stacks are uploaded once and sanitized once on the
-    device (stream_setup's re-sanitizing is then inert), so the residuals
-    stay finite and every pass reads the same device copy; only the
-    catalogs come back to the host, for :func:`_union_catalogs`."""
+    package).  The stacks are uploaded once and sanitized once
+    (stream_setup's re-sanitizing is then inert), so the residuals stay
+    finite and every pass reads the same device copy; only the catalogs
+    come back to the host, for :func:`_union_catalogs`.
+
+    With ``qdtype`` and host stacks the JAX package sanitizes in numpy and
+    each pass's fit reads the sanitized stacks quantized, while the
+    residuals and their throwaway setup read them unquantized (as the
+    overflow retry does here): the same numpy sanitizing, one upload of
+    the float32 stacks (the residuals need them on the device) and one
+    rounding of them to ``qdtype`` on the device, the host rounding's
+    bits."""
+    quantize = qdtype is not None and not isinstance(images, torch.Tensor) \
+        and not isinstance(variance, torch.Tensor)
+    if quantize:
+        images, variance = _sanitize_host(np.ascontiguousarray(images),
+                                          np.ascontiguousarray(variance))
     images, variance, psfs, weights, scene_valid = (
         None if x is None else _upload(x, device).to(device)
         for x in (images, variance, psfs, weights, scene_valid))
-    images, variance, _ = _sanitize_stacks(images.to(torch.float32),
-                                           variance.to(torch.float32))
+    images, variance = images.to(torch.float32), variance.to(torch.float32)
+    if not quantize:
+        images, variance, _ = _sanitize_stacks(images, variance)
+    fit_stacks = dict(images=images, variance=variance, psfs=psfs,
+                      weights=weights, scene_valid=scene_valid)
+    if quantize:
+        fit_stacks = {k: v.to(qdtype) if v is not None
+                      and v.is_floating_point() else v
+                      for k, v in fit_stacks.items()}
     cap = int(kw.get("max_peaks") or n_slots)
     scales = int(kw.get("detect_scales", 3))
     B = images.shape[0]
@@ -1102,17 +1221,24 @@ def _deblend_redetect(images, variance, psfs, centers, model_psf, weights,
     cur_c, cur_a = centers, center_active
     for pass_i in range(redetect + 1):
         out = deblend_device_stream(
-            images, variance, psfs, cur_c, model_psf, weights=weights,
-            center_active=cur_a, scene_valid=scene_valid, box_size=box_size,
-            n_slots=n_slots, max_iter=max_iter, check_every=check_every,
-            min_snr=min_snr, e_rel=e_rel, reweight=reweight, chunk=chunk,
-            compact=compact, device=device,
-            # the overflow retry applies once, on the final catalog
-            retry_overflow=retry_overflow and pass_i == redetect, **kw)
-        records, state, losses, aux = out
+            fit_stacks["images"], fit_stacks["variance"], fit_stacks["psfs"],
+            cur_c, model_psf, weights=fit_stacks["weights"],
+            center_active=cur_a, scene_valid=fit_stacks["scene_valid"],
+            box_size=box_size, n_slots=n_slots, max_iter=max_iter,
+            check_every=check_every, min_snr=min_snr, e_rel=e_rel,
+            reweight=reweight, chunk=chunk, compact=compact,
+            upload_dtype=qdtype if quantize else None, device=device, **kw)
         if pass_i == redetect:
-            if cur_c is None:
-                return out
+            # the overflow retry applies once, on the final catalog and
+            # the unquantized stacks
+            if retry_overflow:
+                out = _retry_overflow(
+                    out, images, variance, psfs, cur_c, model_psf, weights,
+                    cur_a, scene_valid, box_size=box_size, n_slots=n_slots,
+                    max_iter=max_iter, check_every=check_every,
+                    min_snr=min_snr, e_rel=e_rel, reweight=reweight,
+                    device=device, kw=kw)
+            records, state, losses, aux = out
             # the final aux entries carry the grown catalog
             cur_c = _to_numpy(cur_c)
             cur_a = (np.ones(cur_c.shape[:2], bool) if cur_a is None
@@ -1134,6 +1260,7 @@ def _deblend_redetect(images, variance, psfs, centers, model_psf, weights,
                                     center_active=cur_a[o:o + n]))
                 o += n
             return records, state, losses, new_aux
+        records, state, losses, aux = out
         auxs = aux if isinstance(aux, list) else [aux]
         if cur_c is None:
             cat = _to_host([a[k] for k in ("centers", "center_active")

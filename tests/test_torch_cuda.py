@@ -899,3 +899,61 @@ def test_band_axis_at_world_size_one_equals_unsharded(cuda, tmp_path,
     for field in ("seds", "morphs"):
         for x, y in zip(getattr(out, field), getattr(ref, field)):
             assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("passes", [1, 3])
+def test_bf16_matmul_matches_plain(cuda, passes):
+    """The bf16 tiers' product (``ops.fft.bf16_matmul``: bf16 tensor-core
+    operands, float32 sums, a float32 result) against its plain version
+    on the CPU, on the four products of a tier convolution at the host
+    path's shapes: within 1e-6 of the largest value (the products are
+    exact; only the order of the float32 sums differs).  A bf16 result
+    would be off by ~4e-3."""
+    from scarlet_tpu_torch.ops import fft
+
+    rng = np.random.default_rng(6)
+    img = torch.from_numpy(rng.normal(size=(8, 5, 58, 48)).astype(
+        np.float32))
+    shape = fft.minimal_same_fft_shape((5, 58, 48), (5, 21, 21), axes=(1, 2))
+    precision = "default" if passes == 1 else "high"
+    ops = fft.dft_conv_operators((58, 48), shape, torch.float32, "cpu",
+                                 precision)
+    ops_d = fft.dft_conv_operators((58, 48), shape, torch.float32, cuda,
+                                   precision)
+    Hf, Wh = ops.A.shape[-1] // 2, ops.B.shape[-1] // 2
+    lefts = [img.reshape(-1, 48)] + [
+        torch.from_numpy(rng.normal(size=(8 * 5 * Wh, n)).astype(
+            np.float32)) for n in (2 * 58, 2 * Hf)] + [
+        torch.from_numpy(rng.normal(size=(8 * 5 * 58, 2 * Wh)).astype(
+            np.float32))]
+    for a, b, b_d in zip(lefts, (ops.B, ops.A, ops.iA, ops.iB),
+                         (ops_d.B, ops_d.A, ops_d.iA, ops_d.iB)):
+        assert torch.equal(b_d.cpu(), b)
+        ref = fft.bf16_matmul(a, b, passes)
+        got = fft.bf16_matmul(a.to(cuda), b_d, passes)
+        assert got.dtype == torch.float32
+        scale = float(ref.abs().max())
+        assert float((got.cpu() - ref).abs().max()) <= 1e-6 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["bfloat16", "float16"])
+def test_quantized_upload_matches_host_rounding(cuda, name):
+    """A quantized upload (bulk: the pinned host stack; overlap: a
+    chunk's slice) reaches the card as the host rounding's bits, and its
+    cast back to float32 there equals the host's."""
+    from scarlet_tpu_torch.parallel import stream
+
+    rng = np.random.default_rng(7)
+    x = (rng.normal(size=(16, 5, 58, 48)) * 100).astype(np.float32)
+    q = stream._quant_dtype(name)
+    host = torch.from_numpy(x).to(q)
+    up = stream._upload(x, cuda, q)
+    torch.cuda.synchronize()
+    assert up.dtype == q and up.device.type == "cuda"
+    assert torch.equal(up.cpu().view(torch.int16), host.view(torch.int16))
+    staged = stream._host_stack(x[4:8], q, pin=True)
+    assert staged.is_pinned()
+    assert torch.equal(staged.view(torch.int16), host[4:8].view(torch.int16))
+    assert torch.equal(up.to(torch.float32).cpu(), host.to(torch.float32))

@@ -148,15 +148,64 @@ def graft_psfs():
     return np.repeat(psf[None], 3, 0), model
 
 
-@pytest.mark.parametrize("field,value", [("conv_precision", "high")])
-def test_unported_options_raise(field, value):
-    """The bf16 matmul tiers of the DFT convolution have no exact
-    counterpart in torch."""
+def _random_moments(state, rng):
+    """The demo state with random morphologies and morphology moments, so
+    that a wrong layout shows in every leaf."""
+    def rand(x):
+        return jnp.asarray(rng.normal(size=x.shape).astype(np.float32))
+
+    return state._replace(morphs=(rand(state.morphs[0]),),
+                          morph_opt=(joptim.AdaproxState(*(
+                              rand(x) for x in state.morph_opt[0])),))
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_pack_state_matches_jax(batched):
+    """``pack_state``/``unpack_state`` on a config whose fit runs the
+    packed branch (``packed_morphs_ok``): every packed leaf bit for bit
+    against the JAX package's, on a single and a batched state, and the
+    round trip gives the state back bit for bit."""
     config, data, state = graft._demo_setup()
-    cfg, d, s = _port(config, data, state)
-    cfg = dataclasses.replace(cfg, conv_mode="dft", **{field: value})
-    with pytest.raises(NotImplementedError, match=field):
-        teng.fit_step(s, d, cfg)
+    config = dataclasses.replace(config, use_pallas=True,
+                                 use_pallas_scene=True, packed_morphs=True)
+    assert jeng.packed_morphs_ok(config)
+    rng = np.random.default_rng(9)
+    state = _random_moments(state, rng)
+    if batched:
+        other = _random_moments(state, rng)
+        state = jax.tree.map(lambda a, b: jnp.stack([a, b]), state, other)
+    cfg, _, s = _port(config, data, state)
+    assert teng.packed_morphs_ok(cfg)
+    packed_j = jeng.pack_state(state, config)
+    packed_t = teng.pack_state(s, cfg)
+    K, (hb, wb) = config.bucket_counts[0], config.box_shapes[0]
+    lead = (2,) if batched else ()
+    assert packed_t.morphs[0].shape == lead + (hb, K * wb)
+    for got, ref in zip((packed_t.morphs[0], *packed_t.morph_opt[0]),
+                        (packed_j.morphs[0], *packed_j.morph_opt[0])):
+        assert_array_equal(got.numpy(), np.asarray(ref))
+    back = teng.unpack_state(packed_t, cfg)
+    for got, ref in zip((back.morphs[0], *back.morph_opt[0]),
+                        (s.morphs[0], *s.morph_opt[0])):
+        assert got.is_contiguous()
+        assert torch.equal(got, ref)
+    back_j = jeng.unpack_state(packed_j, config)
+    assert_array_equal(back.morphs[0].numpy(), np.asarray(back_j.morphs[0]))
+
+
+def test_pack_state_is_a_no_op_off_the_packed_branch():
+    """Without ``packed_morphs`` (or with FISTA, or two buckets) both
+    functions hand the state back as it is, as in the JAX package."""
+    config, data, state = graft._demo_setup()
+    cfg, _, s = _port(config, data, state)
+    for c in (cfg, dataclasses.replace(cfg, use_pallas=True,
+                                       use_pallas_scene=True,
+                                       packed_morphs=True,
+                                       optimizer="fista")):
+        assert not teng.packed_morphs_ok(c)
+        assert teng.pack_state(s, c) is s
+        assert teng.unpack_state(s, c) is s
+    assert jeng.pack_state(state, config) is state
 
 
 def test_band_axis_without_a_band_group_raises():

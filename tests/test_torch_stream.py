@@ -257,22 +257,6 @@ def test_dispatch_collect_equals_converged(het):
     assert int(state.it.max()) == 0
 
 
-@pytest.mark.parametrize("option", [
-    dict(upload_dtype="bfloat16"), dict(upload="auto")],
-    ids=lambda o: next(iter(o)))
-def test_unported_stream_options_raise(het, option):
-    """Device detection (``centers=None``) and ``redetect`` are ported:
-    tests/test_torch_detection.py; the wavelet recipe and ``use_mask``:
-    tests/test_torch_wavelets.py; box growth and the tolerance schedule:
-    test_stream_fit_options_run_like_jax below."""
-    kw = dict(center_active=het["active"][:1], box_size=BOX, n_slots=12,
-              max_iter=2, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tstream.deblend_device_stream(
-            het["images"][:1], het["variance"][:1], het["psfs"][:1],
-            het["centers"][:1], MODEL_PSF, **kw, **option)
-
-
 @pytest.mark.parametrize("option,extra", [
     (dict(box_grow=0.1), dict(max_iter=3, check_every=3)),
     (dict(box_grow=0.1), dict(max_iter=6, check_every=2, chunk=1,
