@@ -233,7 +233,28 @@ Run from the repository root, with one CUDA card:
    against "float32" on het blends CPU_BLENDS; converged fits of het
    chunk 0 with ``conv_mode="dft"`` at each tier in turns (blends/min,
    logL drift; K1, K3 and K4 counted over one fit at "high").
-17. Prints one JSON line with the kernels, the card's name and power
+17. Any band count and any box: (a) K3 and K4 against their plain
+   versions at C = 9, 10, 12, 16 and 40 (BAND_CHECKS), on the lite fit's
+   shapes (128 blends x 16 components, box 59, 58 x 48: K4's direct
+   route) and on a 24 x 24 scene (box 21: its staged route), each on the
+   unpadded gradient and padded by the box: K3 and g_morph bit for bit,
+   g_sed to GRAD_SED_RTOL, two launches bitwise; (b) the device stream
+   on 64 generated (10, 58, 48) blends at the het cell's settings
+   (counted from zero; records finite and 10 bands wide, logL improving),
+   4 of them on the card and the CPU (init decisions equal, logL within
+   CPU_RTOL), and ``MultiResFitter`` on the pair with 6 HR and 4 LR
+   bands (10 model channels, 4 blends, 10 iterations) against the CPU
+   at rtol 1e-4; (c) K5 and K6 at boxes 81 and 101, the wide route (K1's
+   ``mono_kernel_wide`` inside the plain steps), bit for bit with their
+   plain versions, the wide counters and ``monotonic_prox_wide`` checked,
+   with their times; 32 het blends packed at box 81 fitted 20
+   iterations by default, with ``packed_prox_chain`` (logL bit for bit
+   with the default) and with ``fuse_morph`` (within the fused
+   configurations' tolerances), each counted from zero; (d) K3 and K4 at
+   C = 5, 10 and 16 on the lite fit's shapes: device ms (CUDA events over
+   replays of a CUDA graph of 20 calls) and CUDA events around one call
+   (medians of 10) beside the bytes bound.
+18. Prints one JSON line with the kernels, the card's name and power
    limit, then, last, the device line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without a CUDA device, or outside
@@ -952,13 +973,19 @@ def fit_k1_work(setup, n_iter=20):
 def make_het():
     """bench.py's ``make_heterogeneous``: N_HET generated blends packed to
     one catalog layout (numpy)."""
+    return stack_blends(N_HET, HET_SEED)
+
+
+def stack_blends(n, seed, shape=(5, 58, 48)):
+    """n generated blends of ``shape`` (``default_rng(seed)``), stacked and
+    packed to one catalog layout (numpy)."""
     from scarlet_tpu_torch.testing import generate_blend
 
-    rng = np.random.default_rng(HET_SEED)
-    blends = [generate_blend(rng) for _ in range(N_HET)]
+    rng = np.random.default_rng(seed)
+    blends = [generate_blend(rng, shape=shape) for _ in range(n)]
     K = max(len(b["catalog"]) for b in blends)
-    centers = np.zeros((N_HET, K, 2), np.int32)
-    active = np.zeros((N_HET, K), bool)
+    centers = np.zeros((n, K, 2), np.int32)
+    active = np.zeros((n, K), bool)
     for i, b in enumerate(blends):
         k = len(b["catalog"])
         centers[i, :k, 0] = np.round(b["catalog"]["y"])
@@ -5650,6 +5677,485 @@ def options_phase(dev, card, setup, het):
     return dict(upload_dtype=up_counts, dft_high=tier_counts), summary
 
 
+# ---------------------------------------------------------------------------
+# 17. Any band count (K3, K4) and any box (K5, K6) on the card
+# ---------------------------------------------------------------------------
+# band counts past the gather kernels' one-group instantiations (PAUS's 40
+# narrow bands the largest), and those timed at the lite fit's shapes
+BAND_CHECKS = (9, 10, 12, 16, 40)
+BAND_TIMES = (5, 10, 16)
+BAND_REPS, BAND_GRAPH_CALLS = 10, 20
+# (B, K, (H, W), box): the lite fit's shapes (K4's direct route past 8
+# bands) and a small scene that keeps K4's staged route up to 40 bands
+BAND_FIT_SHAPE = (128, 16, (58, 48), 59)
+BAND_STAGED_SHAPE = (32, 16, (24, 24), 21)
+# the 10-band het-like stream: generated (10, 58, 48) blends, the het
+# cell's settings; the card against the CPU on BAND_CPU_BLENDS of them,
+# BAND_CPU_ITERS iterations at e_rel 0 (as the wavelet phase's rerun: a
+# blend whose convergence test flips stops iterations apart)
+BAND_STREAM_SHAPE, N_BAND_STREAM, BAND_SEED = (10, 58, 48), 64, 16
+BAND_CPU_BLENDS, BAND_CPU_ITERS = [0, 1, 2, 3], 50
+# the multi-resolution pair with 6 HR and 4 LR bands, card against CPU
+BAND_MR_BANDS, BAND_MR_B, BAND_MR_ITERS = (6, 4), 4, 10
+# boxes past the register kernels' 73 pixels: K5's and K6's wide route,
+# and the engine fits on 5-band het blends packed at box 81
+WIDE_BOXES = (81, 101)
+WIDE_FIT_BOX, WIDE_FIT_BLENDS, WIDE_FIT_ITERS = 81, 32, 20
+
+
+def band_inputs(B, K, C, H, W, box, dev, seed):
+    """Seeded K3/K4 inputs: seds, morphs, origins of boxes centered in the
+    scene (overhanging its edges), a few slots off, and the unpadded
+    gradient as the engine's inverse FFT leaves it (a strided crop)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    seds = torch.from_numpy(rng.uniform(0.1, 2, (B, K, C)).astype(
+        np.float32)).to(dev)
+    morphs = torch.from_numpy(rng.uniform(0, 1, (B, K, box, box)).astype(
+        np.float32)).to(dev)
+    cy = rng.integers(0, H, (B, K, 1))
+    cx = rng.integers(0, W, (B, K, 1))
+    origins = torch.from_numpy(np.concatenate(
+        [cy - box // 2, cx - box // 2], -1).astype(np.int32)).to(dev)
+    on = torch.from_numpy(rng.uniform(size=(B, K)) > 0.1).to(dev)
+    grad = strided_gradient(B, C, H, W, (H + 2 * (box // 2),
+                                         W + 2 * (box // 2)), dev)
+    return seds, morphs, origins, on, grad
+
+
+def band_kernel_checks(dev, card):
+    """(a) K3 and K4 against their plain versions at BAND_CHECKS, on the
+    lite fit's shapes and on the small staged scene: K3 and g_morph bit
+    for bit, g_sed within GRAD_SED_RTOL of sum |g * morph| and the same
+    bits in two launches, each on the unpadded gradient and padded by the
+    box; both K4 routes at every count.  Returns {C: results}."""
+    import torch.nn.functional as F
+    from scarlet_tpu_torch.ops import kernels as kn
+
+    out = {}
+    for C in BAND_CHECKS:
+        res, routes = {}, set()
+        for label, (B, K, (H, W), box) in (("fit", BAND_FIT_SHAPE),
+                                           ("staged", BAND_STAGED_SHAPE)):
+            seds, m, origins, on, grad = band_inputs(B, K, C, H, W, box,
+                                                     dev, C + box)
+            P = box
+            got = kn.scene_assembly(seds, m, origins, on, (C, H, W), P)
+            ref = kn.scene_assembly_plain(seds, m, origins, on, (C, H, W), P)
+            scene_err = float((got - ref).abs().max())
+            for gl, (g, p) in (("pad 0", (grad, 0)),
+                               ("padded", (F.pad(grad, (P,) * 4), P))):
+                gs, gm = kn.grad_gather(g, seds, m, origins, p)
+                rs, rm = kn.grad_gather_plain(g, seds, m, origins, p)
+                scale = kn.grad_gather_plain(g.abs(), seds, m, origins, p)[0]
+                sed_err = float(((gs - rs).abs()
+                                 / scale.clamp_min(1e-30)).max())
+                again = kn.grad_gather(g, seds, m, origins, p)
+                same = bool((again[0] == gs).all() and (again[1] == gm).all())
+                route = "staged" if kn.grad_geometry(
+                    B, K, C, *g.shape[-2:], box, box).staged else "direct"
+                routes.add(route)
+                r = dict(route=route, g_morph_err=float((gm - rm).abs().max()),
+                         g_sed_rel_err=sed_err, repeat_bitwise=same)
+                res[f"{label} {gl}"] = r
+                if r["g_morph_err"] != 0.0 or sed_err > GRAD_SED_RTOL \
+                        or not same:
+                    raise AssertionError(f"grad_gather at C={C} ({label}, "
+                                         f"{gl}): {r}")
+            res[f"{label} scene_err"] = scene_err
+            if scene_err != 0.0:
+                raise AssertionError(f"scene_assembly at C={C} ({label}) "
+                                     f"differs from its plain version by "
+                                     f"{scene_err}")
+        if routes != {"staged", "direct"}:
+            raise AssertionError(f"grad_gather at C={C} ran {routes} only")
+        out[C] = res
+        log(f"bands C={C}: scene_assembly bit for bit at "
+            f"{BAND_FIT_SHAPE} and {BAND_STAGED_SHAPE}; grad_gather "
+            + "; ".join(f"{k}: {v['route']}, g_morph err "
+                        f"{v['g_morph_err']:.3g}, g_sed rel err "
+                        f"{v['g_sed_rel_err']:.3g}, repeat bitwise "
+                        f"{v['repeat_bitwise']}"
+                        for k, v in res.items() if isinstance(v, dict))
+            + f" on {card}")
+    return out
+
+
+def graph_ms(fn, reps=BAND_REPS, per=BAND_GRAPH_CALLS):
+    """Device ms per call of ``fn``: ``per`` calls captured in one CUDA
+    graph, each replay timed with CUDA events (``time_ms``), the median of
+    ``reps`` replays over ``per``.  A replay runs no Python, so the host's
+    launch gaps, which CUDA events around one call of a ~0.01 ms kernel
+    measure instead of the kernel, drop out; and it needs no profiler,
+    which has come back without a short kernel's launches late in a full
+    run (PERF.md)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per):
+            fn()
+    return time_ms(graph.replay, reps) / per
+
+
+def band_timings(dev, card):
+    """(d) K3 and K4 at BAND_TIMES bands on the lite fit's shapes: the
+    kernel's device time (``graph_ms``: CUDA events over graph replays,
+    median of BAND_REPS), CUDA events around one call (median of
+    BAND_REPS), the plain version's time and the bound (bytes: each input
+    read once, each output written once, over HBM_BYTES_PER_S).  Returns
+    {C: {kernel: numbers}}."""
+    from scarlet_tpu_torch.ops import kernels as kn
+
+    B, K, (H, W), box = BAND_FIT_SHAPE
+    out = {}
+    for C in BAND_TIMES:
+        seds, m, origins, on, grad = band_inputs(B, K, C, H, W, box, dev,
+                                                 100 + C)
+        shape = (C, H, W)
+        scene = kn.scene_assembly(seds, m, origins, on, shape, box)
+        px = in_scene_pixels(origins, on, box, box, H, W)
+        gs, gm = kn.grad_gather(grad, seds, m, origins, 0)
+        sg = kn.scene_geometry(B, K, C, H, W)
+        gg = kn.grad_geometry(B, K, C, H, W, box, box)
+        out[C] = dict(
+            scene_assembly=dict(
+                **bound(nbytes(seds, origins, on, scene) + 4 * px,
+                        2.0 * C * px),
+                ms=graph_ms(lambda: kn.scene_assembly(
+                    seds, m, origins, on, shape, box)),
+                event_ms=time_ms(lambda: kn.scene_assembly(
+                    seds, m, origins, on, shape, box), BAND_REPS),
+                plain_ms=time_ms(lambda: kn.scene_assembly_plain(
+                    seds, m, origins, on, shape, box), 3),
+                grid=(B, sg.bands, sg.tiles), walks=-(-C // 8)),
+            grad_gather=dict(
+                **bound(nbytes(grad, seds, m, origins, gs, gm),
+                        4.0 * B * K * C * box * box),
+                ms=graph_ms(lambda: kn.grad_gather(grad, seds, m, origins,
+                                                   0)),
+                event_ms=time_ms(lambda: kn.grad_gather(
+                    grad, seds, m, origins, 0), BAND_REPS),
+                plain_ms=time_ms(lambda: kn.grad_gather_plain(
+                    grad, seds, m, origins, 0), 3),
+                route="staged" if gg.staged else "direct", G=gg.G,
+                walks=-(-C // 8)))
+        for name, r in out[C].items():
+            log(f"bands C={C} {name} at B={B} K={K} {H}x{W} box={box}: "
+                f"{r['ms']:.4f} ms device (graph replays; "
+                f"{r['event_ms']:.4f} ms events around one call), "
+                f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                f"by {r['bound_by']} ({100 * r['bound_ms'] / r['ms']:.1f}% "
+                f"of the bound's speed), {r['walks']} band walk(s)"
+                + (f", {r['route']} route, G={r['G']}"
+                   if name == "grad_gather" else "") + f" on {card}")
+    return out
+
+
+def band_stream(dev, card):
+    """(b) The device stream on N_BAND_STREAM generated 10-band blends at
+    the het cell's settings (one chunk), counted from zero; records
+    finite, logL improving for all but MAX_WORSE; then BAND_CPU_BLENDS on
+    the card and the CPU: the init decisions equal (``stream_setup``) and,
+    over BAND_CPU_ITERS iterations at e_rel 0 and mono_tol 0, each stream
+    record's logL within CPU_RTOL.  Returns (counts, summary)."""
+    import torch
+    from scarlet_tpu_torch.ops import kernels as kn
+    from scarlet_tpu_torch.parallel import stream
+
+    bl = stack_blends(N_BAND_STREAM, BAND_SEED, BAND_STREAM_SHAPE)
+    mp = model_psf()
+    kw = dict(HET, chunk=N_BAND_STREAM)
+
+    def run(sel, device, **extra):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = stream.deblend_device_stream(
+            bl["images"][sel], bl["variance"][sel], bl["psfs"][sel],
+            bl["centers"][sel], mp, center_active=bl["active"][sel],
+            device=device, **dict(kw, **extra))
+        torch.cuda.synchronize()
+        return res[0], time.perf_counter() - t0
+
+    run(slice(None), dev)
+    kn.reset_launch_counts()
+    records, wall = run(slice(None), dev)
+    counts = kn.launch_counts()
+    for name in PATH_KERNELS:
+        if counts[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 "10-band stream")
+    for i, r in enumerate(records):
+        if not (np.isfinite(r["logL"]) and np.all(np.isfinite(r["flux"]))
+                and np.asarray(r["flux"]).shape[-1] == BAND_STREAM_SHAPE[0]):
+            raise AssertionError(f"10-band stream record {i} is not finite "
+                                 "or not 10 bands wide")
+    worse = [i for i, r in enumerate(records)
+             if not r["logL"] > r["init logL"]]
+    if len(worse) > MAX_WORSE * len(records):
+        raise AssertionError(f"logL did not improve for {len(worse)} of "
+                             f"{len(records)} 10-band stream blends")
+
+    sel = BAND_CPU_BLENDS
+    setup = [stream.stream_setup(
+        bl["images"][sel], bl["variance"][sel], bl["psfs"][sel],
+        bl["centers"][sel], mp, center_active=bl["active"][sel],
+        box_size=HET["box_size"], n_slots=HET["n_slots"], device=d)
+        for d in (dev, "cpu")]
+    _init_decisions_equal(setup[0], setup[1], "10-band stream")
+    exact = dict(mono_tol=0.0, e_rel=0.0, max_iter=BAND_CPU_ITERS)
+    card_recs, _ = run(sel, dev, **exact)
+    cpu_recs, cpu_s = run(sel, "cpu", **exact)
+    rel = np.array([abs(a["logL"] - b["logL"]) / abs(b["logL"])
+                    for a, b in zip(card_recs, cpu_recs)])
+    its = [(a["iterations"], b["iterations"])
+           for a, b in zip(card_recs, cpu_recs)]
+    summary = dict(blends=N_BAND_STREAM, shape=BAND_STREAM_SHAPE,
+                   wall_s=wall, blends_per_min=N_BAND_STREAM / wall * 60.0,
+                   median_iterations=float(np.median(
+                       [r["iterations"] for r in records])),
+                   not_improved=worse, cpu_blends=sel,
+                   cpu_max_rel_logL=float(rel.max()),
+                   iterations_card_cpu=its, cpu_wall_s=cpu_s)
+    log(f"10-band stream of {N_BAND_STREAM} generated {BAND_STREAM_SHAPE} "
+        f"blends: {summary['blends_per_min']:.1f} blends/min (one run after "
+        f"a warm-up, {wall:.3f} s), median iterations "
+        f"{summary['median_iterations']}, not improved {worse}; blends {sel} "
+        f"card vs CPU ({BAND_CPU_ITERS} iterations, e_rel 0, mono_tol 0): "
+        f"init decisions equal, logL max rel diff "
+        f"{rel.max():.3g} (limit {CPU_RTOL}), iterations {its}; launches "
+        f"{counts} on {card}")
+    if not rel.max() <= CPU_RTOL:
+        raise AssertionError("10-band stream: card and CPU logL disagree")
+    return counts, summary
+
+
+def band_multires(dev, card):
+    """(b) ``MultiResFitter`` on the pair with BAND_MR_BANDS bands (10
+    model channels), BAND_MR_B flux-scaled blends, BAND_MR_ITERS
+    iterations on the card (counted from zero) and on the CPU: the loss
+    histories within rtol 1e-4 (tests/test_torch_cuda.py's rule).
+    Returns (counts, summary)."""
+    import torch
+    from scarlet_tpu_torch import models
+    from scarlet_tpu_torch.ops import kernels as kn
+    from scarlet_tpu_torch.parallel import MultiResFitter, multires_init
+    from scarlet_tpu_torch.testing import blob_centers, make_pair
+
+    hist, counts, walls = {}, None, {}
+    for label, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        hr, lr, dh, dl = make_pair(device=d, bands=BAND_MR_BANDS)
+        frame = models.Frame.from_observations([lr, hr], obs_id=1)
+        sc = np.linspace(0.8, 1.2, BAND_MR_B).astype(np.float32)[
+            :, None, None, None]
+        datas = (dh[None] * sc, dl[None] * sc)
+        weights = tuple(np.full_like(x, 400.0) for x in datas)
+        init = multires_init((hr, lr), datas, blob_centers(frame, BAND_MR_B),
+                             box_size=MR_BOX, n_slots=MR_SLOTS)
+        fit = MultiResFitter((hr, lr), box_size=MR_BOX)
+        kn.reset_launch_counts()
+        t0 = time.perf_counter()
+        hist[label] = fit.fit(datas, weights, *init,
+                              n_iter=BAND_MR_ITERS)[4].cpu().numpy()
+        if label == "card":
+            torch.cuda.synchronize()
+            counts = kn.launch_counts()
+        walls[label] = time.perf_counter() - t0
+        channels = len(frame.channels)
+    rel = float((np.abs(hist["card"] - hist["cpu"])
+                 / np.abs(hist["cpu"])).max())
+    summary = dict(bands=BAND_MR_BANDS, channels=channels, blends=BAND_MR_B,
+                   iterations=BAND_MR_ITERS, max_rel_loss=rel,
+                   card_wall_s=walls["card"], cpu_wall_s=walls["cpu"])
+    log(f"multi-resolution {BAND_MR_BANDS[0]} + {BAND_MR_BANDS[1]}-band pair "
+        f"({channels} model channels, {BAND_MR_B} blends, {BAND_MR_ITERS} "
+        f"iterations): card vs CPU loss histories max rel diff {rel:.3g} "
+        f"(limit 1e-4); card {walls['card']:.2f} s, CPU {walls['cpu']:.2f} "
+        f"s; launches {counts} on {card}")
+    if channels != sum(BAND_MR_BANDS) or not rel <= 1e-4 or any(
+            counts[n] < BAND_MR_ITERS for n in PATH_KERNELS):
+        raise AssertionError("multi-resolution pair past 8 bands failed")
+    return counts, summary
+
+
+def wide_chain_checks(dev, card):
+    """(c) K5 and K6 at WIDE_BOXES: bit for bit against their plain
+    versions on the card (K5 at tol 0 and 1e-3, K6 with and without box
+    masks), each call through K1's wide kernel and counted as the
+    wrapper's wide call; the wide route's time (CUDA events, median of
+    BAND_REPS) beside the plain version's and a bytes bound.  Returns
+    {kernel: {box: numbers}}."""
+    import torch
+    from scarlet_tpu_torch.lite import engine
+    from scarlet_tpu_torch.ops import kernels as kn
+
+    out = {"prox_chain": {}, "fused_morph_update": {}}
+    for box in WIDE_BOXES:
+        w, keep, n_iter = engine.monotonicity_tables((box, box), 1, "angle")
+        w = torch.from_numpy(w.astype(np.float32)).to(dev)
+        keep = torch.from_numpy(keep.astype(np.float32)).to(dev)
+        rng = np.random.default_rng(box)
+        B, K = 4, 8
+        yy, xx = np.mgrid[:box, :box] - box // 2
+        prof = np.exp(-(yy ** 2 + xx ** 2) / rng.uniform(
+            20, 400, (B, K, 1, 1)))
+        m = torch.from_numpy((prof * (1 + 0.3 * rng.uniform(
+            size=(B, K, box, box)))).astype(np.float32)).to(dev)
+        g = torch.from_numpy((0.1 * rng.normal(size=m.shape)).astype(
+            np.float32)).to(dev)
+        mom = [torch.from_numpy((0.05 * rng.normal(size=m.shape)).astype(
+            np.float32)).to(dev)] + [torch.from_numpy(
+                (0.01 * rng.uniform(size=m.shape)).astype(np.float32)).to(dev)
+            for _ in range(2)]
+        bm = torch.ones_like(m)
+        bm[:, 1::3, :, :6] = 0.0
+        gate = torch.from_numpy(rng.uniform(size=(B, K)) > 0.25).to(dev)
+        thr = torch.from_numpy(np.where(
+            rng.uniform(size=(B, K)) > 0.5, rng.uniform(0.01, 0.2, (B, K)),
+            0.0).astype(np.float32)).to(dev)
+        ds = torch.full((B,), 1e-2, device=dev)
+        stepped = (m + g) * bm
+        idx = kn.candidate_index(stepped, 1)
+        opt = engine.AdaproxState(*mom)
+        kn.reset_launch_counts()
+        errs = []
+        for tol in (0.0, 1e-3):
+            got = kn.prox_chain(m, stepped, idx, w, keep, thr, gate, n_iter,
+                                tol=tol)
+            ref = kn.prox_chain_plain(m, stepped, idx, w, keep, thr, gate,
+                                      n_iter, tol=tol)
+            errs.append(float((got - ref).abs().max()))
+        ferrs = []
+        for masks in (bm, None):
+            x, o = kn.fused_morph_update(m, g, opt, gate, w, keep, masks, thr,
+                                         ds, n_iter)
+            rx, ro = kn.fused_morph_update_plain(m, g, opt, gate, w, keep,
+                                                 masks, thr, ds, n_iter)
+            ferrs.append(max(float((a - b).abs().max())
+                             for a, b in zip((x, *o), (rx, *ro))))
+        counts = kn.launch_counts()
+        if max(errs + ferrs) != 0.0 or counts["prox_chain_wide"] != 2 \
+                or counts["fused_morph_update_wide"] != 2 \
+                or counts["monotonic_prox_wide"] != 4 \
+                or counts["prox_chain"] or counts["fused_morph_update"]:
+            raise AssertionError(f"wide K5/K6 at box {box}: errors {errs} "
+                                 f"{ferrs}, counts {counts}")
+        shape = f"B={B} K={K} box={box} n_iter={n_iter}"
+        out["prox_chain"][box] = dict(
+            **bound(nbytes(m, stepped, idx, w, keep, thr, gate, got), 0.0),
+            max_abs_err=max(errs), shape=shape,
+            ms=time_ms(lambda: kn.prox_chain(m, stepped, idx, w, keep, thr,
+                                             gate, n_iter), BAND_REPS),
+            plain_ms=time_ms(lambda: kn.prox_chain_plain(
+                m, stepped, idx, w, keep, thr, gate, n_iter), 3))
+        out["fused_morph_update"][box] = dict(
+            **bound(nbytes(m, g, *mom, bm, gate, w, keep, thr, ds, x, *o),
+                    0.0),
+            max_abs_err=max(ferrs), shape=shape,
+            ms=time_ms(lambda: kn.fused_morph_update(
+                m, g, opt, gate, w, keep, bm, thr, ds, n_iter), BAND_REPS),
+            plain_ms=time_ms(lambda: kn.fused_morph_update_plain(
+                m, g, opt, gate, w, keep, bm, thr, ds, n_iter), 3))
+        for name in out:
+            r = out[name][box]
+            log(f"wide route {name} at {shape}: bit for bit (max abs err "
+                f"{r['max_abs_err']:.3g}), {r['ms']:.4f} ms (events), plain "
+                f"{r['plain_ms']:.4f} ms, bytes bound {r['bound_ms']:.5f} ms "
+                f"on {card}")
+    return out
+
+
+def wide_fits(dev, card):
+    """(c) WIDE_FIT_BLENDS het blends packed at box WIDE_FIT_BOX
+    (``stream_setup``, mono_tol 0) fitted WIDE_FIT_ITERS iterations three
+    ways: the default, ``packed_prox_chain`` (K5's wide route) and
+    ``fuse_morph`` (K6's), each counted from zero.  K5's route is the
+    default's projection and epilogue, so its logL is the default's bit
+    for bit; K6's within the fused configurations' tolerances of
+    fused_configs.  Returns ({config: counts}, summary)."""
+    import torch
+    from scarlet_tpu_torch.ops import kernels as kn
+    from scarlet_tpu_torch.parallel import batch, stream
+
+    bl = stack_blends(WIDE_FIT_BLENDS, BAND_SEED + 1)
+    config, data, state, _ = stream.stream_setup(
+        bl["images"], bl["variance"], bl["psfs"], bl["centers"], model_psf(),
+        center_active=bl["active"], box_size=WIDE_FIT_BOX,
+        n_slots=HET["n_slots"], device=dev, mono_tol=0.0)
+    if config.box_shapes[0] != (WIDE_FIT_BOX, WIDE_FIT_BOX):
+        raise AssertionError(f"packed boxes {config.box_shapes}")
+    configs = {
+        "default": config,
+        "packed_prox_chain": dataclasses.replace(config,
+                                                 packed_prox_chain=True),
+        "fuse_morph": dataclasses.replace(config, packed_morphs=False,
+                                          fuse_morph=True)}
+    finals, counts, summary = {}, {}, {}
+    for name, cfg in configs.items():
+        kn.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, losses = batch.fit_batch_device_converged(
+            state, data, cfg, WIDE_FIT_ITERS, WIDE_FIT_ITERS)
+        torch.cuda.synchronize()
+        counts[name] = kn.launch_counts()
+        finals[name] = out.last_loss.cpu().numpy()
+        summary[name] = dict(ms_per_iteration=(time.perf_counter() - t0)
+                             * 1e3 / len(losses))
+    for name, key in (("packed_prox_chain", "prox_chain_wide"),
+                      ("fuse_morph", "fused_morph_update_wide")):
+        if counts[name][key] <= 0 or counts[name]["monotonic_prox_wide"] <= 0:
+            raise AssertionError(f"{name} at box {WIDE_FIT_BOX} did not take "
+                                 f"the wide route: {counts[name]}")
+    ref = finals["default"]
+    if not np.array_equal(finals["packed_prox_chain"], ref):
+        raise AssertionError("packed_prox_chain's wide route differs from "
+                             "the default fit")
+    rel = np.abs(finals["fuse_morph"] - ref) / np.abs(ref)
+    med = abs(np.median(finals["fuse_morph"]) - np.median(ref)) / abs(
+        np.median(ref))
+    summary["fuse_morph"].update(median_rel=float(med),
+                                 max_rel=float(rel.max()))
+    log(f"box {WIDE_FIT_BOX} fits of {WIDE_FIT_BLENDS} het blends, "
+        f"{WIDE_FIT_ITERS} iterations: packed_prox_chain logL bit for bit "
+        f"with the default; fuse_morph median rel diff {med:.3g} (limit "
+        f"{FUSED_MEDIAN_RTOL}), max {rel.max():.3g} (limit "
+        f"{FUSED_BLEND_RTOL}); "
+        + "; ".join(f"{n}: {s['ms_per_iteration']:.3f} ms/iteration, "
+                    f"launches {counts[n]}" for n, s in summary.items())
+        + f" on {card}")
+    if not (med <= FUSED_MEDIAN_RTOL and rel.max() <= FUSED_BLEND_RTOL):
+        raise AssertionError("fuse_morph at box 81 disagrees with the "
+                             "default fit")
+    return counts, summary
+
+
+def bands_phase(dev, card):
+    """Phase 17: (a) K3/K4 past 8 bands against their plain versions, (b)
+    the 10-band stream and the 6 + 4-band multi-resolution fit, (c) K5 and
+    K6 on wide boxes and their engine fits, (d) K3/K4 times at
+    BAND_TIMES.  Returns ({path: counts}, checks, summary)."""
+    t0 = time.perf_counter()
+    checks = dict(bands=band_kernel_checks(dev, card))
+    stream_counts, stream_summary = band_stream(dev, card)
+    mr_counts, mr_summary = band_multires(dev, card)
+    checks["wide"] = wide_chain_checks(dev, card)
+    wide_counts, wide_summary = wide_fits(dev, card)
+    times = band_timings(dev, card)
+    summary = dict(stream=stream_summary, multires=mr_summary,
+                   wide_fits=wide_summary, times=times,
+                   wall_s=time.perf_counter() - t0)
+    log(f"the bands and wide-box phase took {summary['wall_s']:.1f} s")
+    return dict(stream=stream_counts, multires=mr_counts,
+                wide=wide_counts), checks, summary
+
+
 def main():
     import torch
 
@@ -5828,6 +6334,29 @@ def main():
         kres[name]["launches_upload_dtype"] = \
             int(opt16_counts["upload_dtype"][name])
         kres[name]["launches_dft_high"] = int(opt16_counts["dft_high"][name])
+
+    # any band count (K3, K4) and any box (K5, K6): each path counted from
+    # zero
+    b17_counts, b17_checks, b17_summary = bands_phase(dev, card)
+    log(f"bands summary: {json.dumps(b17_summary)}")
+    for name in PATH_KERNELS:
+        kres[name]["launches_bands_stream"] = \
+            int(b17_counts["stream"][name])
+        kres[name]["launches_bands_multires"] = \
+            int(b17_counts["multires"][name])
+    for name in ("scene_assembly", "grad_gather"):
+        kres[name]["band_times"] = {
+            C: t[name] for C, t in b17_summary["times"].items()}
+    kres["grad_gather"]["band_checks"] = b17_checks["bands"]
+    for name, key, cfg in (("prox_chain", "prox_chain_wide",
+                            "packed_prox_chain"),
+                           ("fused_morph_update", "fused_morph_update_wide",
+                            "fuse_morph")):
+        kres[name]["wide_route"] = dict(
+            launches_box_81_fit=int(b17_counts["wide"][cfg][key]),
+            k1_wide_launches_box_81_fit=int(
+                b17_counts["wide"][cfg]["monotonic_prox_wide"]),
+            boxes=b17_checks["wide"][name])
 
     # each kernel's launches from the run of the path that drives it:
     # K1, K3 and K4 from one device-stream run, K5 and K6 from the fit of

@@ -119,10 +119,9 @@ def load():
     # (XV, TX, TY, bands, tiles, threads, smem) and grad_geometry (staged,
     # G, groups, smem)
     lib.scarlet_scene_assembly.argtypes = [p] * 5 + [i] * 7 + [i] * 7 + [p]
-    lib.scarlet_scene_kernel_info.argtypes = [i, i, i, p]
+    lib.scarlet_scene_kernel_info.argtypes = [i, i, i, i, p]
     lib.scarlet_grad_gather.argtypes = [p] * 6 + [i] * 8 + [ll] * 3 + \
         [i] * 4 + [p]
-    lib.scarlet_grad_max_bands.argtypes = []
     lib.scarlet_grad_kernel_info.argtypes = [i, i, i, p]
     lib.scarlet_mono_pass_variant.argtypes = [p, p, p, p, i, i, i, i, i, i,
                                               f, p]
@@ -133,8 +132,7 @@ def load():
                  "scarlet_mono_kernel_info",
                  "scarlet_prox_chain", "scarlet_fused_morph",
                  "scarlet_scene_assembly", "scarlet_scene_kernel_info",
-                 "scarlet_grad_gather",
-                 "scarlet_grad_max_bands", "scarlet_grad_kernel_info",
+                 "scarlet_grad_gather", "scarlet_grad_kernel_info",
                  "scarlet_mono_pass_variant",
                  "scarlet_mono_pass_variant_smem_bytes"):
         getattr(lib, name).restype = ctypes.c_int

@@ -32,7 +32,11 @@
 //     C x XV running sums in registers.  It issues the loads of kBatch
 //     listed components before it adds any of them (in order), so several
 //     loads are in flight per thread: one at a time left the kernel
-//     waiting on device-memory latency.
+//     waiting on device-memory latency;
+//   - more than kMaxC bands would not fit those registers: the grouped
+//     instantiation walks the block's list once per group of kMaxC bands
+//     (zeroing the sums, then storing the group's bands), in the same
+//     launch.  Up to kMaxC bands, the one-group instantiation runs.
 //
 // Rounding: each band's sum is taken in ascending k with each step rounded
 // on its own, acc = acc + sed * morph (__fmul_rn, __fadd_rn), where the
@@ -59,8 +63,9 @@ constexpr int kBatch = 4;           // components whose loads overlap
 // columns [tile * TX * XV, (tile + 1) * TX * XV) of the scene; thread t
 // takes row t / TX of the band and x = (tile * TX + t % TX) * XV + v,
 // v < XV.  Dynamic shared memory: origins (K, 2) int, the list (K) int,
-// seds (K, C) float.
-template <int XV>
+// seds (K, C) float.  kGrouped: bands c0 .. c0 + kMaxC - 1 (< C) per walk
+// of the list, for c0 = 0, kMaxC, ...; else one walk over all C <= kMaxC.
+template <int XV, bool kGrouped>
 __global__ void __launch_bounds__(kMaxThreads)
 scene_kernel(const float* __restrict__ seds, const float* __restrict__ morphs,
              const int* __restrict__ origins,
@@ -112,82 +117,114 @@ scene_kernel(const float* __restrict__ seds, const float* __restrict__ morphs,
   if (ty >= TY || y >= y1 || x0 >= xs1) return;
 
   float acc[kMaxC][XV];
-#pragma unroll
-  for (int c = 0; c < kMaxC; ++c)
-#pragma unroll
-    for (int v = 0; v < XV; ++v) acc[c][v] = 0.0f;
-
-  // kBatch components at a time: their morph loads are in flight together
   const int n = count;
-  for (int i0 = 0; i0 < n; i0 += kBatch) {
-    int kk[kBatch];
-    bool in[kBatch][XV];
-    float m[kBatch][XV];
+  for (int c0 = 0; c0 < (kGrouped ? C : 1); c0 += kMaxC) {
 #pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int k = i0 + u < n ? list[i0 + u] : list[i0];
-      const int ly = y - org[2 * k];
-      const bool row = i0 + u < n && (unsigned)ly < (unsigned)hb;
-      const int lx = x0 - org[2 * k + 1];
-      const float* mrow = mb + (k * hb + (row ? ly : 0)) * wb;
-      kk[u] = k;
+    for (int c = 0; c < kMaxC; ++c)
 #pragma unroll
-      for (int v = 0; v < XV; ++v) {
-        in[u][v] = row && (unsigned)(lx + v) < (unsigned)wb;
-        m[u][v] = in[u][v] ? mrow[lx + v] : 0.0f;
+      for (int v = 0; v < XV; ++v) acc[c][v] = 0.0f;
+
+    // kBatch components at a time: their morph loads are in flight together
+    for (int i0 = 0; i0 < n; i0 += kBatch) {
+      int kk[kBatch];
+      bool in[kBatch][XV];
+      float m[kBatch][XV];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int k = i0 + u < n ? list[i0 + u] : list[i0];
+        const int ly = y - org[2 * k];
+        const bool row = i0 + u < n && (unsigned)ly < (unsigned)hb;
+        const int lx = x0 - org[2 * k + 1];
+        const float* mrow = mb + (k * hb + (row ? ly : 0)) * wb;
+        kk[u] = k;
+#pragma unroll
+        for (int v = 0; v < XV; ++v) {
+          in[u][v] = row && (unsigned)(lx + v) < (unsigned)wb;
+          m[u][v] = in[u][v] ? mrow[lx + v] : 0.0f;
+        }
       }
-    }
 #pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
+      for (int u = 0; u < kBatch; ++u) {
 #pragma unroll
-      for (int c = 0; c < kMaxC; ++c) {
-        if (c < C) {
-          const float s = sed[kk[u] * C + c];
+        for (int c = 0; c < kMaxC; ++c) {
+          if (c0 + c < C) {
+            const float s = sed[kk[u] * C + c0 + c];
 #pragma unroll
-          for (int v = 0; v < XV; ++v)
-            if (in[u][v])
-              acc[c][v] = __fadd_rn(acc[c][v], __fmul_rn(s, m[u][v]));
+            for (int v = 0; v < XV; ++v)
+              if (in[u][v])
+                acc[c][v] = __fadd_rn(acc[c][v], __fmul_rn(s, m[u][v]));
+          }
         }
       }
     }
-  }
 
 #pragma unroll
-  for (int c = 0; c < kMaxC; ++c) {
-    if (c < C) {
-      float* o = outb + (c * H + y) * W + x0;
-      if (XV == 4) {
-        *reinterpret_cast<float4*>(o) =
-            make_float4(acc[c][0], acc[c][XV > 1 ? 1 : 0],
-                        acc[c][XV > 2 ? 2 : 0], acc[c][XV > 3 ? 3 : 0]);
-      } else if (XV == 2) {
-        *reinterpret_cast<float2*>(o) =
-            make_float2(acc[c][0], acc[c][XV > 1 ? 1 : 0]);
-      } else {
-        o[0] = acc[c][0];
+    for (int c = 0; c < kMaxC; ++c) {
+      if (c0 + c < C) {
+        float* o = outb + ((c0 + c) * H + y) * W + x0;
+        if (XV == 4) {
+          *reinterpret_cast<float4*>(o) =
+              make_float4(acc[c][0], acc[c][XV > 1 ? 1 : 0],
+                          acc[c][XV > 2 ? 2 : 0], acc[c][XV > 3 ? 3 : 0]);
+        } else if (XV == 2) {
+          *reinterpret_cast<float2*>(o) =
+              make_float2(acc[c][0], acc[c][XV > 1 ? 1 : 0]);
+        } else {
+          o[0] = acc[c][0];
+        }
       }
     }
   }
 }
 
-template <int XV>
+template <int XV, bool kGrouped>
 int launch(const float* seds, const float* morphs, const int* origins,
            const unsigned char* active, float* out, int B, int K, int C,
            int hb, int wb, int H, int W, int TX, int TY, int bands, int tiles,
            int threads, int smem, void* stream) {
   static int granted[scarlet::kMaxDevices] = {};
-  const int err = scarlet::grant_smem(scene_kernel<XV>, smem, granted);
+  const int err = scarlet::grant_smem(scene_kernel<XV, kGrouped>, smem,
+                                      granted);
   if (err != 0) return err;
-  scene_kernel<XV><<<dim3(B, bands, tiles), threads, smem,
-                     (cudaStream_t)stream>>>(seds, morphs, origins, active,
-                                             out, K, C, hb, wb, H, W, TX, TY);
+  scene_kernel<XV, kGrouped><<<dim3(B, bands, tiles), threads, smem,
+                               (cudaStream_t)stream>>>(
+      seds, morphs, origins, active, out, K, C, hb, wb, H, W, TX, TY);
   return (int)cudaGetLastError();
 }
+
+// The (XV, grouped) instantiations: F<XV, grouped>::run(args...) runs one.
+template <template <int, bool> class F, typename... A>
+int dispatch(int XV, int C, A... a) {
+  const bool grouped = C > kMaxC;
+  if (XV == 4)
+    return grouped ? F<4, true>::run(a...) : F<4, false>::run(a...);
+  if (XV == 2)
+    return grouped ? F<2, true>::run(a...) : F<2, false>::run(a...);
+  if (XV == 1)
+    return grouped ? F<1, true>::run(a...) : F<1, false>::run(a...);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int XV, bool kGrouped>
+struct Launch {
+  template <typename... A>
+  static int run(A... a) {
+    return launch<XV, kGrouped>(a...);
+  }
+};
+
+template <int XV, bool kGrouped>
+struct Info {
+  static int run(int threads, int smem, int* out) {
+    return scarlet::kernel_info(scene_kernel<XV, kGrouped>, threads, smem,
+                                out);
+  }
+};
 
 }  // namespace
 
 // seds: (B, K, C); morphs: (B, K, hb, wb); origins: (B, K, 2) int32;
-// active: (B, K) bool; out: (B, C, H, W).  All contiguous; C <= kMaxC.
+// active: (B, K) bool; out: (B, C, H, W).  All contiguous; C >= 1.
 // XV, TX, TY, bands, tiles, threads, smem: kernels.scene_geometry.
 extern "C" int scarlet_scene_assembly(const float* seds, const float* morphs,
                                       const int* origins,
@@ -196,26 +233,16 @@ extern "C" int scarlet_scene_assembly(const float* seds, const float* morphs,
                                       int H, int W, int XV, int TX, int TY,
                                       int bands, int tiles, int threads,
                                       int smem, void* stream) {
-  if (C > kMaxC || threads > kMaxThreads || threads < 32 ||
-      TX * TY > threads || W % XV != 0 || bands > 65535 || tiles > 65535)
+  if (C < 1 || threads > kMaxThreads || threads < 32 || TX * TY > threads ||
+      W % XV != 0 || bands > 65535 || tiles > 65535)
     return (int)cudaErrorInvalidValue;
-  if (XV == 4)
-    return launch<4>(seds, morphs, origins, active, out, B, K, C, hb, wb, H,
-                     W, TX, TY, bands, tiles, threads, smem, stream);
-  if (XV == 2)
-    return launch<2>(seds, morphs, origins, active, out, B, K, C, hb, wb, H,
-                     W, TX, TY, bands, tiles, threads, smem, stream);
-  if (XV == 1)
-    return launch<1>(seds, morphs, origins, active, out, B, K, C, hb, wb, H,
-                     W, TX, TY, bands, tiles, threads, smem, stream);
-  return (int)cudaErrorInvalidValue;
+  return dispatch<Launch>(XV, C, seds, morphs, origins, active, out, B, K, C,
+                          hb, wb, H, W, TX, TY, bands, tiles, threads, smem,
+                          stream);
 }
 
-// out[3] as scarlet::kernel_info, for the XV instantiation.
-extern "C" int scarlet_scene_kernel_info(int XV, int threads, int smem,
-                                         int* out) {
-  using scarlet::kernel_info;
-  if (XV == 4) return kernel_info(scene_kernel<4>, threads, smem, out);
-  if (XV == 2) return kernel_info(scene_kernel<2>, threads, smem, out);
-  return kernel_info(scene_kernel<1>, threads, smem, out);
+// out[3] as scarlet::kernel_info, for the (XV, C) instantiation.
+extern "C" int scarlet_scene_kernel_info(int XV, int C, int threads,
+                                         int smem, int* out) {
+  return dispatch<Info>(XV, C, threads, smem, out);
 }

@@ -587,6 +587,12 @@ def prox_chain(x_orig, stepped, idx, weights_table, keep_table, thr, gate,
     x_orig, stepped (..., K, hb, wb) float32; idx (..., K) table index;
     thr (..., K) float per-slot cutoff ``min_c t_c / sed_c`` (0: the
     positivity clamp); gate (..., K) bool.  Returns a fresh tensor.
+
+    A box beyond :func:`mono_geometry` (over 73 pixels a side) takes the
+    wide route, chosen from the shape before any launch: the plain
+    version's steps on the card with K1's ``mono_kernel_wide`` as the
+    projection (:func:`monotonic_prox`), the same bits; counted in
+    ``prox_chain.wide_launches``, not in ``prox_chain.launches``.
     """
     if _is_cpu(x_orig, stepped, idx, weights_table, keep_table, thr, gate):
         return prox_chain_plain(x_orig, stepped, idx, weights_table,
@@ -607,7 +613,13 @@ def prox_chain(x_orig, stepped, idx, weights_table, keep_table, thr, gate,
     _f32(name, x_orig, "x_orig")
     _f32(name, stepped, "stepped")
     lib, ncand, taps, geom = _tables_lib(name, weights_table, keep_table,
-                                         hb, wb)
+                                         hb, wb, wide=True)
+    if geom is None:
+        out = monotonic_prox(stepped, idx, weights_table, keep_table, n_iter,
+                             min_gradient, tol)
+        prox_chain.wide_launches += 1
+        return chain_epilogue(out, thr.to(out.dtype), gate.to(torch.bool),
+                              x_orig, floor)
     idx32 = idx.to(torch.int32).contiguous()
     thr32 = thr.to(torch.float32).contiguous()
     gate8 = gate.to(torch.bool).contiguous()
@@ -628,6 +640,8 @@ def prox_chain(x_orig, stepped, idx, weights_table, keep_table, thr, gate,
 
 
 prox_chain.launches = 0
+# the calls that took the wide route (boxes beyond mono_geometry)
+prox_chain.wide_launches = 0
 
 
 def fused_morph_update_plain(morphs, grads, opt, gate, weights_table,
@@ -638,6 +652,18 @@ def fused_morph_update_plain(morphs, grads, opt, gate, weights_table,
     step (``optim.adaprox_step``, same association), the box mask, the
     candidate pick, :func:`monotonic_prox_plain` at tol 0 and
     :func:`chain_epilogue`."""
+    return _morph_update_steps(
+        monotonic_prox_plain, morphs, grads, opt, gate, weights_table,
+        keep_table, box_masks, thr, damp_step, n_iter, min_gradient,
+        fit_center_radius, b1, b2, eps, floor)
+
+
+def _morph_update_steps(project, morphs, grads, opt, gate, weights_table,
+                        keep_table, box_masks, thr, damp_step, n_iter,
+                        min_gradient, fit_center_radius, b1, b2, eps, floor):
+    """The steps of :func:`fused_morph_update_plain` with ``project`` (the
+    plain projection, or :func:`monotonic_prox` on the card) as the
+    monotonicity projection."""
     m2 = (1 - b1) * grads + b1 * opt.m
     v2 = (1 - b2) * (grads * grads) + b2 * opt.v
     vh2 = torch.maximum(opt.vhat, v2)
@@ -646,8 +672,8 @@ def fused_morph_update_plain(morphs, grads, opt, gate, weights_table,
     if box_masks is not None:
         x1 = x1 * box_masks
     idx = candidate_index(x1, fit_center_radius)
-    out = monotonic_prox_plain(x1, idx, weights_table, keep_table, n_iter,
-                               min_gradient, 0.0)
+    out = project(x1, idx, weights_table, keep_table, n_iter, min_gradient,
+                  0.0)
     gate = gate.to(torch.bool)
     x_new = chain_epilogue(out, thr.to(out.dtype), gate, morphs, floor)
     g3 = gate[..., None, None]
@@ -671,6 +697,13 @@ def fused_morph_update(morphs, grads, opt, gate, weights_table, keep_table,
     float32; gate (..., K) bool; thr (..., K) float; damp_step (...) the
     morphology step of each blend (0.1 x at its first iteration).
     Returns (morphs', AdaproxState).
+
+    A box beyond :func:`mono_geometry` (over 73 pixels a side) takes the
+    wide route, chosen from the shape before any launch: the plain
+    version's steps on the card with K1's ``mono_kernel_wide`` as the
+    projection (:func:`monotonic_prox`), the same bits; counted in
+    ``fused_morph_update.wide_launches``, not in
+    ``fused_morph_update.launches``.
     """
     tensors = (morphs, grads, *opt, gate, weights_table, keep_table, thr,
                damp_step) + (() if box_masks is None else (box_masks,))
@@ -701,9 +734,15 @@ def fused_morph_update(morphs, grads, opt, gate, weights_table, keep_table,
                          f"{tuple(morphs.shape)}")
     r = int(fit_center_radius)
     lib, ncand, taps, geom = _tables_lib(name, weights_table, keep_table,
-                                         hb, wb)
+                                         hb, wb, wide=True)
     if ncand != (2 * r + 1) ** 2 or not 0 <= r <= min(hb, wb) // 2:
         raise ValueError(f"{name}: {ncand} tables for radius {r}")
+    if geom is None:
+        fused_morph_update.wide_launches += 1
+        return _morph_update_steps(
+            monotonic_prox, morphs, grads, opt, gate, weights_table,
+            keep_table, box_masks, thr, damp_step, n_iter, min_gradient, r,
+            b1, b2, eps, floor)
     thr32 = thr.to(torch.float32).contiguous()
     gate8 = gate.to(torch.bool).contiguous()
     ds = damp_step.to(torch.float32).contiguous()
@@ -727,6 +766,8 @@ def fused_morph_update(morphs, grads, opt, gate, weights_table, keep_table,
 
 
 fused_morph_update.launches = 0
+# the calls that took the wide route (boxes beyond mono_geometry)
+fused_morph_update.wide_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -908,22 +949,14 @@ def scene_assembly_plain(seds, morphs, origins, comp_active, scene_shape,
 SCENE_THREADS = 128       # most threads of a scene-assembly block
 
 
-def _check_bands(name, C):
-    """Raise before a launch with more bands than the gather kernels take
-    (kMaxC, the same in csrc/scene.cu and csrc/grad.cu)."""
-    most = build.load().scarlet_grad_max_bands()
-    if C > most:
-        raise ValueError(f"{name}: {C} bands; the kernel takes at most "
-                         f"{most}")
-
-
 class SceneGeometry(NamedTuple):
     """How the scene-assembly kernel covers a batch of (C, H, W) scenes
     (csrc/scene.cu): block (b, band, tile) takes blend b, rows
     ``[band * TY, band * TY + TY)`` and columns ``[tile * TX * XV,
     (tile + 1) * TX * XV)``; its thread ``t < TX * TY`` takes row
     ``t // TX`` of the band and the ``XV`` columns from
-    ``(tile * TX + t % TX) * XV``, all C bands of them."""
+    ``(tile * TX + t % TX) * XV``, all C bands of them (more than 8 in
+    groups of 8, one walk of the block's components per group)."""
     XV: int           # consecutive columns a thread owns: 4, 2 or 1
     TX: int           # threads along a row
     TY: int           # rows of a block
@@ -936,14 +969,21 @@ class SceneGeometry(NamedTuple):
 
 @functools.lru_cache(maxsize=256)
 def scene_geometry(B, K, C, H, W):
-    """The launch geometry of the scene-assembly kernel."""
+    """The launch geometry of the scene-assembly kernel; raises ValueError
+    where a block's origins and seds (``4 K (3 + C)`` bytes) do not fit
+    its shared memory."""
+    smem = 4 * K * (3 + C)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"scene_assembly: {K} components of {C} bands "
+                         f"need {smem} B of shared memory (at most "
+                         f"{SMEM_LIMIT})")
     XV = 4 if W % 4 == 0 else (2 if W % 2 == 0 else 1)
     TX = min(W // XV, SCENE_THREADS)
     TY = max(1, min(H, SCENE_THREADS // TX))
     threads = max(32, -(-TX * TY // 32) * 32)
     bands, tiles = -(-H // TY), -(-W // (TX * XV))
     return SceneGeometry(XV, TX, TY, bands, tiles, B * bands * tiles,
-                         threads, 4 * K * (3 + C))
+                         threads, smem)
 
 
 def scene_assembly(seds, morphs, origins, comp_active, scene_shape, pad):
@@ -975,7 +1015,6 @@ def scene_assembly(seds, morphs, origins, comp_active, scene_shape, pad):
                          f"{tuple(comp_active.shape)}")
     _f32(name, seds, "seds")
     _f32(name, morphs, "morphs")
-    _check_bands(name, C)
     org = origins.to(torch.int32).contiguous()
     act = comp_active.to(torch.bool).contiguous()
     out = torch.empty(lead + (C, H, W), dtype=seds.dtype, device=seds.device)
@@ -984,8 +1023,8 @@ def scene_assembly(seds, morphs, origins, comp_active, scene_shape, pad):
         return out
     if K == 0:
         return out.zero_()
-    lib = build.load()
     g = scene_geometry(B, K, C, H, W)
+    lib = build.load()
     with torch.cuda.device(seds.device):
         err = lib.scarlet_scene_assembly(
             seds.data_ptr(), morphs.data_ptr(), org.data_ptr(),
@@ -1045,9 +1084,10 @@ BLOCK_SMEM_RESERVED = 1024  # shared bytes the card keeps for each block
 class GradGeometry(NamedTuple):
     """How the gradient-gather kernel covers a batch (csrc/grad.cu):
     block (b, group) takes blend b and components ``group * G`` to
-    ``group * G + G - 1`` (those below K); row ``y`` of the group's
-    component ``j`` falls to warp ``(j * hb + y) % (threads // 32)``,
-    whose lane ``l`` takes columns ``l, l + 32, ...`` of it."""
+    ``group * G + G - 1`` (those below K); row ``y`` of component ``k``
+    falls to warp ``(k * hb + y) % (threads // 32)`` (whatever G is),
+    whose lane ``l`` takes columns ``l, l + 32, ...`` of it, all C bands
+    (more than 8 in groups of 8, one walk of the window per group)."""
     staged: bool      # the blend's gradient staged in shared memory
     G: int            # components per block
     groups: int       # blocks per blend
@@ -1083,7 +1123,10 @@ def grad_geometry(B, K, C, H, W, hb, wb):
     copy: slower than the direct route on an H100), else the direct
     route, which reads the gradient through the L1 cache.  The group G is
     the fewest components per block that fills every SM with the most
-    blocks it holds (up to ``GRAD_BLOCKS_PER_SM``) in one wave."""
+    blocks it holds (up to ``GRAD_BLOCKS_PER_SM``) in one wave.  Raises
+    ValueError where one component's block does not fit a block's shared
+    memory.  More bands mean more g_sed sums and a larger staged
+    gradient, so the staged route drops out as C grows."""
     staged = 2 * (_grad_smem(1, C, H, W, hb, wb, True)
                   + BLOCK_SMEM_RESERVED) <= SM_SMEM
     cap = max(1, K)
@@ -1095,6 +1138,10 @@ def grad_geometry(B, K, C, H, W, hb, wb):
         smem = _grad_smem(G, C, H, W, hb, wb, staged)
         if bps == 1 or bps * (smem + BLOCK_SMEM_RESERVED) <= SM_SMEM:
             break
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"grad_gather: one ({hb}, {wb}) component of {C} "
+                         f"bands needs {smem} B of shared memory (at most "
+                         f"{SMEM_LIMIT})")
     groups = -(-K // G) if K else 0
     return GradGeometry(staged, G, groups, B * groups, GRAD_THREADS, smem,
                         bps)
@@ -1140,8 +1187,6 @@ def grad_gather(grad, seds, morphs, origins, pad):
                          f"into one stride {tuple(grad.stride())}") from None
     _f32(name, seds, "seds")
     _f32(name, morphs, "morphs")
-    _check_bands(name, C)
-    lib = build.load()
     org = origins.to(torch.int32).contiguous()
     g_seds = torch.empty_like(seds)
     g_morphs = torch.empty_like(morphs)
@@ -1149,6 +1194,7 @@ def grad_gather(grad, seds, morphs, origins, pad):
     if B * K == 0:
         return g_seds, g_morphs
     geo = grad_geometry(B, K, C, Hp, Wp, hb, wb)
+    lib = build.load()
     with torch.cuda.device(grad.device):
         err = lib.scarlet_grad_gather(
             g4.data_ptr(), seds.data_ptr(), morphs.data_ptr(),
@@ -1178,7 +1224,7 @@ def gather_kernel_info(B, K, C, H, W, hb, wb):
     out = {}
     for name, err, geo, extra in (
             ("scene_assembly", lambda v: lib.scarlet_scene_kernel_info(
-                sg.XV, sg.threads, sg.smem, v), sg,
+                sg.XV, C, sg.threads, sg.smem, v), sg,
              dict(grid=(B, sg.bands, sg.tiles), XV=sg.XV, TX=sg.TX,
                   TY=sg.TY)),
             ("grad_gather", lambda v: lib.scarlet_grad_kernel_info(
@@ -1202,15 +1248,20 @@ def launch_counts():
     (``monotonic_prox`` counts both of its layouts;
     ``monotonic_prox_tol_tensor`` those of its launches that read one
     tolerance per blend; ``monotonic_prox_wide`` those that ran
-    ``mono_kernel_wide``, for boxes beyond :func:`mono_geometry`)."""
+    ``mono_kernel_wide``, for boxes beyond :func:`mono_geometry`;
+    ``prox_chain_wide`` and ``fused_morph_update_wide`` the calls of those
+    wrappers that took their wide route, each through one such launch)."""
     out = {f.__name__: f.launches for f in _COUNTED}
     out["monotonic_prox_tol_tensor"] = monotonic_prox.tol_tensor_launches
     out["monotonic_prox_wide"] = monotonic_prox.wide_launches
+    out["prox_chain_wide"] = prox_chain.wide_launches
+    out["fused_morph_update_wide"] = fused_morph_update.wide_launches
     return out
 
 
 def reset_launch_counts():
     for f in _COUNTED:
         f.launches = 0
+    for f in (monotonic_prox, prox_chain, fused_morph_update):
+        f.wide_launches = 0
     monotonic_prox.tol_tensor_launches = 0
-    monotonic_prox.wide_launches = 0

@@ -2,7 +2,8 @@
 Gaussian blobs observed by a high-resolution instrument (0.1"/pixel,
 narrow PSF) and a low-resolution one (0.3"/pixel, wide PSF, optionally
 rotated), both images known analytically.  The same scene as the JAX
-package's ``tests/test_multiresolution.py:make_pair``."""
+package's ``tests/test_multiresolution.py:make_pair``, and optionally
+several bands per instrument."""
 from __future__ import annotations
 
 import numpy as np
@@ -44,22 +45,45 @@ def gaussian_image(wcs, shape, blobs, pixel_arcsec):
     return img.reshape(H, W).astype(np.float32)
 
 
+def _colored(blobs, band, n_bands):
+    """The blobs as band ``band`` of ``n_bands`` sees them: each blob's
+    flux times a color of its own (the blobs as they are for one band)."""
+    if n_bands == 1:
+        return blobs
+    return [(f * (1.0 + 0.3 * np.cos(band + 2.0 * i)), bx, by, s)
+            for i, (f, bx, by, s) in enumerate(blobs)]
+
+
 def make_pair(rotation_lr=0.0, scale_hr=0.1, scale_lr=0.3,
-              shape_hr=(64, 64), shape_lr=(24, 24), device=None):
-    """(obs_hr, obs_lr, data_hr, data_lr): two single-channel observations
-    ("hr", "lr") of the blobs on ``device``, and their (H, W) images."""
+              shape_hr=(64, 64), shape_lr=(24, 24), device=None,
+              bands=(1, 1)):
+    """(obs_hr, obs_lr, data_hr, data_lr): two observations of the blobs
+    on ``device``, and their images.
+
+    ``bands = (n_hr, n_lr)``: channels of each instrument.  One channel
+    ("hr", "lr") gives an (H, W) image, as the JAX test's pair.  More
+    give (n, H, W) images, channels ``hr0 .. hr{n_hr-1}`` and ``lr0 ..``,
+    in which each blob has a color of its own, different in every band of
+    the pair (a joint fit of two surveys: 6 + 4 model channels at
+    ``bands=(6, 4)``), every band of an instrument with its PSF."""
     crval = (RA0, DEC0)
     wcs_hr = make_tan_wcs(scale_hr, shape_hr, crval=crval)
     wcs_lr = make_tan_wcs(scale_lr, shape_lr, crval=crval,
                           rotation=rotation_lr)
+    n_hr, n_lr = bands
 
-    def observed(sigma_psf):
-        return [(f, bx, by, np.hypot(s, sigma_psf)) for f, bx, by, s in BLOBS]
+    def observed(sigma_psf, band, n_bands):
+        return [(f, bx, by, np.hypot(s, sigma_psf)) for f, bx, by, s in
+                _colored(BLOBS, band, n_bands)]
 
-    data_hr = gaussian_image(wcs_hr, shape_hr, observed(SIGMA_PSF_HR),
-                             scale_hr)
-    data_lr = gaussian_image(wcs_lr, shape_lr, observed(SIGMA_PSF_LR),
-                             scale_lr)
+    def images(wcs, shape, sigma_psf, scale, first, n):
+        total = n_hr + n_lr if max(bands) > 1 else 1
+        return np.stack([gaussian_image(wcs, shape,
+                                        observed(sigma_psf, first + c, total),
+                                        scale) for c in range(n)])
+
+    data_hr = images(wcs_hr, shape_hr, SIGMA_PSF_HR, scale_hr, 0, n_hr)
+    data_lr = images(wcs_lr, shape_lr, SIGMA_PSF_LR, scale_lr, n_hr, n_lr)
     psf_hr = gaussian_image(
         make_tan_wcs(scale_hr, (21, 21), crval=crval),
         (21, 21), [(1.0, 0, 0, SIGMA_PSF_HR)], scale_hr)[None]
@@ -67,11 +91,17 @@ def make_pair(rotation_lr=0.0, scale_hr=0.1, scale_lr=0.3,
         make_tan_wcs(scale_lr, (21, 21), crval=crval, rotation=rotation_lr),
         (21, 21), [(1.0, 0, 0, SIGMA_PSF_LR)], scale_lr)[None]
 
-    obs_hr = Observation(data_hr[None], wcs=wcs_hr, psf=ImagePSF(psf_hr),
-                         channels=["hr"], device=device)
-    obs_lr = Observation(data_lr[None], wcs=wcs_lr, psf=ImagePSF(psf_lr),
-                         channels=["lr"], device=device)
-    return obs_hr, obs_lr, data_hr, data_lr
+    def names(prefix, n):
+        return [prefix] if n == 1 else [f"{prefix}{c}" for c in range(n)]
+
+    obs_hr = Observation(data_hr, wcs=wcs_hr,
+                         psf=ImagePSF(np.repeat(psf_hr, n_hr, axis=0)),
+                         channels=names("hr", n_hr), device=device)
+    obs_lr = Observation(data_lr, wcs=wcs_lr,
+                         psf=ImagePSF(np.repeat(psf_lr, n_lr, axis=0)),
+                         channels=names("lr", n_lr), device=device)
+    return (obs_hr, obs_lr, data_hr[0] if n_hr == 1 else data_hr,
+            data_lr[0] if n_lr == 1 else data_lr)
 
 
 def blob_centers(frame, B):

@@ -149,6 +149,44 @@ def test_fused_morph_update_matches_plain(cuda, box):
     assert kn.fused_morph_update.launches == before + 2
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("box", [81, 101])
+def test_prox_chain_and_fused_update_take_wide_boxes(cuda, box):
+    """K5 and K6 on boxes beyond ``mono_geometry`` (over 73 pixels a
+    side) take their wide route, K1's ``mono_kernel_wide`` inside the
+    plain version's steps: bit for bit with the twins on the card, one
+    wide launch of K1 per call, counted as each wrapper's wide call and
+    not as a launch of its own kernel."""
+    with pytest.raises(ValueError):
+        kn.mono_geometry(box, box)
+    w, keep, n_iter = (x.to(cuda) if torch.is_tensor(x) else x
+                       for x in _tables(box))
+    m, g, m1, v, vh, bm, gate, thr, ds = _chain_inputs(cuda, B=2, K=4,
+                                                       box=box)
+    stepped = (m + g) * bm
+    idx = kn.candidate_index(stepped, 1)
+    kn.reset_launch_counts()
+    for tol in (0.0, 1e-3):
+        got = kn.prox_chain(m, stepped, idx, w, keep, thr, gate, n_iter,
+                            tol=tol)
+        assert torch.equal(got, kn.prox_chain_plain(
+            m, stepped, idx, w, keep, thr, gate, n_iter, tol=tol))
+    opt = engine.AdaproxState(m1, v, vh)
+    for masks in (bm, None):
+        x, o = kn.fused_morph_update(m, g, opt, gate, w, keep, masks, thr,
+                                     ds, n_iter)
+        rx, ro = kn.fused_morph_update_plain(m, g, opt, gate, w, keep, masks,
+                                             thr, ds, n_iter)
+        assert torch.equal(x, rx)
+        for a, b in zip(o, ro):
+            assert torch.equal(a, b)
+    counts = kn.launch_counts()
+    assert counts["prox_chain_wide"] == counts["fused_morph_update_wide"] \
+        == 2
+    assert counts["prox_chain"] == counts["fused_morph_update"] == 0
+    assert counts["monotonic_prox_wide"] == counts["monotonic_prox"] == 4
+
+
 def _bucket(B, K, C=5, H=58, W=48, hb=BOX, wb=None, pad=61, seed=1):
     """Seeded components whose boxes reach up to pad - 1 pixels past
     every scene edge; blend 1 has no active component, and one active box
@@ -220,6 +258,90 @@ def test_scene_and_grad_match_plain(cuda, box, C, K, scene, layout):
         assert bool(((gs - rs).abs() <= 1e-5 * scale).all())
         again = kn.grad_gather(g, seds, morphs, origins, p)
         assert torch.equal(again[0], gs) and torch.equal(again[1], gm)
+
+
+# (box, C, K, scene): more than 8 bands (the kernels' grouped
+# instantiations), on the fit's 58 x 48 scene (K4's direct route) and on
+# scenes small enough for K4's staged route at pad 0 (40 x 40 at C = 12
+# and 16, 24 x 24 at C = 40); padded by P, every case is direct
+MANY_BAND_CASES = [
+    (59, 9, 16, (58, 48)), (59, 10, 16, (58, 48)), (21, 12, 16, (40, 40)),
+    (21, 16, 16, (40, 40)), (21, 40, 16, (24, 24))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("box,C,K,scene", MANY_BAND_CASES)
+def test_scene_and_grad_match_plain_at_many_bands(cuda, box, C, K, scene):
+    """K3 and K4 past 8 bands, one launch per call: K3 and g_morph bit for
+    bit, g_sed within 1e-5 of sum |g * morph| and the same bits in two
+    launches, on the unpadded (strided) gradient and padded by P; the
+    small scenes take K4's staged route at pad 0."""
+    H, W = scene
+    P = box + 2
+    B = 4
+    seds, morphs, origins, on = (x.to(cuda) for x in _bucket(
+        B, K, C, H, W, box, box, P, seed=box + C + K))
+    kn.reset_launch_counts()
+    got = kn.scene_assembly(seds, morphs, origins, on, (C, H, W), P)
+    assert kn.launch_counts()["scene_assembly"] == 1
+    assert torch.equal(got, kn.scene_assembly_plain(seds, morphs, origins,
+                                                    on, (C, H, W), P))
+    grad = _gradient(B, C, H, W, "strided", cuda)
+    routes = []
+    for g, p in ((grad, 0), (F.pad(grad, (P, P, P, P)), P)):
+        routes.append(kn.grad_geometry(B, K, C, *g.shape[-2:], box,
+                                       box).staged)
+        before = kn.grad_gather.launches
+        gs, gm = kn.grad_gather(g, seds, morphs, origins, p)
+        assert kn.grad_gather.launches == before + 1
+        rs, rm = kn.grad_gather_plain(g, seds, morphs, origins, p)
+        assert torch.equal(gm, rm)
+        scale = kn.grad_gather_plain(g.abs(), seds, morphs, origins, p)[0]
+        assert bool(((gs - rs).abs() <= 1e-5 * scale).all())
+        again = kn.grad_gather(g, seds, morphs, origins, p)
+        assert torch.equal(again[0], gs) and torch.equal(again[1], gm)
+    assert routes == [H * W < 58 * 48, False]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [5, 10])
+def test_grad_gather_does_not_depend_on_the_batch(cuda, C):
+    """A blend's g_sed and g_morph are the same bits alone and inside a
+    larger batch, though the batch size sets the components per block
+    (G): the warp that sums a window row follows the component's index,
+    not its place in the block."""
+    B, K = 128, 16
+    assert kn.grad_geometry(B, K, C, 58, 48, BOX, BOX).G != \
+        kn.grad_geometry(B // 4, K, C, 58, 48, BOX, BOX).G
+    seds, morphs, origins, _ = (x.to(cuda) for x in _bucket(B, K, C))
+    grad = _gradient(B, C, 58, 48, "strided", cuda)
+    whole = kn.grad_gather(grad, seds, morphs, origins, 0)
+    part = kn.grad_gather(grad[:B // 4], seds[:B // 4], morphs[:B // 4],
+                          origins[:B // 4], 0)
+    assert torch.equal(part[0], whole[0][:B // 4])
+    assert torch.equal(part[1], whole[1][:B // 4])
+
+
+@pytest.mark.cuda
+def test_gather_kernels_raise_past_shared_memory(cuda):
+    """What is left of a limit: K3's origins and seds, and K4's two
+    morphology buffers, must fit a block's shared memory; past it each
+    wrapper raises ValueError naming the bytes, before any launch."""
+    kn.reset_launch_counts()
+    C = 30000
+    seds = torch.ones(1, 2, C, device=cuda)
+    morphs = torch.ones(1, 2, 3, 3, device=cuda)
+    origins = torch.zeros(1, 2, 2, dtype=torch.int32, device=cuda)
+    on = torch.ones(1, 2, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="B of shared memory"):
+        kn.scene_assembly(seds, morphs, origins, on, (C, 4, 4), 3)
+    big = torch.ones(1, 1, 171, 171, device=cuda)
+    with pytest.raises(ValueError, match="B of shared memory"):
+        kn.grad_gather(torch.ones(1, 1, 8, 8, device=cuda),
+                       torch.ones(1, 1, 1, device=cuda), big,
+                       origins[:, :1], 0)
+    counts = kn.launch_counts()
+    assert counts["scene_assembly"] == counts["grad_gather"] == 0
 
 
 @pytest.mark.cuda
@@ -619,19 +741,24 @@ def test_fista_and_real_mode_on_card_match_cpu(cuda):
 # ---------------------------------------------------------------------------
 @pytest.mark.cuda
 def test_band_limit_matches_the_kernels(cuda):
-    """Both gather wrappers raise before a launch with more bands than
-    the kernels take, the library's own kMaxC."""
-    from scarlet_tpu_torch.ops import build
-
-    most = build.load().scarlet_grad_max_bands()
-    assert most == 8
-    seds, morphs, origins, on = (x.to(cuda) for x in _bucket(
-        2, 4, C=most + 1))
-    with pytest.raises(ValueError, match="bands"):
-        kn.scene_assembly(seds, morphs, origins, on, (most + 1, 58, 48), 61)
-    grad = torch.zeros((2, most + 1, 58, 48), device=cuda)
-    with pytest.raises(ValueError, match="bands"):
-        kn.grad_gather(grad, seds, morphs, origins, 0)
+    """The gather kernels have no band limit: at 9 bands, one past their
+    one-group instantiations, both wrappers launch once and equal their
+    plain versions (K3 and g_morph bit for bit, g_sed within 1e-5 of
+    sum |g * morph|)."""
+    C = 9
+    seds, morphs, origins, on = (x.to(cuda) for x in _bucket(2, 4, C=C))
+    kn.reset_launch_counts()
+    got = kn.scene_assembly(seds, morphs, origins, on, (C, 58, 48), 61)
+    assert torch.equal(got, kn.scene_assembly_plain(
+        seds, morphs, origins, on, (C, 58, 48), 61))
+    grad = _gradient(2, C, 58, 48, "strided", cuda)
+    gs, gm = kn.grad_gather(grad, seds, morphs, origins, 0)
+    rs, rm = kn.grad_gather_plain(grad, seds, morphs, origins, 0)
+    assert torch.equal(gm, rm)
+    scale = kn.grad_gather_plain(grad.abs(), seds, morphs, origins, 0)[0]
+    assert bool(((gs - rs).abs() <= 1e-5 * scale).all())
+    counts = kn.launch_counts()
+    assert counts["scene_assembly"] == counts["grad_gather"] == 1
 
 
 @pytest.mark.cuda

@@ -98,8 +98,8 @@ def _grad_cover(g, K, hb, wb):
         k0 = group * g.G
         for j in range(min(g.G, K - k0)):
             for w in range(warps):
-                ys = np.arange((w - j * hb % warps + warps) % warps, hb,
-                               warps)
+                ys = np.arange((w - (k0 + j) * hb % warps + warps) % warps,
+                               hb, warps)
                 for lane in range(32):
                     xs = np.arange(lane, wb, 32)
                     seen[k0 + j][np.ix_(ys, xs)] += 1
@@ -138,10 +138,12 @@ def _stage_cover(C, H, W, shift, vec, warps=kn.GRAD_THREADS // 32):
 
 
 # scenes from the fit's 58 x 48 to one above the staging budget; boxes
-# 21-69 and non-square; C 1-8 and K 1-64 across the cases
+# 21-69 and non-square; C 1-40 (past 8: the kernels' grouped
+# instantiations) and K 1-64 across the cases
 SCENES = [(58, 48), (57, 47), (118, 108), (160, 160)]
 CASES = [(21, 21, 1, 1), (41, 41, 5, 16), (59, 59, 5, 16), (69, 69, 8, 40),
-         (21, 31, 3, 64), (31, 21, 8, 7), (9, 200, 2, 3), (59, 61, 5, 33)]
+         (21, 31, 3, 64), (31, 21, 8, 7), (9, 200, 2, 3), (59, 61, 5, 33),
+         (59, 59, 10, 16), (21, 21, 16, 16), (31, 31, 40, 8)]
 
 
 @pytest.mark.parametrize("scene", SCENES)
@@ -187,6 +189,82 @@ def test_grad_geometry_at_the_fit_shapes():
     assert not kn.grad_geometry(4, 16, 5, 160, 160, 59, 59).staged
     s = kn.scene_geometry(128, 15, 5, 58, 48)
     assert (s.XV, s.TX, s.TY, s.bands, s.threads) == (4, 12, 10, 6, 128)
+
+
+def test_gather_geometry_past_eight_bands():
+    """At 10 and 16 bands the fit's shapes (128 blends of 16 components,
+    box 59, 58 x 48) take K4's direct route, whose blocks still fill 4 a
+    SM; a small scene keeps the staged route at 40 bands."""
+    for C in (10, 16):
+        g = kn.grad_geometry(128, 16, C, 58, 48, 59, 59)
+        assert not g.staged and g.blocks_per_sm == 4
+        assert kn.scene_geometry(128, 16, C, 58, 48).smem == 4 * 16 * (3 + C)
+    assert kn.grad_geometry(4, 16, 40, 24, 24, 21, 21).staged
+
+
+def test_gather_geometry_raises_past_shared_memory():
+    """What is left of a limit: K3's origins and seds and K4's one-
+    component block must fit a block's shared memory; past it the
+    geometry raises ValueError naming the bytes."""
+    with pytest.raises(ValueError, match="240024 B of shared memory"):
+        kn.scene_geometry(1, 2, 30000, 4, 4)
+    assert kn.scene_geometry(1, 2, 29000, 4, 4).smem <= kn.SMEM_LIMIT
+    with pytest.raises(ValueError, match="234016 B of shared memory"):
+        kn.grad_geometry(1, 1, 1, 8, 8, 171, 171)
+    assert kn.grad_geometry(1, 1, 1, 8, 8, 170, 170).smem <= kn.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("C", [9, 10, 16, 40])
+def test_grouped_band_walk_keeps_the_plain_bits(C):
+    """The kernels' order past 8 bands, modelled in float32 numpy: K3's
+    bands in groups of 8, each band's sum over the components in
+    ascending k; K4's g_morph carried from one group to the next through
+    the value stored between them, each product and sum rounded on its
+    own, and g_sed per (component, band).  Equal to the plain versions
+    bit for bit (g_sed to float32 roundoff of the hw-term sum)."""
+    rng = np.random.default_rng(C)
+    B, K, H, W, hb = 2, 3, 20, 18, 9
+    seds, morphs, origins = _components(rng, B, K, C, H, W, hb, hb, 4)
+    origins = origins.clamp(-hb + 1, 16)
+    on = torch.ones(B, K, dtype=torch.bool)
+    scene = np.zeros((B, C, H, W), np.float32)
+    s, m, o = seds.numpy(), morphs.numpy(), origins.numpy()
+    for b in range(B):
+        for c0 in range(0, C, 8):
+            for c in range(c0, min(C, c0 + 8)):
+                for k in range(K):
+                    y0, x0 = o[b, k]
+                    for y in range(max(0, y0), min(H, y0 + hb)):
+                        for x in range(max(0, x0), min(W, x0 + hb)):
+                            scene[b, c, y, x] = np.float32(
+                                scene[b, c, y, x] + np.float32(
+                                    s[b, k, c] * m[b, k, y - y0, x - x0]))
+    ref = kn.scene_assembly_plain(seds, morphs, origins, on, (C, H, W), hb)
+    assert torch.equal(torch.from_numpy(scene), ref)
+
+    g = rng.normal(size=(B, C, H, W)).astype(np.float32)
+    rs, rm = kn.grad_gather_plain(torch.from_numpy(g), seds, morphs,
+                                  origins, 0)
+    win = np.zeros((B, K, C, hb, hb), np.float32)
+    for b in range(B):
+        for k in range(K):
+            y0, x0 = o[b, k]
+            for y in range(hb):
+                for x in range(hb):
+                    if 0 <= y0 + y < H and 0 <= x0 + x < W:
+                        win[b, k, :, y, x] = g[b, :, y0 + y, x0 + x]
+    gm = np.zeros((B, K, hb, hb), np.float32)
+    for c0 in range(0, C, 8):
+        stored = gm.copy()                  # what the last group stored
+        acc = stored
+        for c in range(c0, min(C, c0 + 8)):
+            t = (s[:, :, c, None, None] * win[:, :, c]).astype(np.float32)
+            acc = t if c == 0 else (acc + t).astype(np.float32)
+        gm = acc
+    assert np.array_equal(gm, rm.numpy())
+    gs = (win * m[:, :, None]).astype(np.float64).sum(axis=(-2, -1))
+    assert np.abs(gs - rs.numpy()).max() <= 1e-5 * np.abs(
+        win * m[:, :, None]).sum(axis=(-2, -1)).max()
 
 
 @pytest.mark.parametrize("shift", [0, 1, 2, 3])
