@@ -244,12 +244,15 @@ Run from the repository root, with one CUDA card:
    4 of them on the card and the CPU (init decisions equal, logL within
    CPU_RTOL), and ``MultiResFitter`` on the pair with 6 HR and 4 LR
    bands (10 model channels, 4 blends, 10 iterations) against the CPU
-   at rtol 1e-4; (c) K5 and K6 at boxes 81 and 101, the wide route (K1's
-   ``mono_kernel_wide`` inside the plain steps), bit for bit with their
-   plain versions, the wide counters and ``monotonic_prox_wide`` checked,
-   with their times; 32 het blends packed at box 81 fitted 20
-   iterations by default, with ``packed_prox_chain`` (logL bit for bit
-   with the default) and with ``fuse_morph`` (within the fused
+   at rtol 1e-4; (c) the wide engine (boxes past 73 pixels, a morphology
+   over a cluster of R CTAs): K1, K5 and K6 (``mono_kernel_wide``,
+   ``chain_kernel_wide``, ``fused_kernel_wide``) bit for bit with their
+   plain versions at boxes 81 and 101 (4 x 8 morphologies) and at the
+   object tree's 81, 128 and 150 (one morphology), one launch per call
+   and none of K1 from K5 or K6, each timed (CUDA events) beside its
+   plain version and its bound, with R; 32 het blends packed at box 81
+   fitted 20 iterations by default, with ``packed_prox_chain`` (logL bit
+   for bit with the default) and with ``fuse_morph`` (within the fused
    configurations' tolerances), each counted from zero; (d) K3 and K4 at
    C = 5, 10 and 16 on the lite fit's shapes: device ms (CUDA events over
    replays of a CUDA graph of 20 calls) and CUDA events around one call
@@ -408,6 +411,19 @@ def bound(nbytes, nops):
 
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def taps_bytes(idx, wt, kt):
+    """Bytes of the tables that the projection kernels read: for each
+    distinct candidate that ``idx`` selects, its compact taps
+    (``kernels.mono_taps``: T weights and one code per pixel, and its
+    center index).  The dense tables ``wt``/``kt`` are never read."""
+    import torch
+    from scarlet_tpu_torch.ops import kernels as kn
+
+    taps = kn._device_taps(wt, kt)
+    per = nbytes(taps.weights[0], taps.codes[0], taps.centers[:1])
+    return int(torch.unique(idx).numel()) * per
 
 
 def mono_passes_run(morphs, idx, wt, kt, n_iter, tol, running=None,
@@ -660,7 +676,7 @@ def kernel_phases(dev, card, setup):
     err_layout = float((unpacked - got).abs().max())
     passes = mono_passes_run(morphs, idx, wt, kt, n_iter, 0.0)
     out["monotonic_prox"] = dict(
-        **bound(2 * nbytes(morphs) + nbytes(idx, wt, kt),
+        **bound(2 * nbytes(morphs) + nbytes(idx) + taps_bytes(idx, wt, kt),
                 mono_ops(passes, idx, wt)),
         mean_passes=float(passes.double().mean()),
         max_abs_err=max(err, err_p, err_layout), limit=0.0,
@@ -953,7 +969,8 @@ def fit_k1_work(setup, n_iter=20):
         passes = mono_passes_run(morphs, idx, wt, kt, n, tol,
                                  scale=1.0 - min_gradient)
         runs.append((float(passes.double().mean()),
-                     2 * nbytes(morphs) + nbytes(idx, wt, kt),
+                     2 * nbytes(morphs) + nbytes(idx)
+                     + taps_bytes(idx, wt, kt),
                      mono_ops(passes, idx, wt)))
         return orig(morphs, idx, wt, kt, n, min_gradient, tol)
 
@@ -1064,7 +1081,8 @@ def stream_kernel_phases(dev, card, het):
     passes = mono_passes_run(stepped, idx, wt, kt, n_iter, config.mono_tol,
                              running=gate)
     out["prox_chain"] = dict(
-        **bound(2 * nbytes(morphs) + nbytes(stepped, idx, thr, gate, wt, kt),
+        **bound(2 * nbytes(morphs) + nbytes(stepped, idx, thr, gate)
+                + taps_bytes(idx, wt, kt),
                 mono_ops(passes, idx, wt) + 3.0 * float(gate.sum()) * hb * wb),
         mean_passes=float(passes[gate].double().mean()),
         max_abs_err=err, limit=0.0,
@@ -1086,7 +1104,8 @@ def stream_kernel_phases(dev, card, het):
     fidx = kn.candidate_index(x1, 1)
     passes = mono_passes_run(x1, fidx, wt, kt, n_iter, 0.0, running=gate)
     out["fused_morph_update"] = dict(
-        **bound(nbytes(morphs, grads, *opt, masks, gate, thr, ds, wt, kt)
+        **bound(nbytes(morphs, grads, *opt, masks, gate, thr, ds)
+                + taps_bytes(fidx, wt, kt)
                 + 4 * nbytes(morphs),
                 mono_ops(passes, fidx, wt)
                 + 17.0 * float(gate.sum()) * hb * wb),
@@ -1908,7 +1927,8 @@ def tol_tensor_phase(dev, card, het):
                              f"or from the float launch ({same})")
     passes = mono_passes_run(morphs, idx, wt, kt, n_iter, tols)
     res = dict(
-        **bound(2 * nbytes(morphs) + nbytes(idx, wt, kt, tols),
+        **bound(2 * nbytes(morphs) + nbytes(idx, tols)
+                + taps_bytes(idx, wt, kt),
                 mono_ops(passes, idx, wt)),
         mean_passes=float(passes.double().mean()),
         mean_passes_by_tol={str(t): float(passes[tols == t].double().mean())
@@ -2576,7 +2596,7 @@ def multires_kernel_checks(fitter, seds, morphs, origins, on, label, card):
 
     passes = mono_passes_run(x, idx, w8, keep, depth, 0.0)
     res["monotonic_prox"] = dict(
-        **bound(2 * nbytes(x) + nbytes(idx, w8, keep),
+        **bound(2 * nbytes(x) + nbytes(idx) + taps_bytes(idx, w8, keep),
                 mono_ops(passes, idx, w8)),
         mean_passes=float(passes.double().mean()),
         max_abs_err=float((k1(kn.monotonic_prox)
@@ -2843,6 +2863,7 @@ def ot_kernel_checks(dev, card):
             rec = dict(S=S, table=table, min_gradient=mg, n_iter=depth,
                        max_abs_err=err,
                        kernel="mono_kernel_wide" if wide else "mono_kernel",
+                       R=kn._card_geometry(dev, 1, S, S).R if wide else 1,
                        workspace=bool(wide and kn.mono_wide_workspace(S, S)))
             if err != 0.0:
                 raise AssertionError(f"K1 at ({S}, {S}) {table} mg {mg} "
@@ -2854,14 +2875,15 @@ def ot_kernel_checks(dev, card):
                                                 or S in OT_BOXES):
                 passes = mono_passes_run(x, idx, wt, kt, depth, 0.0)
                 rec.update(
-                    **bound(2 * nbytes(x) + nbytes(idx, wt, kt),
+                    **bound(2 * nbytes(x) + nbytes(idx)
+                            + taps_bytes(idx, wt, kt),
                             mono_ops(passes, idx, wt)),
                     passes=int(passes.max()),
                     ms=device_ms(lambda: k1(kn.monotonic_prox),
                                  "mono_kernel"),
                     plain_ms=time_ms(lambda: k1(kn.monotonic_prox_plain), 5))
                 log(f"kernel monotonic_prox at the object tree's shapes "
-                    f"(1, 1, {S}, {S}) {table} ({rec['kernel']}"
+                    f"(1, 1, {S}, {S}) {table} ({rec['kernel']}, R={rec['R']}"
                     f"{', planes in device memory' if rec['workspace'] else ''}"
                     f"): bit for bit, kernel "
                     f"{rec['ms']:.4f} ms device, plain {rec['plain_ms']:.4f} "
@@ -3431,7 +3453,8 @@ def sl_kernel_checks(store, card, label="the starlet phase's shapes"):
             ms, timed_by = device_ms(k1, "mono_kernel"), "profiler"
         except AssertionError:
             ms, timed_by = time_ms(k1, 20), "CUDA events"
-        rec.update(**bound(2 * nbytes(morphs) + nbytes(idx, wt, kt),
+        rec.update(**bound(2 * nbytes(morphs) + nbytes(idx)
+                           + taps_bytes(idx, wt, kt),
                            mono_ops(passes, idx, wt)),
                    passes=int(passes.max()), ms=ms, timed_by=timed_by,
                    plain_ms=time_ms(lambda: kn.monotonic_prox_plain(
@@ -3846,7 +3869,7 @@ def sharded_kernel_checks(dev, card, config, data, state):
 
     passes = mono_passes_run(m, idx, wt, kt, n_iter, 0.0)
     res["monotonic_prox"]["(2, 1)"] = dict(
-        **bound(2 * nbytes(m) + nbytes(idx, wt, kt),
+        **bound(2 * nbytes(m) + nbytes(idx) + taps_bytes(idx, wt, kt),
                 mono_ops(passes, idx, wt)),
         mean_passes=float(passes.double().mean()),
         max_abs_err=float((k1(kn.monotonic_prox)
@@ -4098,7 +4121,7 @@ def hp_kernel_checks(dev, card, label, config, data, state):
 
     passes = mono_passes_run(mm, idx, wt, kt, n_iter, tol)
     res["monotonic_prox"] = dict(
-        **bound(2 * nbytes(mm) + nbytes(idx, wt, kt),
+        **bound(2 * nbytes(mm) + nbytes(idx) + taps_bytes(idx, wt, kt),
                 mono_ops(passes, idx, wt)),
         mean_passes=float(passes.double().mean()),
         max_abs_err=float((k1(kn.monotonic_prox)
@@ -5697,9 +5720,12 @@ BAND_STREAM_SHAPE, N_BAND_STREAM, BAND_SEED = (10, 58, 48), 64, 16
 BAND_CPU_BLENDS, BAND_CPU_ITERS = [0, 1, 2, 3], 50
 # the multi-resolution pair with 6 HR and 4 LR bands, card against CPU
 BAND_MR_BANDS, BAND_MR_B, BAND_MR_ITERS = (6, 4), 4, 10
-# boxes past the register kernels' 73 pixels: K5's and K6's wide route,
-# and the engine fits on 5-band het blends packed at box 81
+# boxes past the register kernels' 73 pixels: the wide engine's K1, K5
+# and K6 at WIDE_BOXES (WIDE_SHAPE morphologies) and at the object tree's
+# OT_WIDE_BOXES (one), and the engine fits on 5-band het blends packed at
+# box 81
 WIDE_BOXES = (81, 101)
+WIDE_SHAPE = (4, 8)
 WIDE_FIT_BOX, WIDE_FIT_BLENDS, WIDE_FIT_ITERS = 81, 32, 20
 
 
@@ -5984,101 +6010,142 @@ def band_multires(dev, card):
     return counts, summary
 
 
-def wide_chain_checks(dev, card):
-    """(c) K5 and K6 at WIDE_BOXES: bit for bit against their plain
-    versions on the card (K5 at tol 0 and 1e-3, K6 with and without box
-    masks), each call through K1's wide kernel and counted as the
-    wrapper's wide call; the wide route's time (CUDA events, median of
-    BAND_REPS) beside the plain version's and a bytes bound.  Returns
-    {kernel: {box: numbers}}."""
+def wide_case(dev, card, B, K, box):
+    """The wide engine's K1, K5 and K6 on B x K seeded (box, box)
+    morphologies (peaked noisy profiles, moments, box masks cutting
+    columns, a quarter of the slots gated off but slot 0, thresholds, the
+    "angle" table at full depth): bit for bit against their plain
+    versions (K1 and K5 at tol 0 and 1e-3, K6 with and without box
+    masks), one launch per call (K5 and K6 launch no K1), then each timed
+    at tol 0 (CUDA events, median of BAND_REPS; plain median of 3) beside
+    its bound: bytes, or the operations of the passes each morphology
+    runs (``mono_passes_run``; gated-off ones run none).  Returns
+    {kernel: numbers}."""
     import torch
     from scarlet_tpu_torch.lite import engine
     from scarlet_tpu_torch.ops import kernels as kn
 
-    out = {"prox_chain": {}, "fused_morph_update": {}}
-    for box in WIDE_BOXES:
-        w, keep, n_iter = engine.monotonicity_tables((box, box), 1, "angle")
-        w = torch.from_numpy(w.astype(np.float32)).to(dev)
-        keep = torch.from_numpy(keep.astype(np.float32)).to(dev)
-        rng = np.random.default_rng(box)
-        B, K = 4, 8
-        yy, xx = np.mgrid[:box, :box] - box // 2
-        prof = np.exp(-(yy ** 2 + xx ** 2) / rng.uniform(
-            20, 400, (B, K, 1, 1)))
-        m = torch.from_numpy((prof * (1 + 0.3 * rng.uniform(
-            size=(B, K, box, box)))).astype(np.float32)).to(dev)
-        g = torch.from_numpy((0.1 * rng.normal(size=m.shape)).astype(
-            np.float32)).to(dev)
-        mom = [torch.from_numpy((0.05 * rng.normal(size=m.shape)).astype(
-            np.float32)).to(dev)] + [torch.from_numpy(
-                (0.01 * rng.uniform(size=m.shape)).astype(np.float32)).to(dev)
-            for _ in range(2)]
-        bm = torch.ones_like(m)
-        bm[:, 1::3, :, :6] = 0.0
-        gate = torch.from_numpy(rng.uniform(size=(B, K)) > 0.25).to(dev)
-        thr = torch.from_numpy(np.where(
-            rng.uniform(size=(B, K)) > 0.5, rng.uniform(0.01, 0.2, (B, K)),
-            0.0).astype(np.float32)).to(dev)
-        ds = torch.full((B,), 1e-2, device=dev)
-        stepped = (m + g) * bm
-        idx = kn.candidate_index(stepped, 1)
-        opt = engine.AdaproxState(*mom)
-        kn.reset_launch_counts()
+    w, keep, n_iter = engine.monotonicity_tables((box, box), 1, "angle")
+    w = torch.from_numpy(w.astype(np.float32)).to(dev)
+    keep = torch.from_numpy(keep.astype(np.float32)).to(dev)
+    rng = np.random.default_rng(box + B)
+    yy, xx = np.mgrid[:box, :box] - box // 2
+    prof = np.exp(-(yy ** 2 + xx ** 2) / rng.uniform(20, 400, (B, K, 1, 1)))
+    m = torch.from_numpy((prof * (1 + 0.3 * rng.uniform(
+        size=(B, K, box, box)))).astype(np.float32)).to(dev)
+    g = torch.from_numpy((0.1 * rng.normal(size=m.shape)).astype(
+        np.float32)).to(dev)
+    mom = [torch.from_numpy((0.05 * rng.normal(size=m.shape)).astype(
+        np.float32)).to(dev)] + [torch.from_numpy(
+            (0.01 * rng.uniform(size=m.shape)).astype(np.float32)).to(dev)
+        for _ in range(2)]
+    bm = torch.ones_like(m)
+    bm[:, 1::3, :, :6] = 0.0
+    gate = torch.from_numpy(rng.uniform(size=(B, K)) > 0.25).to(dev)
+    gate[0, 0] = True
+    thr = torch.from_numpy(np.where(
+        rng.uniform(size=(B, K)) > 0.5, rng.uniform(0.01, 0.2, (B, K)),
+        0.0).astype(np.float32)).to(dev)
+    ds = torch.full((B,), 1e-2, device=dev)
+    stepped = (m + g) * bm
+    idx = kn.candidate_index(stepped, 1)
+    opt = engine.AdaproxState(*mom)
+    geo = kn._card_geometry(dev, B * K, box, box)
+    info = kn.wide_kernel_info(B * K, box, box)
+    shape = f"B={B} K={K} box={box} n_iter={n_iter}"
+
+    def k1(f, tol=0.0):
+        return f(stepped, idx, w, keep, n_iter, tol=tol)
+
+    def k5(f, tol=0.0):
+        return f(m, stepped, idx, w, keep, thr, gate, n_iter, tol=tol)
+
+    def k6(f, masks=bm):
+        x, o = f(m, g, opt, gate, w, keep, masks, thr, ds, n_iter)
+        return torch.stack([x, *o])
+
+    calls = dict(monotonic_prox=(k1, dict(tol=1e-3), "monotonic_prox_wide"),
+                 prox_chain=(k5, dict(tol=1e-3), "prox_chain_wide"),
+                 fused_morph_update=(k6, dict(masks=None),
+                                     "fused_morph_update_wide"))
+    # the passes each kernel's projection runs at tol 0
+    m2 = 0.1 * g + 0.9 * mom[0]
+    vh2 = torch.maximum(mom[2], 0.001 * (g * g) + 0.999 * mom[1])
+    x1 = (m - ds[:, None, None, None] * m2 / (torch.sqrt(vh2) + 1e-8)) * bm
+    work = dict(monotonic_prox=(stepped, idx, None),
+                prox_chain=(stepped, idx, gate),
+                fused_morph_update=(x1, kn.candidate_index(x1, 1), gate))
+    io = dict(monotonic_prox=(2 * nbytes(stepped) + nbytes(idx)
+                              + taps_bytes(idx, w, keep)),
+              prox_chain=(nbytes(m, stepped, idx, thr, gate, m)
+                          + taps_bytes(idx, w, keep)),
+              fused_morph_update=(nbytes(m, g, *mom, bm, gate, thr, ds)
+                                  + 4 * nbytes(m)
+                                  + taps_bytes(work["fused_morph_update"][1],
+                                               w, keep)))
+    out = {}
+    for name, (call, other, key) in calls.items():
+        kern, plain = getattr(kn, name), getattr(kn, name + "_plain")
         errs = []
-        for tol in (0.0, 1e-3):
-            got = kn.prox_chain(m, stepped, idx, w, keep, thr, gate, n_iter,
-                                tol=tol)
-            ref = kn.prox_chain_plain(m, stepped, idx, w, keep, thr, gate,
-                                      n_iter, tol=tol)
-            errs.append(float((got - ref).abs().max()))
-        ferrs = []
-        for masks in (bm, None):
-            x, o = kn.fused_morph_update(m, g, opt, gate, w, keep, masks, thr,
-                                         ds, n_iter)
-            rx, ro = kn.fused_morph_update_plain(m, g, opt, gate, w, keep,
-                                                 masks, thr, ds, n_iter)
-            ferrs.append(max(float((a - b).abs().max())
-                             for a, b in zip((x, *o), (rx, *ro))))
-        counts = kn.launch_counts()
-        if max(errs + ferrs) != 0.0 or counts["prox_chain_wide"] != 2 \
-                or counts["fused_morph_update_wide"] != 2 \
-                or counts["monotonic_prox_wide"] != 4 \
-                or counts["prox_chain"] or counts["fused_morph_update"]:
-            raise AssertionError(f"wide K5/K6 at box {box}: errors {errs} "
-                                 f"{ferrs}, counts {counts}")
-        shape = f"B={B} K={K} box={box} n_iter={n_iter}"
-        out["prox_chain"][box] = dict(
-            **bound(nbytes(m, stepped, idx, w, keep, thr, gate, got), 0.0),
-            max_abs_err=max(errs), shape=shape,
-            ms=time_ms(lambda: kn.prox_chain(m, stepped, idx, w, keep, thr,
-                                             gate, n_iter), BAND_REPS),
-            plain_ms=time_ms(lambda: kn.prox_chain_plain(
-                m, stepped, idx, w, keep, thr, gate, n_iter), 3))
-        out["fused_morph_update"][box] = dict(
-            **bound(nbytes(m, g, *mom, bm, gate, w, keep, thr, ds, x, *o),
-                    0.0),
-            max_abs_err=max(ferrs), shape=shape,
-            ms=time_ms(lambda: kn.fused_morph_update(
-                m, g, opt, gate, w, keep, bm, thr, ds, n_iter), BAND_REPS),
-            plain_ms=time_ms(lambda: kn.fused_morph_update_plain(
-                m, g, opt, gate, w, keep, bm, thr, ds, n_iter), 3))
-        for name in out:
-            r = out[name][box]
-            log(f"wide route {name} at {shape}: bit for bit (max abs err "
-                f"{r['max_abs_err']:.3g}), {r['ms']:.4f} ms (events), plain "
-                f"{r['plain_ms']:.4f} ms, bytes bound {r['bound_ms']:.5f} ms "
-                f"on {card}")
+        for kw in (dict(), other):
+            kn.reset_launch_counts()
+            got = call(kern, **kw)
+            counts = kn.launch_counts()
+            errs.append(float((got - call(plain, **kw)).abs().max()))
+            others = {k: v for k, v in counts.items() if v and k not in (
+                key, "monotonic_prox", "monotonic_prox_tol_tensor")}
+            if counts[key] != 1 or others or counts["monotonic_prox"] != (
+                    name == "monotonic_prox"):
+                raise AssertionError(f"wide {name} at {shape}: launches "
+                                     f"{counts}")
+        if max(errs) != 0.0:
+            raise AssertionError(f"wide {name} at {shape} differs from its "
+                                 f"plain version by {errs}")
+        x, i, running = work[name]
+        passes = mono_passes_run(x, i, w, keep, n_iter, 0.0, running)
+        out[name] = dict(
+            **bound(io[name], mono_ops(passes, i, w)),
+            passes=int(passes.max()), max_abs_err=max(errs), shape=shape,
+            R=geo.R, P=geo.P, threads=geo.threads,
+            registers=info[name]["registers"],
+            spill_bytes=info[name]["spill_bytes"],
+            resident_clusters=info[name]["clusters"],
+            ms=time_ms(lambda: call(kern), BAND_REPS),
+            plain_ms=time_ms(lambda: call(plain), 3))
+        r = out[name]
+        log(f"wide engine {name} at {shape} (R={geo.R} CTAs a cluster, "
+            f"{'P=' + str(geo.P) if geo.P else 'streamed taps'}, "
+            f"{geo.threads} threads, {r['registers']} registers, "
+            f"{r['spill_bytes']} B spill, {r['resident_clusters']} clusters "
+            f"resident): bit for bit, {r['ms']:.4f} ms "
+            f"(events), plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.6f} ms by {r['bound_by']} at {r['passes']} "
+            f"passes on {card}")
+    return out
+
+
+def wide_chain_checks(dev, card):
+    """(c) The wide engine's three kernels (:func:`wide_case`) at
+    WIDE_BOXES on WIDE_SHAPE morphologies and at the object tree's
+    OT_WIDE_BOXES on one.  Returns {kernel: {"BxKxbox": numbers}}."""
+    out = {"monotonic_prox": {}, "prox_chain": {}, "fused_morph_update": {}}
+    cases = [(*WIDE_SHAPE, box) for box in WIDE_BOXES] + \
+        [(1, 1, box) for box in OT_WIDE_BOXES]
+    for B, K, box in cases:
+        for name, res in wide_case(dev, card, B, K, box).items():
+            out[name][f"{B}x{K}x{box}"] = res
     return out
 
 
 def wide_fits(dev, card):
     """(c) WIDE_FIT_BLENDS het blends packed at box WIDE_FIT_BOX
     (``stream_setup``, mono_tol 0) fitted WIDE_FIT_ITERS iterations three
-    ways: the default, ``packed_prox_chain`` (K5's wide route) and
-    ``fuse_morph`` (K6's), each counted from zero.  K5's route is the
-    default's projection and epilogue, so its logL is the default's bit
-    for bit; K6's within the fused configurations' tolerances of
-    fused_configs.  Returns ({config: counts}, summary)."""
+    ways: the default (K1's ``mono_kernel_wide``), ``packed_prox_chain``
+    (``chain_kernel_wide``) and ``fuse_morph`` (``fused_kernel_wide``),
+    each counted from zero; K5 and K6 launch no K1.  K5 is the default's
+    projection and epilogue, so its logL is the default's bit for bit;
+    K6's within the fused configurations' tolerances of fused_configs.
+    Returns ({config: counts}, summary)."""
     import torch
     from scarlet_tpu_torch.ops import kernels as kn
     from scarlet_tpu_torch.parallel import batch, stream
@@ -6108,14 +6175,17 @@ def wide_fits(dev, card):
         finals[name] = out.last_loss.cpu().numpy()
         summary[name] = dict(ms_per_iteration=(time.perf_counter() - t0)
                              * 1e3 / len(losses))
-    for name, key in (("packed_prox_chain", "prox_chain_wide"),
+    for name, key in (("default", "monotonic_prox_wide"),
+                      ("packed_prox_chain", "prox_chain_wide"),
                       ("fuse_morph", "fused_morph_update_wide")):
-        if counts[name][key] <= 0 or counts[name]["monotonic_prox_wide"] <= 0:
-            raise AssertionError(f"{name} at box {WIDE_FIT_BOX} did not take "
-                                 f"the wide route: {counts[name]}")
+        if counts[name][key] != WIDE_FIT_ITERS or (
+                name != "default" and counts[name]["monotonic_prox"]):
+            raise AssertionError(f"{name} at box {WIDE_FIT_BOX} did not run "
+                                 f"the wide engine once an iteration: "
+                                 f"{counts[name]}")
     ref = finals["default"]
     if not np.array_equal(finals["packed_prox_chain"], ref):
-        raise AssertionError("packed_prox_chain's wide route differs from "
+        raise AssertionError("packed_prox_chain's wide kernel differs from "
                              "the default fit")
     rel = np.abs(finals["fuse_morph"] - ref) / np.abs(ref)
     med = abs(np.median(finals["fuse_morph"]) - np.median(ref)) / abs(
@@ -6348,15 +6418,23 @@ def main():
         kres[name]["band_times"] = {
             C: t[name] for C, t in b17_summary["times"].items()}
     kres["grad_gather"]["band_checks"] = b17_checks["bands"]
-    for name, key, cfg in (("prox_chain", "prox_chain_wide",
+    # the wide engine: each kernel's checks and times at the wide boxes,
+    # and its launches over the box-81 fit of its configuration
+    for name, key, cfg in (("monotonic_prox", "monotonic_prox_wide",
+                            "default"),
+                           ("prox_chain", "prox_chain_wide",
                             "packed_prox_chain"),
                            ("fused_morph_update", "fused_morph_update_wide",
                             "fuse_morph")):
-        kres[name]["wide_route"] = dict(
+        kres[name]["wide"] = dict(
+            kernel={"monotonic_prox": "mono_kernel_wide",
+                    "prox_chain": "chain_kernel_wide",
+                    "fused_morph_update": "fused_kernel_wide"}[name],
+            source="scarlet_tpu_torch/ops/csrc/wide.cu",
             launches_box_81_fit=int(b17_counts["wide"][cfg][key]),
-            k1_wide_launches_box_81_fit=int(
-                b17_counts["wide"][cfg]["monotonic_prox_wide"]),
-            boxes=b17_checks["wide"][name])
+            k1_launches_box_81_fit=int(
+                b17_counts["wide"][cfg]["monotonic_prox"]),
+            shapes=b17_checks["wide"][name])
 
     # each kernel's launches from the run of the path that drives it:
     # K1, K3 and K4 from one device-stream run, K5 and K6 from the fit of

@@ -27,8 +27,8 @@ __all__ = ["SOURCES", "nvcc_path", "library_path", "build", "load"]
 _HERE = pathlib.Path(__file__).parent
 _CSRC = _HERE / "csrc"
 _BUILD = _HERE / "_build"
-SOURCES = ("mono.cu", "scene.cu", "grad.cu", "attrib.cu")
-HEADERS = ("launch.cuh",)
+SOURCES = ("mono.cu", "wide.cu", "scene.cu", "grad.cu", "attrib.cu")
+HEADERS = ("launch.cuh", "mono.cuh")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -109,12 +109,20 @@ def load():
     geom = [i] * 5 + [p]
     lib.scarlet_mono_prox.argtypes = [p] * 6 + [i] * 5 + [ll] * 4 + \
         [i, f, f, p] + geom
-    lib.scarlet_mono_prox_wide.argtypes = [p] * 6 + [i] * 5 + [ll] * 4 + \
-        [i, f, f, p, i, p, p]
     lib.scarlet_prox_chain.argtypes = [p] * 9 + [i] * 5 + [f] * 3 + geom
     lib.scarlet_fused_morph.argtypes = [p] * 12 + [i] * 6 + [f, i] + \
         [f] * 6 + [p] * 4 + geom
     lib.scarlet_mono_kernel_info.argtypes = [i] * 5 + [p]
+    # the wide engine's entry points end with (T, P, ny, transposed, R,
+    # rows, threads, smem) of kernels.wide_geometry, the workspace and the
+    # stream
+    wide = [i] * 8 + [p, p]
+    lib.scarlet_wide_prox.argtypes = [p] * 6 + [i] * 5 + [ll] * 4 + \
+        [i, f, f, p] + wide
+    lib.scarlet_wide_chain.argtypes = [p] * 9 + [i] * 5 + [f] * 3 + wide
+    lib.scarlet_wide_fused.argtypes = [p] * 12 + [i] * 6 + [f, i] + \
+        [f] * 6 + [p] * 4 + wide
+    lib.scarlet_wide_kernel_info.argtypes = [i] * 6 + [p]
     # the gather kernels end with the geometry of kernels.scene_geometry
     # (XV, TX, TY, bands, tiles, threads, smem) and grad_geometry (staged,
     # G, groups, smem)
@@ -128,8 +136,9 @@ def load():
     lib.scarlet_mono_pass_variant_smem_bytes.argtypes = [i, i, i]
     lib.scarlet_error_string.argtypes = [i]
     lib.scarlet_error_string.restype = ctypes.c_char_p
-    for name in ("scarlet_mono_prox", "scarlet_mono_prox_wide",
-                 "scarlet_mono_kernel_info",
+    for name in ("scarlet_mono_prox", "scarlet_mono_kernel_info",
+                 "scarlet_wide_prox", "scarlet_wide_chain",
+                 "scarlet_wide_fused", "scarlet_wide_kernel_info",
                  "scarlet_prox_chain", "scarlet_fused_morph",
                  "scarlet_scene_assembly", "scarlet_scene_kernel_info",
                  "scarlet_grad_gather", "scarlet_grad_kernel_info",

@@ -56,8 +56,8 @@
 //     a third (3 x 14.9 KB at box 59), so no load is bounds-checked;
 //   - a 2-D thread map: thread i owns column i % W and rows
 //     i / W + j * ny (j < P), of the box or of its transpose when the box
-//     is wider than tall (W <= 73; a larger box runs mono_kernel_wide,
-//     below).  No division per pixel and pass;
+//     is wider than tall (W <= 73; a larger box runs wide.cu's kernels).
+//     No division per pixel and pass;
 //   - one block of 480 threads (15 warps, P = 8 slots a thread, ~100
 //     registers, no spill) per SM at box 59.  Two blocks would fit the
 //     shared memory, but not the registers: at the 64 registers a thread
@@ -88,19 +88,16 @@
 #include <math_constants.h>
 
 #include "launch.cuh"
+#include "mono.cuh"
 
 namespace {
 
-constexpr int kUnroll = 4;       // passes per convergence test (MONO_UNROLL)
-constexpr int kMaxThreads = 512;  // kernels.MONO_MAX_THREADS
+using scarlet::block_max;
+using scarlet::dir_dx;
+using scarlet::dir_dy;
+using scarlet::kUnroll;
 
-// NEIGHBOR_OFFSETS[d] = (dy, dx), d = 0..7
-__device__ __forceinline__ int dir_dy(int d) {
-  return d < 3 ? -1 : (d < 5 ? 0 : 1);
-}
-__device__ __forceinline__ int dir_dx(int d) {
-  return (d == 0 || d == 3 || d == 5) ? -1 : ((d == 1 || d == 6) ? 0 : 1);
-}
+constexpr int kMaxThreads = 512;  // kernels.MONO_MAX_THREADS
 
 // This thread's part of one morphology (kernels.mono_geometry): the frame
 // is the box, or its transpose (tr); frame pixel (r, c) lives at halo
@@ -268,27 +265,6 @@ __device__ __forceinline__ void load_x(const Geom& g, float* smem, int plane,
   }
 }
 
-// The max over the block of each thread's v; every thread gets it.
-__device__ float block_max(float v, float* red) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = (blockDim.x + 31) >> 5;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    float u = lane < nwarps ? red[lane] : -CUDART_INF_F;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      u = fmaxf(u, __shfl_xor_sync(0xffffffffu, u, off));
-    if (lane == 0) red[32] = u;
-  }
-  __syncthreads();
-  return red[32];
-}
-
 // Threshold cut, center floor and max normalization of the result tile
 // `res`, written to the contiguous (hb, wb) `xo`.  Every thread of the
 // block must call it.
@@ -346,136 +322,6 @@ mono_kernel(const float* __restrict__ x, float* __restrict__ out,
     int y, xx;
     slot_yx(g, j, y, xx);
     xo[y * sy + xx * sx] = res[g.own0 + j * g.step];
-  }
-}
-
-// K1/K2 for a box that mono_kernel's thread map cannot cover
-// (kernels.mono_geometry raises: more than 73 pixels a side, as the object
-// tree's grown boxes and its whole-frame seed projections are).  One block
-// of kWideThreads per morphology; the threads stride over the box's
-// pixels in row-major order, and each pass reads a pixel's taps from
-// device memory (one table's taps stay in L1/L2 across the passes).  The
-// three zero-bordered (hb+2) x (wb+2) planes lie in shared memory where
-// they fit, else in the caller's device-memory workspace `work` (three
-// planes per morphology), whose writes __syncthreads makes visible to the
-// block as it does shared memory.  The exit rule and the arithmetic are
-// mono_passes's, tap for tap, so the results are the same bits.
-constexpr int kWideThreads = 1024;  // kernels.MONO_WIDE_THREADS
-
-// One pass of mono_kernel_wide over this thread's pixels p = threadIdx.x +
-// i * blockDim.x: nxt from cur.  The planes do not alias (restrict), so
-// the compiler may start the next pixels' loads before this pixel's store;
-// `check` adds the convergence test against cur.  Returns the thread's
-// flag.
-template <int T>
-__device__ __forceinline__ int wide_pass(
-    const float* __restrict__ cur, float* __restrict__ nxt,
-    const float* __restrict__ x0s, const float* __restrict__ wt,
-    const int* __restrict__ code, int keep, int npix, int wb, int W2,
-    float scale, float tol, bool check) {
-  const int stride = blockDim.x;
-  const int dy = stride / wb, dx = stride - dy * wb;
-  int y = threadIdx.x / wb, x = threadIdx.x - y * wb;
-  int flag = 0;
-#pragma unroll 4
-  for (int p = threadIdx.x; p < npix; p += stride) {
-    const int h = (y + 1) * W2 + x + 1;
-    const unsigned c = (unsigned)code[p];
-    const int cnt = c & 15u;
-    float w[T];
-#pragma unroll
-    for (int q = 0; q < T / 4; ++q) {
-      const float4 v = reinterpret_cast<const float4*>(wt + p * T)[q];
-      w[4 * q] = v.x;
-      w[4 * q + 1] = v.y;
-      w[4 * q + 2] = v.z;
-      w[4 * q + 3] = v.w;
-    }
-    float ref = 0.0f;
-#pragma unroll
-    for (int q = 0; q < T; ++q) {
-      if (q < cnt) {
-        const int d = (c >> (4 + 3 * q)) & 7u;
-        const int o = dir_dy(d) * W2 + dir_dx(d);
-        ref = __fadd_rn(ref, __fmul_rn(w[q], cur[h + o]));
-      }
-    }
-    if (scale != 1.0f) ref = __fmul_rn(ref, scale);
-    const float a = x0s[h];
-    const float v = p == keep ? a : fminf(a, ref);
-    nxt[h] = v;
-    if (check) {
-      const float old = cur[h];
-      flag |= tol > 0.0f ? (fabsf(v - old) > tol) : (v != old);
-    }
-    x += dx;
-    y += dy;
-    if (x >= wb) {
-      x -= wb;
-      ++y;
-    }
-  }
-  return flag;
-}
-
-template <int T>
-__global__ void __launch_bounds__(kWideThreads)
-mono_kernel_wide(const float* __restrict__ x, float* __restrict__ out,
-                 const int* __restrict__ idx, const float* __restrict__ tw,
-                 const int* __restrict__ tcode,
-                 const int* __restrict__ centers, int ncand, int K, int hb,
-                 int wb, long long sb, long long sk, long long sy,
-                 long long sx, int n_iter, float scale, float tol,
-                 const float* __restrict__ tols, float* work) {
-  extern __shared__ float smem[];
-  const int W2 = wb + 2;
-  const int plane = (hb + 2) * W2;
-  const int npix = hb * wb;
-  const int bk = blockIdx.x;
-  const long long b = bk / K;
-  const long long k = bk - b * K;
-  const long long ci = min(max(idx[bk], 0), ncand - 1);
-  const float tb = tols != nullptr ? tols[b] : tol;
-  const float* wt = tw + ci * npix * T;
-  const int* code = tcode + ci * npix;
-  const int keep = centers[ci];
-  float* base = work != nullptr ? work + (long long)bk * 3 * plane : smem;
-  float* cur = base;
-  float* nxt = base + plane;
-  float* x0s = base + 2 * plane;
-
-  for (int i = threadIdx.x; i < 2 * plane; i += blockDim.x) base[i] = 0.0f;
-  __syncthreads();
-  const float* xin = x + b * sb + k * sk;
-  for (int p = threadIdx.x; p < npix; p += blockDim.x) {
-    const int y = p / wb, xx = p - y * wb;
-    const float v = xin[y * sy + xx * sx];
-    const int h = (y + 1) * W2 + xx + 1;
-    x0s[h] = v;
-    cur[h] = v;
-  }
-  __syncthreads();
-
-  int t = 0;
-  int changed = 1;
-  while (changed && t < n_iter) {
-    int flag = 0;
-    for (int u = 0; u < kUnroll; ++u) {
-      flag |= wide_pass<T>(cur, nxt, x0s, wt, code, keep, npix, wb, W2,
-                           scale, tb, u == kUnroll - 1);
-      float* tmp = cur;
-      cur = nxt;
-      nxt = tmp;
-      if (u < kUnroll - 1) __syncthreads();
-    }
-    changed = __syncthreads_or(flag);
-    t += kUnroll;
-  }
-
-  float* xo = out + b * sb + k * sk;
-  for (int p = threadIdx.x; p < npix; p += blockDim.x) {
-    const int y = p / wb, xx = p - y * wb;
-    xo[y * sy + xx * sx] = cur[(y + 1) * W2 + xx + 1];
   }
 }
 
@@ -638,23 +484,6 @@ struct MonoLaunch {
   }
 };
 
-template <int T>
-int mono_wide_launch(const float* x, float* out, const int* idx,
-                     const float* tw, const int* tcode, const int* centers,
-                     int ncand, int B, int K, int hb, int wb, long long sb,
-                     long long sk, long long sy, long long sx, int n_iter,
-                     float scale, float tol, const float* tols, float* work,
-                     void* stream) {
-  static int granted[scarlet::kMaxDevices] = {};
-  const int smem = work != nullptr ? 0 : smem_bytes(hb, wb);
-  const int err = scarlet::grant_smem(mono_kernel_wide<T>, smem, granted);
-  if (err != 0) return err;
-  mono_kernel_wide<T><<<B * K, kWideThreads, smem, (cudaStream_t)stream>>>(
-      x, out, idx, tw, tcode, centers, ncand, K, hb, wb, sb, sk, sy, sx,
-      n_iter, scale, tol, tols, work);
-  return (int)cudaGetLastError();
-}
-
 template <int T, int P>
 struct ChainLaunch {
   static int run(const float* xorig, const float* x, float* out,
@@ -720,30 +549,6 @@ extern "C" int scarlet_mono_prox(const float* x, float* out, const int* idx,
   return dispatch<MonoLaunch>(T, P, x, out, idx, tw, tcode, centers, ncand,
                               B, K, hb, wb, sb, sk, sy, sx, n_iter, scale,
                               tol, tols, ny, tr, threads, stream);
-}
-
-// mono_kernel_wide for boxes that kernels.mono_geometry rejects: arguments
-// as scarlet_mono_prox's up to `tols`, then T, and `work`: null where the
-// three planes fit in shared memory (kernels.mono_wide_workspace), else
-// B*K*3*(hb+2)*(wb+2) floats of device memory.
-extern "C" int scarlet_mono_prox_wide(const float* x, float* out,
-                                      const int* idx, const float* tw,
-                                      const int* tcode, const int* centers,
-                                      int ncand, int B, int K, int hb, int wb,
-                                      long long sb, long long sk,
-                                      long long sy, long long sx, int n_iter,
-                                      float scale, float tol,
-                                      const float* tols, int T, float* work,
-                                      void* stream) {
-  if (T == 4)
-    return mono_wide_launch<4>(x, out, idx, tw, tcode, centers, ncand, B, K,
-                               hb, wb, sb, sk, sy, sx, n_iter, scale, tol,
-                               tols, work, stream);
-  if (T == 8)
-    return mono_wide_launch<8>(x, out, idx, tw, tcode, centers, ncand, B, K,
-                               hb, wb, sb, sk, sy, sx, n_iter, scale, tol,
-                               tols, work, stream);
-  return (int)cudaErrorInvalidValue;
 }
 
 // xorig, x, out: (N, hb, wb) contiguous, N = B*K; idx (N,) int32; thr (N,)

@@ -4,19 +4,27 @@ versions.
 ======================  ===================  ================================
 wrapper                 CUDA source          TPU kernel it replaces
 ======================  ===================  ================================
-monotonic_prox          csrc/mono.cu         ``batched_monotonic_prox`` (K1)
-monotonic_prox_packed   csrc/mono.cu         ``monotonic_prox_packed`` (K2)
-                        (strided)
-prox_chain              csrc/mono.cu         ``monotonic_prox_packed_chain``
-                                             (K5)
-fused_morph_update      csrc/mono.cu         ``fused_morph_update`` (K6)
+monotonic_prox          csrc/mono.cu,        ``batched_monotonic_prox`` (K1)
+                        csrc/wide.cu
+monotonic_prox_packed   the same, through    ``monotonic_prox_packed`` (K2)
+                        strides
+prox_chain              csrc/mono.cu,        ``monotonic_prox_packed_chain``
+                        csrc/wide.cu         (K5)
+fused_morph_update      csrc/mono.cu,        ``fused_morph_update`` (K6)
+                        csrc/wide.cu
 scene_assembly          csrc/scene.cu        ``scene_assembly`` (K3)
 grad_gather             csrc/grad.cu         ``grad_gather`` (K4)
 mono_pass_variant       csrc/attrib.cu       ``tools/mono_pass_attrib.py``
                                              ``make_kernel`` (T1)
 ======================  ===================  ================================
 
-(TPU kernels K1-K6: ``scarlet_tpu/ops/pallas_kernels.py``.)
+(TPU kernels K1-K6: ``scarlet_tpu/ops/pallas_kernels.py``.)  Boxes that
+:func:`mono_geometry` takes (up to 73 pixels a side) run the register
+kernels of ``csrc/mono.cu``, one block per morphology; larger boxes run
+the wide engine of ``csrc/wide.cu`` (``mono_kernel_wide``,
+``chain_kernel_wide``, ``fused_kernel_wide``), which spreads each
+morphology over a thread-block cluster (:func:`wide_geometry`).  Either
+way one call is one launch.
 
 Each wrapper takes a leading batch axis (any number of leading dims) and:
 
@@ -74,8 +82,11 @@ __all__ = [
     "monotonic_prox_taps_plain",
     "MonoGeometry",
     "mono_geometry",
+    "WideGeometry",
+    "wide_geometry",
     "mono_wide_workspace",
     "mono_kernel_info",
+    "wide_kernel_info",
     "monotonic_prox_packed_plain",
     "prox_chain_plain",
     "fused_morph_update_plain",
@@ -280,8 +291,6 @@ def monotonic_prox_taps_plain(morphs, idx, taps, n_iter, min_gradient=0.0,
 MONO_SLOTS = (4, 8, 12)
 MONO_MAX_THREADS = 512
 SMEM_LIMIT = 232448       # bytes of shared memory a block can use (H100)
-# threads of K1's kernel for boxes beyond mono_geometry (csrc/mono.cu)
-MONO_WIDE_THREADS = 1024
 
 
 class MonoGeometry(NamedTuple):
@@ -314,13 +323,143 @@ def mono_geometry(hb, wb):
                      f"{MONO_SLOTS[-1]} pixels, {smem} B of shared memory)")
 
 
+# The wide engine (csrc/wide.cu): slots per thread of its register route
+# and the block size each instantiation is compiled for; the block of its
+# streamed route (taps read each pass); cluster sizes
+WIDE_SLOTS = (1, 2, 4, 8, 12)
+WIDE_SLOT_THREADS = (1024, 1024, 1024, 640, 512)
+WIDE_STREAM_THREADS = 1024
+WIDE_CLUSTERS = (1, 2, 4, 8, 16)    # past 8: a non-portable cluster size
+# a band's planes leave room for the kernels' static shared memory
+WIDE_SMEM_LIMIT = SMEM_LIMIT - 1024
+
+
+class WideGeometry(NamedTuple):
+    """How the wide engine covers one (hb, wb) morphology: the frame (the
+    box, transposed when it is wider than tall) is cut into ``R`` bands of
+    whole rows, band ``r`` rows ``[r H // R, (r + 1) H // R)``, one CTA
+    each, the R CTAs one thread-block cluster.  Each CTA keeps its band's
+    three zero-bordered planes (cur, next, x0), with one halo row above
+    and below, in its shared memory, or with ``workspace`` in device
+    memory."""
+    transposed: bool
+    H: int            # frame rows
+    W: int            # frame columns
+    R: int            # CTAs per morphology (the cluster size)
+    rows: int         # rows of the largest band
+    P: int            # slots per thread, taps in registers; 0: streamed
+    ny: int           # row strips of a band (register route; else 0)
+    threads: int
+    smem: int         # dynamic shared bytes per CTA (0 with workspace)
+    workspace: bool   # the planes in device memory (past 16 CTAs' room)
+
+    def bands(self):
+        """Each CTA's frame rows, ``[(start, stop), ...]`` by rank."""
+        return [(r * self.H // self.R, (r + 1) * self.H // self.R)
+                for r in range(self.R)]
+
+
+def _band_bytes(rows, W):
+    return 3 * (rows + 2) * (W + 2) * 4
+
+
+def _band_slots(rows, W):
+    """(P, ny, threads) of the register route for a band of rows x W: the
+    fewest slots whose block fits its instantiation; None if none does."""
+    for P, most in zip(WIDE_SLOTS, WIDE_SLOT_THREADS):
+        ny = -(-rows // P)
+        threads = -(-W * ny // 32) * 32
+        if threads <= most:
+            return P, ny, threads
+    return None
+
+
+def wide_geometry(n_morphs, hb, wb, sms, resident=None):
+    """The wide engine's launch geometry for ``n_morphs`` (hb, wb)
+    morphologies on a card of ``sms`` SMs.
+
+    R, a power of two in :data:`WIDE_CLUSTERS` (16 past the portable 8:
+    the kernels set ``cudaFuncAttributeNonPortableClusterSizeAllowed``)
+    and at most the frame's rows, is the larger of
+      * the most CTAs per morphology whose ``n_morphs`` clusters the card
+        holds at once: ``resident[R]`` clusters of R one-SM CTAs (on the
+        card, :func:`_card`; by default ``sms // R``), 1 once the
+        morphologies fill the SMs, and
+      * the fewest whose band fits a block: its three planes in shared
+        memory (``WIDE_SMEM_LIMIT``) and its pixels in the register slots
+        (:data:`WIDE_SLOTS`: a thread takes one frame column and every
+        ny-th row, as :func:`mono_geometry`); where no R up to 16 gives
+        register slots, the fewest whose planes fit (the band streams its
+        taps, ``P = 0``).  On an H100 the register route at R = 2 took
+        half the time of one streaming block per morphology at 512
+        morphologies of 81 px (PERF.md, PR 17).
+    Where no band of 16 CTAs fits shared memory, the planes go to a
+    device-memory workspace, the taps stream and R is the first rule's."""
+    tr = wb > hb
+    H, W = (wb, hb) if tr else (hb, wb)
+    sizes = [R for R in WIDE_CLUSTERS if R <= H]
+    fits = [R for R in sizes if _band_bytes(-(-H // R), W) <= WIDE_SMEM_LIMIT]
+    slotted = [R for R in fits if _band_slots(-(-H // R), W)]
+    held = resident or {}
+    fill = max(R for R in sizes
+               if R == 1 or n_morphs <= held.get(R, sms // R))
+    R = max(fill, (slotted or fits)[0]) if fits else fill
+    rows = -(-H // R)
+    slots = None if not fits else _band_slots(rows, W)
+    P, ny, threads = slots or (0, 0, WIDE_STREAM_THREADS)
+    return WideGeometry(tr, H, W, R, rows, P, ny, threads,
+                        _band_bytes(rows, W) if fits else 0, not fits)
+
+
 def mono_wide_workspace(hb, wb):
-    """Whether K1's kernel for boxes beyond :func:`mono_geometry`
-    (``mono_kernel_wide``) keeps an (hb, wb) box's three zero-bordered
-    planes in device memory (a workspace of ``3 (hb+2) (wb+2)`` floats
-    per morphology) because they do not fit in a block's shared memory
-    (boxes above ~137 pixels a side)."""
-    return 3 * (hb + 2) * (wb + 2) * 4 > SMEM_LIMIT
+    """Whether the wide engine keeps an (hb, wb) box's planes in a
+    device-memory workspace (``3 (rows+2) (W+2)`` floats per CTA) because
+    even 16 CTAs' shared memory cannot hold them
+    (square boxes past 533 pixels a side)."""
+    return wide_geometry(1, hb, wb, WIDE_CLUSTERS[-1]).workspace
+
+
+@functools.lru_cache(maxsize=None)
+def _card(index):
+    """(SMs, {R: clusters of R one-SM CTAs resident at once}) of CUDA
+    device ``index``, read once: the clusters from
+    ``cudaOccupancyMaxActiveClusters`` on the wide engine's 1024-thread
+    kernel (one CTA an SM); an H100's GPCs hold fewer clusters of 16 than
+    132 // 16."""
+    import ctypes
+
+    lib = build.load()
+    resident = {}
+    with torch.cuda.device(index):
+        for R in WIDE_CLUSTERS[1:]:
+            vals = (ctypes.c_int * 4)()
+            _check("wide_geometry", lib.scarlet_wide_kernel_info(
+                0, 4, 1, R, WIDE_SLOT_THREADS[0], 0, vals))
+            resident[R] = vals[3]
+    return torch.cuda.get_device_properties(index).multi_processor_count, \
+        resident
+
+
+def _card_geometry(device, n_morphs, hb, wb):
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return wide_geometry(n_morphs, hb, wb, *_card(index))
+
+
+def _wide_setup(x, n_morphs, hb, wb):
+    """The geometry of a wide launch on ``x``'s device and its workspace
+    (a tensor, or None)."""
+    geo = _card_geometry(x.device, n_morphs, hb, wb)
+    work = torch.empty(n_morphs * geo.R * 3 * (geo.rows + 2) * (geo.W + 2),
+                       dtype=torch.float32, device=x.device) \
+        if geo.workspace else None
+    return geo, work
+
+
+def _wide_args(taps, geo, work):
+    """The arguments that end each wide entry point, before the stream."""
+    return (taps.T, geo.P, geo.ny, int(geo.transposed), geo.R, geo.rows,
+            geo.threads, geo.smem, 0 if work is None else work.data_ptr())
 
 
 # device copies of the compact tables, per table tensor (built once)
@@ -369,8 +508,8 @@ def monotonic_prox(morphs, idx, weights_table, keep_table, n_iter,
     candidate needs exactly one keep pixel, and a neighbour with weight 0
     is never read (inf/NaN: :func:`monotonic_prox_plain`).  Boxes that
     :func:`mono_geometry` takes (up to 73 pixels a side) run
-    ``mono_kernel``, with the taps in registers; larger boxes run
-    ``mono_kernel_wide`` (:func:`mono_wide_workspace`), which gives the
+    ``mono_kernel``, with the taps in registers; larger boxes run the wide
+    engine's ``mono_kernel_wide`` (:func:`wide_geometry`), which gives the
     same bits at any size.
     """
     _check_tol("monotonic_prox", tol, morphs.shape[:-3])
@@ -428,7 +567,7 @@ def _tables_lib(name, weights_table, keep_table, hb, wb, wide=False):
     """Check the monotonicity tables and the box; returns (library,
     ncand, the tables' taps on the device, the launch geometry).  With
     ``wide``, a box beyond :func:`mono_geometry` gives the geometry
-    ``None`` (``mono_kernel_wide``) instead of raising."""
+    ``None`` (the wide engine) instead of raising."""
     _f32(name, weights_table, "weights_table")
     _f32(name, keep_table, "keep_table")
     ncand = weights_table.shape[0]
@@ -449,9 +588,11 @@ def _tables_lib(name, weights_table, keep_table, hb, wb, wide=False):
 
 def _taps_args(taps, geom):
     """The kernel arguments that carry the compact tables and the
-    geometry, after the table pointers' place in each entry point."""
+    geometry (``None``: the wide engine's, :func:`_wide_args`), after the
+    table pointers' place in each entry point."""
     return ((taps.weights.data_ptr(), taps.codes.data_ptr(),
              taps.centers.data_ptr()),
+            None if geom is None else
             (taps.T, geom.P, geom.ny, int(geom.transposed), geom.threads))
 
 
@@ -493,12 +634,9 @@ def _mono_launch(name, x, idx, weights_table, keep_table, K, hb, wb, strides,
             err = lib.scarlet_mono_prox(*args, *_taps_args(taps, geom)[1],
                                         _stream(x))
         else:
-            work = torch.empty(B * K * 3 * (hb + 2) * (wb + 2),
-                               dtype=torch.float32, device=x.device) \
-                if mono_wide_workspace(hb, wb) else None
-            err = lib.scarlet_mono_prox_wide(
-                *args, taps.T, 0 if work is None else work.data_ptr(),
-                _stream(x))
+            wide, work = _wide_setup(x, B * K, hb, wb)
+            err = lib.scarlet_wide_prox(*args, *_wide_args(taps, wide, work),
+                                        _stream(x))
     _check(name, err)
     monotonic_prox.launches += 1
     if tols is not None:
@@ -511,7 +649,8 @@ def _mono_launch(name, x, idx, weights_table, keep_table, K, hb, wb, strides,
 monotonic_prox.launches = 0
 # the launches among them that read a tolerance per blend
 monotonic_prox.tol_tensor_launches = 0
-# the launches among them of mono_kernel_wide (boxes beyond mono_geometry)
+# the launches among them of the wide engine's mono_kernel_wide (boxes
+# beyond mono_geometry)
 monotonic_prox.wide_launches = 0
 
 _MONO_KERNELS = ("monotonic_prox", "prox_chain", "fused_morph_update")
@@ -535,6 +674,27 @@ def mono_kernel_info(hb, wb, T=4):
         out[name] = dict(registers=vals[0], spill_bytes=vals[1],
                          blocks_per_sm=vals[2], threads=geom.threads,
                          smem_bytes=geom.smem, T=T, P=geom.P)
+    return out
+
+
+def wide_kernel_info(n_morphs, hb, wb, T=4):
+    """What the compiler made of the wide engine's kernels for
+    ``n_morphs`` (hb, wb) morphologies (card only): per wrapper, the
+    instantiation's registers per thread, local-memory (spill) bytes per
+    thread, blocks resident per SM, clusters of R resident at once
+    (``cudaOccupancyMaxActiveClusters``) and :func:`wide_geometry`."""
+    import ctypes
+
+    geo = _card_geometry(torch.device("cuda"), n_morphs, hb, wb)
+    lib = build.load()
+    out = {}
+    for which, name in enumerate(_MONO_KERNELS):
+        vals = (ctypes.c_int * 4)()
+        _check(name, lib.scarlet_wide_kernel_info(
+            which, T, geo.P, geo.R, geo.threads, geo.smem, vals))
+        out[name] = dict(registers=vals[0], spill_bytes=vals[1],
+                         blocks_per_sm=vals[2], clusters=vals[3], T=T,
+                         **geo._asdict())
     return out
 
 
@@ -588,10 +748,9 @@ def prox_chain(x_orig, stepped, idx, weights_table, keep_table, thr, gate,
     thr (..., K) float per-slot cutoff ``min_c t_c / sed_c`` (0: the
     positivity clamp); gate (..., K) bool.  Returns a fresh tensor.
 
-    A box beyond :func:`mono_geometry` (over 73 pixels a side) takes the
-    wide route, chosen from the shape before any launch: the plain
-    version's steps on the card with K1's ``mono_kernel_wide`` as the
-    projection (:func:`monotonic_prox`), the same bits; counted in
+    A box beyond :func:`mono_geometry` (over 73 pixels a side) runs the
+    wide engine's ``chain_kernel_wide`` (:func:`wide_geometry`), chosen
+    from the shape: one launch, the same bits; counted in
     ``prox_chain.wide_launches``, not in ``prox_chain.launches``.
     """
     if _is_cpu(x_orig, stepped, idx, weights_table, keep_table, thr, gate):
@@ -614,12 +773,6 @@ def prox_chain(x_orig, stepped, idx, weights_table, keep_table, thr, gate,
     _f32(name, stepped, "stepped")
     lib, ncand, taps, geom = _tables_lib(name, weights_table, keep_table,
                                          hb, wb, wide=True)
-    if geom is None:
-        out = monotonic_prox(stepped, idx, weights_table, keep_table, n_iter,
-                             min_gradient, tol)
-        prox_chain.wide_launches += 1
-        return chain_epilogue(out, thr.to(out.dtype), gate.to(torch.bool),
-                              x_orig, floor)
     idx32 = idx.to(torch.int32).contiguous()
     thr32 = thr.to(torch.float32).contiguous()
     gate8 = gate.to(torch.bool).contiguous()
@@ -628,19 +781,28 @@ def prox_chain(x_orig, stepped, idx, weights_table, keep_table, thr, gate,
     if N == 0:
         return out
     tables, launch = _taps_args(taps, geom)
-    with torch.cuda.device(stepped.device):
-        err = lib.scarlet_prox_chain(
-            x_orig.data_ptr(), stepped.data_ptr(), out.data_ptr(),
+    args = (x_orig.data_ptr(), stepped.data_ptr(), out.data_ptr(),
             idx32.data_ptr(), thr32.data_ptr(), gate8.data_ptr(), *tables,
             ncand, N, hb, wb, int(n_iter), 1.0 - float(min_gradient),
-            float(floor), float(tol), *launch, _stream(stepped))
+            float(floor), float(tol))
+    with torch.cuda.device(stepped.device):
+        if geom is not None:
+            err = lib.scarlet_prox_chain(*args, *launch, _stream(stepped))
+        else:
+            wide, work = _wide_setup(stepped, N, hb, wb)
+            err = lib.scarlet_wide_chain(*args,
+                                         *_wide_args(taps, wide, work),
+                                         _stream(stepped))
     _check(name, err)
-    prox_chain.launches += 1
+    if geom is None:
+        prox_chain.wide_launches += 1
+    else:
+        prox_chain.launches += 1
     return out
 
 
 prox_chain.launches = 0
-# the calls that took the wide route (boxes beyond mono_geometry)
+# the launches of chain_kernel_wide (boxes beyond mono_geometry)
 prox_chain.wide_launches = 0
 
 
@@ -652,18 +814,6 @@ def fused_morph_update_plain(morphs, grads, opt, gate, weights_table,
     step (``optim.adaprox_step``, same association), the box mask, the
     candidate pick, :func:`monotonic_prox_plain` at tol 0 and
     :func:`chain_epilogue`."""
-    return _morph_update_steps(
-        monotonic_prox_plain, morphs, grads, opt, gate, weights_table,
-        keep_table, box_masks, thr, damp_step, n_iter, min_gradient,
-        fit_center_radius, b1, b2, eps, floor)
-
-
-def _morph_update_steps(project, morphs, grads, opt, gate, weights_table,
-                        keep_table, box_masks, thr, damp_step, n_iter,
-                        min_gradient, fit_center_radius, b1, b2, eps, floor):
-    """The steps of :func:`fused_morph_update_plain` with ``project`` (the
-    plain projection, or :func:`monotonic_prox` on the card) as the
-    monotonicity projection."""
     m2 = (1 - b1) * grads + b1 * opt.m
     v2 = (1 - b2) * (grads * grads) + b2 * opt.v
     vh2 = torch.maximum(opt.vhat, v2)
@@ -672,8 +822,8 @@ def _morph_update_steps(project, morphs, grads, opt, gate, weights_table,
     if box_masks is not None:
         x1 = x1 * box_masks
     idx = candidate_index(x1, fit_center_radius)
-    out = project(x1, idx, weights_table, keep_table, n_iter, min_gradient,
-                  0.0)
+    out = monotonic_prox_plain(x1, idx, weights_table, keep_table, n_iter,
+                               min_gradient, 0.0)
     gate = gate.to(torch.bool)
     x_new = chain_epilogue(out, thr.to(out.dtype), gate, morphs, floor)
     g3 = gate[..., None, None]
@@ -698,10 +848,9 @@ def fused_morph_update(morphs, grads, opt, gate, weights_table, keep_table,
     morphology step of each blend (0.1 x at its first iteration).
     Returns (morphs', AdaproxState).
 
-    A box beyond :func:`mono_geometry` (over 73 pixels a side) takes the
-    wide route, chosen from the shape before any launch: the plain
-    version's steps on the card with K1's ``mono_kernel_wide`` as the
-    projection (:func:`monotonic_prox`), the same bits; counted in
+    A box beyond :func:`mono_geometry` (over 73 pixels a side) runs the
+    wide engine's ``fused_kernel_wide`` (:func:`wide_geometry`), chosen
+    from the shape: one launch, the same bits; counted in
     ``fused_morph_update.wide_launches``, not in
     ``fused_morph_update.launches``.
     """
@@ -737,12 +886,6 @@ def fused_morph_update(morphs, grads, opt, gate, weights_table, keep_table,
                                          hb, wb, wide=True)
     if ncand != (2 * r + 1) ** 2 or not 0 <= r <= min(hb, wb) // 2:
         raise ValueError(f"{name}: {ncand} tables for radius {r}")
-    if geom is None:
-        fused_morph_update.wide_launches += 1
-        return _morph_update_steps(
-            monotonic_prox, morphs, grads, opt, gate, weights_table,
-            keep_table, box_masks, thr, damp_step, n_iter, min_gradient, r,
-            b1, b2, eps, floor)
     thr32 = thr.to(torch.float32).contiguous()
     gate8 = gate.to(torch.bool).contiguous()
     ds = damp_step.to(torch.float32).contiguous()
@@ -752,21 +895,29 @@ def fused_morph_update(morphs, grads, opt, gate, weights_table, keep_table,
         return outs[0], AdaproxState(*outs[1:])
     bm = 0 if box_masks is None else box_masks.data_ptr()
     tables, launch = _taps_args(taps, geom)
-    with torch.cuda.device(morphs.device):
-        err = lib.scarlet_fused_morph(
-            morphs.data_ptr(), grads.data_ptr(), opt.m.data_ptr(),
+    args = (morphs.data_ptr(), grads.data_ptr(), opt.m.data_ptr(),
             opt.v.data_ptr(), opt.vhat.data_ptr(), bm, thr32.data_ptr(),
             gate8.data_ptr(), ds.data_ptr(), *tables, ncand, B, K, hb, wb,
             int(n_iter), 1.0 - float(min_gradient), r, 1.0 - b1, b1,
-            1.0 - b2, b2, eps, floor, *(o.data_ptr() for o in outs),
-            *launch, _stream(morphs))
+            1.0 - b2, b2, eps, floor, *(o.data_ptr() for o in outs))
+    with torch.cuda.device(morphs.device):
+        if geom is not None:
+            err = lib.scarlet_fused_morph(*args, *launch, _stream(morphs))
+        else:
+            wide, work = _wide_setup(morphs, B * K, hb, wb)
+            err = lib.scarlet_wide_fused(*args,
+                                         *_wide_args(taps, wide, work),
+                                         _stream(morphs))
     _check(name, err)
-    fused_morph_update.launches += 1
+    if geom is None:
+        fused_morph_update.wide_launches += 1
+    else:
+        fused_morph_update.launches += 1
     return outs[0], AdaproxState(*outs[1:])
 
 
 fused_morph_update.launches = 0
-# the calls that took the wide route (boxes beyond mono_geometry)
+# the launches of fused_kernel_wide (boxes beyond mono_geometry)
 fused_morph_update.wide_launches = 0
 
 
@@ -1245,12 +1396,15 @@ _COUNTED = (monotonic_prox, prox_chain, fused_morph_update, scene_assembly,
 
 def launch_counts():
     """Kernel launches since the last :func:`reset_launch_counts`
-    (``monotonic_prox`` counts both of its layouts;
+    (``monotonic_prox`` counts both of its layouts and both engines;
     ``monotonic_prox_tol_tensor`` those of its launches that read one
-    tolerance per blend; ``monotonic_prox_wide`` those that ran
-    ``mono_kernel_wide``, for boxes beyond :func:`mono_geometry`;
-    ``prox_chain_wide`` and ``fused_morph_update_wide`` the calls of those
-    wrappers that took their wide route, each through one such launch)."""
+    tolerance per blend; ``monotonic_prox_wide`` those that ran the wide
+    engine's ``mono_kernel_wide``, for boxes beyond :func:`mono_geometry`.
+    ``prox_chain`` and ``fused_morph_update`` count their register
+    kernels, ``prox_chain_wide`` and ``fused_morph_update_wide`` their
+    wide kernels, ``chain_kernel_wide`` and ``fused_kernel_wide``: a wide
+    K5 or K6 call is one launch of its own kernel and adds nothing to
+    ``monotonic_prox`` or ``monotonic_prox_wide``)."""
     out = {f.__name__: f.launches for f in _COUNTED}
     out["monotonic_prox_tol_tensor"] = monotonic_prox.tol_tensor_launches
     out["monotonic_prox_wide"] = monotonic_prox.wide_launches

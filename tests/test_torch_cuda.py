@@ -153,10 +153,10 @@ def test_fused_morph_update_matches_plain(cuda, box):
 @pytest.mark.parametrize("box", [81, 101])
 def test_prox_chain_and_fused_update_take_wide_boxes(cuda, box):
     """K5 and K6 on boxes beyond ``mono_geometry`` (over 73 pixels a
-    side) take their wide route, K1's ``mono_kernel_wide`` inside the
-    plain version's steps: bit for bit with the twins on the card, one
-    wide launch of K1 per call, counted as each wrapper's wide call and
-    not as a launch of its own kernel."""
+    side) run the wide engine's ``chain_kernel_wide`` and
+    ``fused_kernel_wide``: bit for bit with the twins on the card, one
+    launch per call, counted as each wrapper's wide launch and not as a
+    launch of its register kernel or of K1."""
     with pytest.raises(ValueError):
         kn.mono_geometry(box, box)
     w, keep, n_iter = (x.to(cuda) if torch.is_tensor(x) else x
@@ -184,7 +184,172 @@ def test_prox_chain_and_fused_update_take_wide_boxes(cuda, box):
     assert counts["prox_chain_wide"] == counts["fused_morph_update_wide"] \
         == 2
     assert counts["prox_chain"] == counts["fused_morph_update"] == 0
-    assert counts["monotonic_prox_wide"] == counts["monotonic_prox"] == 4
+    assert counts["monotonic_prox_wide"] == counts["monotonic_prox"] == 0
+
+
+# boxes beyond mono_geometry and morphologies per launch (B, K): on an
+# H100, R runs 16 (B K = 1, 4) and 2, 4 or 8 (32, 256: as few as the
+# band's fit needs)
+WIDE_BOXES = [74, 81, 101, 128, 150, (77, 130)]
+WIDE_COUNTS = [(1, 1), (1, 4), (2, 16), (16, 16)]
+
+
+def _wide_inputs(cuda, B, K, box, radius, seed):
+    """Seeded wide-box inputs: peaked noisy profiles whose center window
+    holds the peak, moments, box masks cutting columns, thresholds, a
+    gate with slot 0 on and (B K > 1) some slots off."""
+    hb, wb = (box, box) if isinstance(box, int) else box
+    w, keep, n_iter = engine.monotonicity_tables((hb, wb), radius, "angle")
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:hb, :wb]
+    prof = np.exp(-((yy - hb // 2) ** 2 + (xx - wb // 2) ** 2)
+                  / rng.uniform(50, 800, (B, K, 1, 1)))
+    shape = (B, K, hb, wb)
+    m = prof * (1 + 0.3 * rng.uniform(size=shape))
+    g = 0.1 * rng.normal(size=shape)
+    mom = [0.05 * rng.normal(size=shape), 0.01 * rng.uniform(size=shape),
+           0.01 * rng.uniform(size=shape)]
+    bm = np.ones(shape)
+    bm[:, 1::3, :, :6] = 0.0
+    gate = rng.uniform(size=(B, K)) > 0.25
+    gate[0, 0] = True
+    thr = np.where(rng.uniform(size=(B, K)) > 0.5,
+                   rng.uniform(0.01, 0.2, (B, K)), 0.0)
+    ds = np.where(np.arange(B) > 0, 1.0, 0.1) * 1e-2
+    f32 = [torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+           for a in (w, keep, m, g, *mom, bm, thr, ds)]
+    return (*f32[:2], n_iter, *f32[2:], torch.from_numpy(gate).to(cuda))
+
+
+def _straddles(geo, hb, wb, radius):
+    """Whether the (2r+1)^2 center window crosses a band boundary."""
+    lo, hi = ((wb // 2 - radius, wb // 2 + radius) if geo.transposed
+              else (hb // 2 - radius, hb // 2 + radius))
+    return any(lo < start <= hi for start, _ in geo.bands())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,K", WIDE_COUNTS, ids=lambda v: str(v))
+@pytest.mark.parametrize("box", WIDE_BOXES, ids=str)
+def test_wide_kernels_match_plain_at_every_cluster_size(cuda, box, B, K):
+    """The wide engine's three kernels bit for bit against their plain
+    versions at each box and cluster size R (the register route):
+    :func:`_check_wide_kernels`.  At 128 px and R = 16 the center
+    windows of r = 1 and r = 2 straddle two bands."""
+    hb, wb = (box, box) if isinstance(box, int) else box
+    geo = kn._card_geometry(cuda, B * K, hb, wb)
+    assert geo.P > 0 and not geo.workspace
+    straddled = _check_wide_kernels(cuda, hb, wb, B, K)
+    if geo.R == 16 and box == 128:
+        assert all(straddled)       # rows 63-65 and 62-66 cross row 64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("box,B,K,workspace", [(300, 1, 1, False),
+                                               (300, 1, 4, False),
+                                               (540, 1, 1, True)])
+def test_wide_kernels_stream_past_the_register_slots(cuda, box, B, K,
+                                                     workspace):
+    """Bands too large for the register slots stream their taps, their
+    planes in shared memory (300 px) or, past what 16 CTAs hold, in the
+    device-memory workspace (540 px): the three kernels bit for bit as
+    in :func:`_check_wide_kernels`."""
+    geo = kn._card_geometry(cuda, B * K, box, box)
+    assert geo.P == 0 and geo.workspace == workspace
+    _check_wide_kernels(cuda, box, box, B, K)
+
+
+@pytest.mark.cuda
+def test_wide_kernels_one_cta_per_morphology(cuda):
+    """Past what 16 CTAs hold (540 px) with more morphologies than the
+    card holds clusters of two, R = 1: a cluster of one CTA per
+    morphology (the engine's block barrier, and its exit test and max
+    without DSMEM), the planes in the workspace; the three kernels bit for
+    bit as in :func:`_check_wide_kernels`."""
+    index = cuda.index if cuda.index is not None \
+        else torch.cuda.current_device()
+    K = 8
+    B = kn._card(index)[1][2] // K + 1          # 9 on an H100 (66 pairs)
+    geo = kn._card_geometry(cuda, B * K, 540, 540)
+    assert geo.R == 1 and geo.P == 0 and geo.workspace
+    _check_wide_kernels(cuda, 540, 540, B, K)
+
+
+def _check_wide_kernels(cuda, hb, wb, B, K):
+    """K1 at tol 0, 1e-3 and one tolerance per blend, and in the strided
+    (packed) layout; K5 at tol 0 and 1e-3 with gated-off slots; K6 with
+    and without box masks at r = 1 and r = 2; each bit for bit against
+    its plain version, one wide launch per call, none of K1 from K5 or
+    K6.  Returns, per radius, whether the center window crosses a band
+    boundary."""
+    geo = kn._card_geometry(cuda, B * K, hb, wb)
+    straddled = []
+    for radius in (1, 2):
+        (w, keep, n_iter, m, g, m1, v, vh, bm, thr, ds,
+         gate) = _wide_inputs(cuda, B, K, (hb, wb), radius, hb + B)
+        stepped = (m + g) * bm
+        idx = kn.candidate_index(stepped, radius)
+        if radius == 1:
+            tols = torch.tensor([0.0, 1e-3] * B, device=cuda)[:B]
+            for tol in (0.0, 1e-3, tols):
+                before = kn.launch_counts()
+                got = kn.monotonic_prox(stepped, idx, w, keep, n_iter,
+                                        tol=tol)
+                after = kn.launch_counts()
+                assert after["monotonic_prox_wide"] == \
+                    before["monotonic_prox_wide"] + 1
+                assert torch.equal(got, kn.monotonic_prox_plain(
+                    stepped, idx, w, keep, n_iter, tol=tol))
+            packed = stepped.transpose(-3, -2).reshape(B, hb, K * wb) \
+                .contiguous()
+            got_p = kn.monotonic_prox_packed(packed, idx, w, keep, wb,
+                                             n_iter)
+            assert torch.equal(got_p, kn.monotonic_prox_packed_plain(
+                packed, idx, w, keep, wb, n_iter))
+            for tol in (0.0, 1e-3):
+                kn.reset_launch_counts()
+                got = kn.prox_chain(m, stepped, idx, w, keep, thr, gate,
+                                    n_iter, tol=tol)
+                assert kn.launch_counts()["prox_chain_wide"] == 1
+                assert torch.equal(got, kn.prox_chain_plain(
+                    m, stepped, idx, w, keep, thr, gate, n_iter, tol=tol))
+                assert torch.equal(got[~gate], m[~gate])
+        opt = engine.AdaproxState(m1, v, vh)
+        for masks in (bm, None):
+            kn.reset_launch_counts()
+            x, o = kn.fused_morph_update(m, g, opt, gate, w, keep, masks,
+                                         thr, ds, n_iter,
+                                         fit_center_radius=radius)
+            counts = kn.launch_counts()
+            assert counts["fused_morph_update_wide"] == 1
+            assert counts["monotonic_prox"] == counts["prox_chain"] == 0
+            rx, ro = kn.fused_morph_update_plain(
+                m, g, opt, gate, w, keep, masks, thr, ds, n_iter,
+                fit_center_radius=radius)
+            assert torch.equal(x, rx)
+            for a, b in zip(o, ro):
+                assert torch.equal(a, b)
+        straddled.append(_straddles(geo, hb, wb, radius))
+    return straddled
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("box", [81, 128])
+def test_wide_kernels_skip_gated_off_clusters(cuda, box):
+    """A lone morphology whose gate is off: every CTA of its cluster keeps
+    the inputs (K5: x_orig; K6: x and the three moments)."""
+    (w, keep, n_iter, m, g, m1, v, vh, bm, thr, ds,
+     gate) = _wide_inputs(cuda, 1, 1, box, 1, 5)
+    gate = torch.zeros_like(gate)
+    stepped = (m + g) * bm
+    idx = kn.candidate_index(stepped, 1)
+    assert torch.equal(kn.prox_chain(m + 1, stepped, idx, w, keep, thr,
+                                     gate, n_iter), m + 1)
+    opt = engine.AdaproxState(m1, v, vh)
+    x, o = kn.fused_morph_update(m, g, opt, gate, w, keep, bm, thr, ds,
+                                 n_iter)
+    for a, b in zip((x, *o), (m, m1, v, vh)):
+        assert torch.equal(a, b)
 
 
 def _bucket(B, K, C=5, H=58, W=48, hb=BOX, wb=None, pad=61, seed=1):
@@ -584,18 +749,20 @@ def test_monotonic_prox_tensor_tol_matches_plain(cuda, box):
 @pytest.mark.cuda
 @pytest.mark.parametrize("nw", ["angle", "flat"])
 @pytest.mark.parametrize("shape", [(1, 1, 81, 81), (1, 1, 101, 101),
-                                   (2, 3, 77, 130), (1, 2, 150, 150)])
+                                   (2, 3, 77, 130), (1, 2, 150, 150),
+                                   (1, 1, 540, 540)])
 def test_monotonic_prox_wide_matches_plain(cuda, shape, nw):
     """K1 on boxes beyond ``mono_geometry`` (more than 73 pixels a side:
-    the object tree's grown boxes and whole-frame seeds) runs
-    ``mono_kernel_wide``, its planes in shared memory (81, 101, 77 x 130)
-    or in a device-memory workspace (150), bit for bit against the plain
+    the object tree's grown boxes and whole-frame seeds) runs the wide
+    engine's ``mono_kernel_wide``, its bands' planes in the cluster's
+    shared memory (81, 101, 77 x 130, 150) or, past what 16 CTAs hold, in
+    a device-memory workspace (540), bit for bit against the plain
     version: tol 0 at min_gradient 0 and 0.1, tol 1e-3, one tolerance
     per blend, the packed layout (K2) and the 9-candidate table."""
     B, K, hb, wb = shape
     with pytest.raises(ValueError):
         kn.mono_geometry(hb, wb)
-    assert kn.mono_wide_workspace(hb, wb) == (hb == 150)
+    assert kn.mono_wide_workspace(hb, wb) == (hb == 540)
     w, keep, n_iter = engine.monotonicity_tables((hb, wb), 1, nw)
     w = torch.from_numpy(w.astype(np.float32)).to(cuda)
     keep = torch.from_numpy(keep.astype(np.float32)).to(cuda)
@@ -625,9 +792,10 @@ def test_monotonic_prox_wide_matches_plain(cuda, shape, nw):
 @pytest.mark.cuda
 def test_object_tree_box_grows_past_73_on_card(cuda):
     """``Blend.fit`` on the card with a box that grows past 73 pixels
-    (``testing.large_galaxy_fit``: 71 -> 81): the projection runs
-    ``mono_kernel_wide`` from the growth on, the boxes after each 10
-    iterations equal the CPU's, and the losses agree to 1e-4."""
+    (``testing.large_galaxy_fit``: 71 -> 81): the projection runs the
+    wide engine's ``mono_kernel_wide`` from the growth on, the boxes
+    after each 10 iterations equal the CPU's, and the losses agree to
+    1e-4."""
     from scarlet_tpu_torch.testing import large_galaxy_fit
 
     kn.reset_launch_counts()
