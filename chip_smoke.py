@@ -12,13 +12,13 @@ Run from the repository root, with one CUDA card:
    registers and spills, the projection kernels' resident blocks per SM
    at box 59, and K3's and K4's registers, spill, shared bytes, blocks
    per SM and grid at the host path's shapes (K4 also at the gradient
-   padded by the scene pad, its direct route).
+   padded by the scene pad, its tiled route).
 2. Holds K1-K4 against their plain PyTorch versions on the card at the
    host path's shapes (128 blends x 16 components, box 59, 5 bands,
    58 x 48 scenes, with negative origins and an argmax tie), and times
    both with CUDA events.  K4 runs as the fit calls it (the unpadded
    gradient, a strided crop, pad 0: the staged route), contiguous, and
-   padded (the direct route), each held bit for bit in g_morph, to
+   padded (the tiled route), each held bit for bit in g_morph, to
    GRAD_SED_RTOL in g_sed, and bit for bit across two launches.
 3. Drives the host path: 128 generated blends (fixed seed), host
    initialization, one ``LiteBlend.fit`` on the card, then ``pack_blends``
@@ -234,9 +234,9 @@ Run from the repository root, with one CUDA card:
    chunk 0 with ``conv_mode="dft"`` at each tier in turns (blends/min,
    logL drift; K1, K3 and K4 counted over one fit at "high").
 17. Any band count and any box: (a) K3 and K4 against their plain
-   versions at C = 9, 10, 12, 16 and 40 (BAND_CHECKS), on the lite fit's
-   shapes (128 blends x 16 components, box 59, 58 x 48: K4's direct
-   route) and on a 24 x 24 scene (box 21: its staged route), each on the
+   versions at C = 8, 9, 10, 12, 16 and 40 (BAND_CHECKS), on the lite
+   fit's shapes (128 blends x 16 components, box 59, 58 x 48: K4's tiled
+   route) and on a 24 x 24 scene (box 21: staged at 8 bands), each on the
    unpadded gradient and padded by the box: K3 and g_morph bit for bit,
    g_sed to GRAD_SED_RTOL, two launches bitwise; (b) the device stream
    on 64 generated (10, 58, 48) blends at the het cell's settings
@@ -254,9 +254,20 @@ Run from the repository root, with one CUDA card:
    fitted 20 iterations by default, with ``packed_prox_chain`` (logL bit
    for bit with the default) and with ``fuse_morph`` (within the fused
    configurations' tolerances), each counted from zero; (d) K3 and K4 at
-   C = 5, 10 and 16 on the lite fit's shapes: device ms (CUDA events over
-   replays of a CUDA graph of 20 calls) and CUDA events around one call
-   (medians of 10) beside the bytes bound.
+   C = 5, 8, 10, 16 and 40 on the lite fit's shapes: device ms (CUDA
+   events over replays of a CUDA graph of 20 calls) and CUDA events around
+   one call (medians of 10) beside the bytes bound; (e) K4 at box 81 (32
+   x 16 on 80 x 80, 5 bands) and at boxes 171, 201 and 256 on scenes of
+   their size (TILED_SHAPES): strided, contiguous and padded gradients
+   bit for bit in g_morph, g_sed to GRAD_SED_RTOL, two launches bitwise,
+   route, device ms, plain ms and bound; (f) a lite fit at box 181 on a
+   180 x 180 scene (the large galaxy and a second source, 10 iterations
+   through the engine, counted from zero): K4 once an iteration on its
+   tiled route, losses finite and improving, and within 1e-4 of the
+   CPU's with float64 convolutions on both and with the card's
+   convolutions run on the CPU; cuFFT's float32 fit's gap is logged
+   beside the CPU's fits one float32 rounding of the model's scale apart
+   (the fit turns on that rounding: ROADMAP.md Queue 3, F4).
 18. Prints one JSON line with the kernels, the card's name and power
    limit, then, last, the device line ``{"ok": true, "device": {...}}``.
 
@@ -608,9 +619,8 @@ def grad_check(grad, seds, m, origins, P, timer=None):
                 f"grad_gather ({name}) g_sed off by {sed_err:.3g} of sum "
                 f"|g*morph| (limit {GRAD_SED_RTOL}); repeat equal {same}")
         runs[name] = dict(
-            grad_route="staged" if kn.grad_geometry(
-                B, K, C, *g.shape[-2:], hb, wb).staged
-            else "direct", pad=p,
+            grad_route=kn.grad_geometry(B, K, C, *g.shape[-2:], hb,
+                                        wb).route, pad=p,
             g_morph_err=float((gm - rm).abs().max()),
             g_sed_abs_err=float((gs - rs).abs().max()),
             g_sed_rel_err=sed_err, repeat_bitwise=same,
@@ -698,7 +708,7 @@ def kernel_phases(dev, card, setup):
 
     # --- K4: gradient gather, as the fit calls it (the unpadded gradient,
     # a strided crop of a larger array as the inverse FFT returns it, pad
-    # 0), then contiguous, then padded by P (the direct route) ---
+    # 0), then contiguous, then padded by P (the tiled route) ---
     grad = strided_gradient(B, C, H, W, config.fft_shape, dev)
     out["grad_gather"] = dict(**grad_check(grad, seds, m, origins, P),
                               shape=shape)
@@ -728,7 +738,7 @@ def log_grad_calls(res, card):
             f"{r['repeat_bitwise']}, {r['ms']:.4f} ms device "
             f"({r['event_ms']:.4f} ms events) on {card}")
     routes = {r["grad_route"] for r in res["calls"].values()}
-    if routes != {"staged", "direct"}:
+    if routes != {"staged", "tiled"}:
         raise AssertionError(f"grad_gather ran the routes {routes} only")
 
 
@@ -5705,11 +5715,11 @@ def options_phase(dev, card, setup, het):
 # ---------------------------------------------------------------------------
 # band counts past the gather kernels' one-group instantiations (PAUS's 40
 # narrow bands the largest), and those timed at the lite fit's shapes
-BAND_CHECKS = (9, 10, 12, 16, 40)
-BAND_TIMES = (5, 10, 16)
+BAND_CHECKS = (8, 9, 10, 12, 16, 40)
+BAND_TIMES = (5, 8, 10, 16, 40)
 BAND_REPS, BAND_GRAPH_CALLS = 10, 20
-# (B, K, (H, W), box): the lite fit's shapes (K4's direct route past 8
-# bands) and a small scene that keeps K4's staged route up to 40 bands
+# (B, K, (H, W), box): the lite fit's shapes (K4's tiled route from 8
+# bands) and a small scene (staged up to 8 bands, one tile past them)
 BAND_FIT_SHAPE = (128, 16, (58, 48), 59)
 BAND_STAGED_SHAPE = (32, 16, (24, 24), 21)
 # the 10-band het-like stream: generated (10, 58, 48) blends, the het
@@ -5727,6 +5737,16 @@ BAND_MR_BANDS, BAND_MR_B, BAND_MR_ITERS = (6, 4), 4, 10
 WIDE_BOXES = (81, 101)
 WIDE_SHAPE = (4, 8)
 WIDE_FIT_BOX, WIDE_FIT_BLENDS, WIDE_FIT_ITERS = 81, 32, 20
+# K4's tiled route at boxes past the lite scene: (B, K, C, (H, W), box) at
+# box 81 on an 80 x 80 scene and past 170 pixels (the boxes its earlier
+# design refused), 16, 4, 2 and 1 components (4, 4, 4 and 8 warps a
+# component)
+TILED_SHAPES = ((32, 16, 5, (80, 80), 81), (4, 4, 5, (170, 170), 171),
+                (2, 2, 5, (200, 200), 201), (2, 1, 5, (256, 256), 256))
+# the lite fit past box 170: testing.large_galaxy (3 bands, 180 x 180) and
+# a second source, one bucket forced to the cap max(H, W) + 1
+BIG_FIT_SCENE, BIG_FIT_BOX, BIG_FIT_ITERS = 180, 181, 10
+BIG_FIT_RTOL = 1e-4
 
 
 def band_inputs(B, K, C, H, W, box, dev, seed):
@@ -5752,10 +5772,10 @@ def band_inputs(B, K, C, H, W, box, dev, seed):
 
 def band_kernel_checks(dev, card):
     """(a) K3 and K4 against their plain versions at BAND_CHECKS, on the
-    lite fit's shapes and on the small staged scene: K3 and g_morph bit
-    for bit, g_sed within GRAD_SED_RTOL of sum |g * morph| and the same
-    bits in two launches, each on the unpadded gradient and padded by the
-    box; both K4 routes at every count.  Returns {C: results}."""
+    lite fit's shapes and on the small scene: K3 and g_morph bit for bit,
+    g_sed within GRAD_SED_RTOL of sum |g * morph| and the same bits in two
+    launches, each on the unpadded gradient and padded by the box; K4's
+    tiled route at every count.  Returns {C: results}."""
     import torch.nn.functional as F
     from scarlet_tpu_torch.ops import kernels as kn
 
@@ -5779,8 +5799,8 @@ def band_kernel_checks(dev, card):
                                  / scale.clamp_min(1e-30)).max())
                 again = kn.grad_gather(g, seds, m, origins, p)
                 same = bool((again[0] == gs).all() and (again[1] == gm).all())
-                route = "staged" if kn.grad_geometry(
-                    B, K, C, *g.shape[-2:], box, box).staged else "direct"
+                route = kn.grad_geometry(B, K, C, *g.shape[-2:], box,
+                                         box).route
                 routes.add(route)
                 r = dict(route=route, g_morph_err=float((gm - rm).abs().max()),
                          g_sed_rel_err=sed_err, repeat_bitwise=same)
@@ -5794,7 +5814,7 @@ def band_kernel_checks(dev, card):
                 raise AssertionError(f"scene_assembly at C={C} ({label}) "
                                      f"differs from its plain version by "
                                      f"{scene_err}")
-        if routes != {"staged", "direct"}:
+        if "tiled" not in routes:
             raise AssertionError(f"grad_gather at C={C} ran {routes} only")
         out[C] = res
         log(f"bands C={C}: scene_assembly bit for bit at "
@@ -5870,8 +5890,8 @@ def band_timings(dev, card):
                     grad, seds, m, origins, 0), BAND_REPS),
                 plain_ms=time_ms(lambda: kn.grad_gather_plain(
                     grad, seds, m, origins, 0), 3),
-                route="staged" if gg.staged else "direct", G=gg.G,
-                walks=-(-C // 8)))
+                route=gg.route, G=gg.G, tile_rows=gg.tile_rows,
+                walks=1 if gg.staged else -(-C // gg.band_group)))
         for name, r in out[C].items():
             log(f"bands C={C} {name} at B={B} K={K} {H}x{W} box={box}: "
                 f"{r['ms']:.4f} ms device (graph replays; "
@@ -5882,6 +5902,124 @@ def band_timings(dev, card):
                 + (f", {r['route']} route, G={r['G']}"
                    if name == "grad_gather" else "") + f" on {card}")
     return out
+
+
+def tiled_shape_checks(dev, card):
+    """(e) K4 at TILED_SHAPES: the strided gradient (pad 0, as the fit
+    calls it), contiguous and padded by box // 2 + 2, each g_morph bit for
+    bit with the plain version, g_sed within GRAD_SED_RTOL of sum |g *
+    morph| and two launches bitwise; the strided call's device ms (CUDA
+    events over graph replays), events around one call, plain ms, route
+    and bound.  Returns {shape: numbers}."""
+    import torch.nn.functional as F
+    from scarlet_tpu_torch.ops import kernels as kn
+
+    out = {}
+    for B, K, C, (H, W), box in TILED_SHAPES:
+        seds, m, origins, _, grad = band_inputs(B, K, C, H, W, box, dev,
+                                                box + C)
+        P = box // 2 + 2
+        calls = {}
+        for name, (g, p) in (("strided", (grad, 0)),
+                             ("contiguous", (grad.contiguous(), 0)),
+                             ("padded", (F.pad(grad, (P,) * 4), P))):
+            gs, gm = kn.grad_gather(g, seds, m, origins, p)
+            rs, rm = kn.grad_gather_plain(g, seds, m, origins, p)
+            scale = kn.grad_gather_plain(g.abs(), seds, m, origins, p)[0]
+            sed_err = float(((gs - rs).abs() / scale.clamp_min(1e-30)).max())
+            again = kn.grad_gather(g, seds, m, origins, p)
+            same = bool((again[0] == gs).all() and (again[1] == gm).all())
+            calls[name] = dict(
+                route=kn.grad_geometry(B, K, C, *g.shape[-2:], box,
+                                       box).route,
+                g_morph_err=float((gm - rm).abs().max()),
+                g_sed_rel_err=sed_err, repeat_bitwise=same)
+            if calls[name]["g_morph_err"] != 0.0 or sed_err > GRAD_SED_RTOL \
+                    or not same or calls[name]["route"] != "tiled":
+                raise AssertionError(f"grad_gather at {(B, K, C, H, W, box)}"
+                                     f" ({name}): {calls[name]}")
+            if name == "strided":
+                outs = (gs, gm)
+        geo = kn.grad_geometry(B, K, C, H, W, box, box)
+        r = dict(
+            **bound(nbytes(grad, seds, m, origins, *outs),
+                    4.0 * B * K * C * box * box),
+            ms=graph_ms(lambda: kn.grad_gather(grad, seds, m, origins, 0)),
+            event_ms=time_ms(lambda: kn.grad_gather(grad, seds, m, origins,
+                                                    0), BAND_REPS),
+            plain_ms=time_ms(lambda: kn.grad_gather_plain(
+                grad, seds, m, origins, 0), 3),
+            route=geo.route, G=geo.G, R=geo.R, tile_rows=geo.tile_rows,
+            band_group=geo.band_group, blocks_per_sm=geo.blocks_per_sm,
+            calls=calls)
+        key = f"B={B} K={K} C={C} {H}x{W} box={box}"
+        out[key] = r
+        log(f"tiled grad_gather at {key}: {r['ms']:.4f} ms device (graph "
+            f"replays; {r['event_ms']:.4f} ms events around one call), "
+            f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']} ({100 * r['bound_ms'] / r['ms']:.1f}% of the "
+            f"bound's speed), {geo.route} route, G={geo.G} R={geo.R} "
+            f"TR={geo.tile_rows} NB={geo.band_group} "
+            f"{geo.blocks_per_sm} block(s)/SM; "
+            + "; ".join(f"{n}: g_morph err {c['g_morph_err']:.3g}, g_sed "
+                        f"rel err {c['g_sed_rel_err']:.3g}, repeat bitwise "
+                        f"{c['repeat_bitwise']}" for n, c in calls.items())
+            + f" on {card}")
+    return out
+
+
+def big_box_fit(dev, card):
+    """(f) A lite fit past box 170: the large galaxy and a second source
+    (``testing.large_galaxy_engine``), one bucket of box BIG_FIT_BOX on
+    the card, BIG_FIT_ITERS iterations of the engine counted from zero.
+    K4 once an iteration (the tiled route), losses finite and improving,
+    and held to the CPU's at BIG_FIT_RTOL (``testing.fit_gaps``) with
+    every convolution in float64 on both, and with the card's
+    convolutions run on the CPU.  The gap of cuFFT's float32 fit to the
+    CPU's, and to the nearest CPU fit with its convolutions' results
+    times 1 -/+ 2^-24, is logged: this fit turns on one float32 rounding
+    of the model's scale (ROADMAP.md Queue 3, F4).  Returns (counts,
+    summary)."""
+    import torch
+    from scarlet_tpu_torch.lite import engine
+    from scarlet_tpu_torch.ops import kernels as kn
+    from scarlet_tpu_torch.testing import fit_gaps, large_galaxy_engine
+
+    config, data, state = large_galaxy_engine(dev, BIG_FIT_SCENE,
+                                              BIG_FIT_BOX)
+    kn.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, loss = engine.fit_scan(state, data, config, BIG_FIT_ITERS)
+    loss = loss.cpu().numpy()
+    ms = (time.perf_counter() - t0) * 1e3 / BIG_FIT_ITERS
+    counts = kn.launch_counts()
+    geo = kn.grad_geometry(1, config.bucket_counts[0], *config.scene_shape,
+                           BIG_FIT_BOX, BIG_FIT_BOX)
+    gaps = fit_gaps(dev, loss, BIG_FIT_ITERS, BIG_FIT_SCENE, BIG_FIT_BOX)
+    summary = dict(box=BIG_FIT_BOX, scene=config.scene_shape,
+                   components=config.bucket_counts[0], route=geo.route,
+                   ms_per_iteration=ms, first_loss=float(loss[0]),
+                   last_loss=float(loss[-1]), gaps=gaps)
+    log(f"lite fit at box {BIG_FIT_BOX} on {config.scene_shape}, "
+        f"{config.bucket_counts[0]} components, {BIG_FIT_ITERS} iterations: "
+        f"{ms:.3f} ms/iteration, K4 {counts['grad_gather']} launches "
+        f"({geo.route} route, R={geo.R}), loss {loss[0]:.6g} -> "
+        f"{loss[-1]:.6g}; gap to the CPU's fit {gaps['cpu']:.3g}, to the "
+        f"nearest of its fits one rounding of the model's scale apart "
+        f"{gaps['rounding']:.3g} (each {gaps['rounding_each']}); held: "
+        f"with the convolutions on the CPU {gaps['host_convolutions']:.3g}"
+        f", with float64 convolutions {gaps['exact']:.3g} (limit "
+        f"{BIG_FIT_RTOL}) on {card}")
+    if counts["grad_gather"] != BIG_FIT_ITERS or geo.route != "tiled":
+        raise AssertionError(f"the box {BIG_FIT_BOX} fit did not run K4's "
+                             f"tiled route once an iteration: {counts}")
+    if not (np.isfinite(loss).all() and loss[-1] > loss[0]):
+        raise AssertionError(f"the box {BIG_FIT_BOX} fit: {loss}")
+    if max(gaps["host_convolutions"], gaps["exact"]) > BIG_FIT_RTOL:
+        raise AssertionError(f"the box {BIG_FIT_BOX} fit parts from the "
+                             f"CPU's: {gaps}")
+    return counts, summary
 
 
 def band_stream(dev, card):
@@ -6210,7 +6348,8 @@ def bands_phase(dev, card):
     """Phase 17: (a) K3/K4 past 8 bands against their plain versions, (b)
     the 10-band stream and the 6 + 4-band multi-resolution fit, (c) K5 and
     K6 on wide boxes and their engine fits, (d) K3/K4 times at
-    BAND_TIMES.  Returns ({path: counts}, checks, summary)."""
+    BAND_TIMES, (e) K4 at TILED_SHAPES, (f) the lite fit at box
+    BIG_FIT_BOX.  Returns ({path: counts}, checks, summary)."""
     t0 = time.perf_counter()
     checks = dict(bands=band_kernel_checks(dev, card))
     stream_counts, stream_summary = band_stream(dev, card)
@@ -6218,12 +6357,15 @@ def bands_phase(dev, card):
     checks["wide"] = wide_chain_checks(dev, card)
     wide_counts, wide_summary = wide_fits(dev, card)
     times = band_timings(dev, card)
+    checks["tiled"] = tiled_shape_checks(dev, card)
+    big_counts, big_summary = big_box_fit(dev, card)
     summary = dict(stream=stream_summary, multires=mr_summary,
                    wide_fits=wide_summary, times=times,
+                   big_box_fit=big_summary,
                    wall_s=time.perf_counter() - t0)
     log(f"the bands and wide-box phase took {summary['wall_s']:.1f} s")
     return dict(stream=stream_counts, multires=mr_counts,
-                wide=wide_counts), checks, summary
+                wide=wide_counts, big_box_fit=big_counts), checks, summary
 
 
 def main():
@@ -6418,6 +6560,9 @@ def main():
         kres[name]["band_times"] = {
             C: t[name] for C, t in b17_summary["times"].items()}
     kres["grad_gather"]["band_checks"] = b17_checks["bands"]
+    kres["grad_gather"]["tiled_shapes"] = b17_checks["tiled"]
+    kres["grad_gather"]["launches_box_181_fit"] = \
+        int(b17_counts["big_box_fit"]["grad_gather"])
     # the wide engine: each kernel's checks and times at the wide boxes,
     # and its launches over the box-81 fit of its configuration
     for name, key, cfg in (("monotonic_prox", "monotonic_prox_wide",

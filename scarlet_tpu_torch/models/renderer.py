@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from ..bbox import Box, overlapped_slices
 from ..lite.engine import pin_float32
 from ..ops import fft as fft_ops
+from ..ops import interpolation
 from .model import Model
 from .parameter import Parameter
 
@@ -191,6 +192,19 @@ class ConvolutionRenderer(Renderer):
             self.diff_kernel.image, self._fft_shape, (-2, -1)).to(
                 self.device, complex_dtype(dtype))
         self._kernel = self.diff_kernel.image.to(self.device, dtype)
+
+    @property
+    def convolution_bounds(self):
+        """Filter clip bounds of the difference kernel's first channel (API
+        parity; no convolution path reads them): the float64 host kernel
+        through ``interpolation.get_filter_coords`` and
+        ``get_filter_bounds``."""
+        if not hasattr(self, "_convolution_bounds"):
+            coords = interpolation.get_filter_coords(
+                self.diff_kernel.image[0].cpu().numpy())
+            self._convolution_bounds = interpolation.get_filter_bounds(
+                coords.reshape(-1, 2))
+        return self._convolution_bounds
 
     def convolve(self, model, convolution_type=None, psf_shift=None):
         """Convolve the (channel-mapped) model with the difference kernel.

@@ -125,12 +125,12 @@ def load():
     lib.scarlet_wide_kernel_info.argtypes = [i] * 6 + [p]
     # the gather kernels end with the geometry of kernels.scene_geometry
     # (XV, TX, TY, bands, tiles, threads, smem) and grad_geometry (staged,
-    # G, groups, smem)
+    # G, groups, smem, R, tile rows, band group)
     lib.scarlet_scene_assembly.argtypes = [p] * 5 + [i] * 7 + [i] * 7 + [p]
     lib.scarlet_scene_kernel_info.argtypes = [i, i, i, i, p]
     lib.scarlet_grad_gather.argtypes = [p] * 6 + [i] * 8 + [ll] * 3 + \
-        [i] * 4 + [p]
-    lib.scarlet_grad_kernel_info.argtypes = [i, i, i, p]
+        [i] * 7 + [p]
+    lib.scarlet_grad_kernel_info.argtypes = [i, i, i, i, p]
     lib.scarlet_mono_pass_variant.argtypes = [p, p, p, p, i, i, i, i, i, i,
                                               f, p]
     lib.scarlet_mono_pass_variant_smem_bytes.argtypes = [i, i, i]

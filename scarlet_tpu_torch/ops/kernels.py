@@ -1226,7 +1226,10 @@ def grad_gather_plain(grad, seds, morphs, origins, pad):
 
 
 GRAD_THREADS = 256        # threads of a gradient-gather block
-GRAD_BLOCKS_PER_SM = 4    # its register budget: 64 a thread
+GRAD_BLOCKS_PER_SM = 4    # the staged route's register budget: 64 a thread
+GRAD_STAGED_BANDS = 8     # the staged route's largest band count
+GRAD_TILE_BANDS = 64      # the tiled route's largest band group
+GRAD_TILE_ROWS = 16       # the tiled route's largest row tile
 SM_COUNT = 132            # SMs of an H100 SXM
 SM_SMEM = 233472          # shared bytes of an SM (228 KB)
 BLOCK_SMEM_RESERVED = 1024  # shared bytes the card keeps for each block
@@ -1235,67 +1238,149 @@ BLOCK_SMEM_RESERVED = 1024  # shared bytes the card keeps for each block
 class GradGeometry(NamedTuple):
     """How the gradient-gather kernel covers a batch (csrc/grad.cu):
     block (b, group) takes blend b and components ``group * G`` to
-    ``group * G + G - 1`` (those below K); row ``y`` of component ``k``
-    falls to warp ``(k * hb + y) % (threads // 32)`` (whatever G is),
-    whose lane ``l`` takes columns ``l, l + 32, ...`` of it, all C bands
-    (more than 8 in groups of 8, one walk of the window per group)."""
-    staged: bool      # the blend's gradient staged in shared memory
+    ``group * G + G - 1`` (those below K).
+
+    Staged route (``staged``): the blend's whole gradient in shared
+    memory; row ``y`` of component ``k`` falls to warp ``(k * hb + y) %
+    (threads // 32)`` (whatever G is), whose lane ``l`` takes columns ``l,
+    l + 32, ...`` of it, all C bands.
+
+    Tiled route: the gradient rows that the group's windows cover, in
+    tiles of ``tile_rows`` rows and ``band_group`` bands, streamed through
+    two shared buffers with the morphology rows of each tile; warp ``w``
+    walks component ``group * G + w // R`` and its window rows ``y`` with
+    ``y % R == w % R`` (G = warps / R; R and G follow K and the box
+    width alone), lane ``l`` columns ``l, l + 32, ...``, each window once
+    per band group."""
+    staged: bool      # the blend's gradient staged whole in shared memory
     G: int            # components per block
     groups: int       # blocks per blend
     blocks: int
     threads: int
-    smem: int         # bytes: g_sed sums, two morphologies (+ the gradient)
+    smem: int         # bytes: g_sed sums, origins, morphology and gradient
     blocks_per_sm: int  # what the shared memory and registers allow
+    R: int = 0          # tiled: warps per component
+    tile_rows: int = 0  # tiled: gradient rows per tile
+    band_group: int = 0  # tiled: bands per walk of a window
+
+    @property
+    def route(self):
+        return "staged" if self.staged else "tiled"
 
 
-def _grad_smem(G, C, H, W, hb, wb, staged):
-    """Dynamic shared bytes of a gradient-gather block (csrc/grad.cu), in
-    parts of whole 16 bytes: the (G, C, warps) g_sed sums, the group's
-    seds and origins, two morphology buffers (each up to 3 floats in, at
-    its alignment within 16 bytes) and, staged, the gradient plane
-    (likewise shifted)."""
-    def quads(n):
-        return -(-n // 4) * 4
+def _quads(n):
+    return -(-n // 4) * 4
 
+
+def _grad_smem(G, C, H, W, hb, wb):
+    """Dynamic shared bytes of a staged gradient-gather block
+    (csrc/grad.cu ``grad_kernel_staged``), in parts of whole 16 bytes: the
+    (G, C, warps) g_sed sums, the group's seds and origins, two morphology
+    buffers (each up to 3 floats in, at its alignment within 16 bytes)
+    and the gradient plane (likewise shifted)."""
     mstride = (hb * wb + 6) // 4 * 4
-    return 4 * (quads(G * C * (GRAD_THREADS // 32)) + quads(G * C)
-                + quads(2 * G) + 2 * mstride
-                + (C * H * W + 3 if staged else 0))
+    return 4 * (_quads(G * C * (GRAD_THREADS // 32)) + _quads(G * C)
+                + _quads(2 * G) + 2 * mstride + C * H * W + 3)
+
+
+def _tile_smem(G, NB, TR, W, wb):
+    """Dynamic shared bytes of a tiled gradient-gather block (csrc/grad.cu
+    ``grad_kernel_tiled``), in parts of whole 16 bytes: the two buffers'
+    mbarriers, the (warps, NB) g_sed sums, the group's origins, two
+    gradient tiles of NB bands x TR rows, each row a slot of ``W + 3``
+    floats rounded up to 16 bytes (the row at its alignment offset), and
+    two sets of G morphology spans of TR rows (likewise shifted)."""
+    return 4 * (4 + _quads(GRAD_THREADS // 32 * NB) + _quads(2 * G)
+                + 2 * NB * TR * _quads(W + 3) + 2 * G * _quads(TR * wb + 3))
+
+
+def _tile_bands(C, nb):
+    """The tiled route's instantiation for C bands in groups of nb: its
+    registers hold kC seds and kC partials a thread, kC exact up to 16
+    bands, then in steps of 8 (csrc/grad.cu ``tile_bands``); where a
+    group does not fill it (kC > nb, or nb does not divide C) the guarded
+    instantiation of at least 16 bands runs (``dispatch``)."""
+    kC = nb if nb <= 16 else -(-nb // 8) * 8
+    return kC if kC == nb and C % nb == 0 else max(kC, 16)
+
+
+def _tile_blocks_per_sm(kC):
+    """The blocks an SM holds of the tiled instantiation kC, as its
+    ``__launch_bounds__`` sets the register budget (``tile_min_blocks``)."""
+    return 3 if kC <= 12 else 2 if kC <= 40 else 1
+
+
+def _warps_per_component(K, wb):
+    """R of the tiled route: the block's 8 warps over G = 8 / R
+    components, more warps per window where a blend has few, and four at
+    least where a row is longer than a lane's two pixels (64): at box 81
+    (32 blends of 16 components, 5 bands) R = 1, 2, 4 and 8 took 0.0409,
+    0.0252, 0.0220 and 0.0324 ms on an H100 (tools/gather_ab.py)."""
+    R = 8 if K <= 1 else 4 if K == 2 else 2 if K <= 4 else 1
+    return max(R, 4) if wb > 64 else R
 
 
 @functools.lru_cache(maxsize=256)
-def grad_geometry(B, K, C, H, W, hb, wb):
+def grad_geometry(B, K, C, H, W, hb, wb, route=None, R=None):
     """The launch geometry of the gradient-gather kernel for B blends of
     K (hb, wb) components on (C, H, W) gradients (padding included).
+    ``route`` ("staged" or "tiled") and ``R`` (1, 2, 4 or 8) override the
+    shape's choice, for A/B timing (``tools.gather_ab``); a staged route
+    that does not fit raises ValueError.
 
-    The route is the shape's: the staged route where two blocks, each
-    with the gradient, two morphologies and one component's sums, fit an
-    SM's shared memory (a block alone on an SM waits out its whole staging
-    copy: slower than the direct route on an H100), else the direct
-    route, which reads the gradient through the L1 cache.  The group G is
-    the fewest components per block that fills every SM with the most
-    blocks it holds (up to ``GRAD_BLOCKS_PER_SM``) in one wave.  Raises
-    ValueError where one component's block does not fit a block's shared
-    memory.  More bands mean more g_sed sums and a larger staged
-    gradient, so the staged route drops out as C grows."""
-    staged = 2 * (_grad_smem(1, C, H, W, hb, wb, True)
-                  + BLOCK_SMEM_RESERVED) <= SM_SMEM
-    cap = max(1, K)
-    for bps in range(GRAD_BLOCKS_PER_SM, 0, -1):
-        G = min(cap, max(1, -(-B * K // (SM_COUNT * bps))))
-        while G > 1 and _grad_smem(G, C, H, W, hb, wb, staged) \
-                > SMEM_LIMIT:
-            G -= 1
-        smem = _grad_smem(G, C, H, W, hb, wb, staged)
-        if bps == 1 or bps * (smem + BLOCK_SMEM_RESERVED) <= SM_SMEM:
-            break
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"grad_gather: one ({hb}, {wb}) component of {C} "
-                         f"bands needs {smem} B of shared memory (at most "
-                         f"{SMEM_LIMIT})")
+    The route is the shape's: the staged route where C is at most
+    ``GRAD_STAGED_BANDS`` and two blocks, each with the gradient, two
+    morphologies and one component's sums, fit an SM's shared memory
+    (a block alone on an SM waits out its whole staging copy), else the
+    tiled route.
+
+    Staged: G is the fewest components per block that fills every SM with
+    the most blocks it holds (up to ``GRAD_BLOCKS_PER_SM``) in one wave.
+    Tiled: R and G follow K and the box alone (so a blend's sums do not
+    depend on the batch); the band group is every band up to
+    ``GRAD_TILE_BANDS``; the tile is the most rows (up to
+    ``GRAD_TILE_ROWS``) with which the blocks
+    an SM needs for one wave (at most what the registers allow) fit its
+    shared memory, at least ``max(4, R)`` rows where the scene has them,
+    fewer blocks an SM if not.  Only where one row of one band of the
+    gradient does not fit a block twice beside the morphology rows does
+    it raise ValueError naming the bytes."""
+    fits = C <= GRAD_STAGED_BANDS and 2 * (
+        _grad_smem(1, C, H, W, hb, wb) + BLOCK_SMEM_RESERVED) <= SM_SMEM
+    if route == "staged" and not fits:
+        raise ValueError(f"grad_gather: the staged route does not take "
+                         f"{(C, H, W)} gradients")
+    if fits and route != "tiled":
+        cap = max(1, K)
+        for bps in range(GRAD_BLOCKS_PER_SM, 0, -1):
+            G = min(cap, max(1, -(-B * K // (SM_COUNT * bps))))
+            while G > 1 and _grad_smem(G, C, H, W, hb, wb) > SMEM_LIMIT:
+                G -= 1
+            smem = _grad_smem(G, C, H, W, hb, wb)
+            if bps == 1 or bps * (smem + BLOCK_SMEM_RESERVED) <= SM_SMEM:
+                break
+        groups = -(-K // G) if K else 0
+        return GradGeometry(True, G, groups, B * groups, GRAD_THREADS, smem,
+                            bps)
+    R = R or _warps_per_component(K, wb)
+    G = GRAD_THREADS // 32 // R
     groups = -(-K // G) if K else 0
-    return GradGeometry(staged, G, groups, B * groups, GRAD_THREADS, smem,
-                        bps)
+    rows = max(1, min(GRAD_TILE_ROWS, H))
+    for NB in range(min(C, GRAD_TILE_BANDS), 0, -1):
+        reg = _tile_blocks_per_sm(_tile_bands(C, NB))
+        want = min(reg, max(1, -(-B * groups // SM_COUNT)))
+        for bps in range(want, 0, -1):
+            budget = min(SMEM_LIMIT, SM_SMEM // bps - BLOCK_SMEM_RESERVED)
+            TR = max((t for t in range(1, rows + 1)
+                      if _tile_smem(G, NB, t, W, wb) <= budget), default=0)
+            if TR >= min(rows, max(4, R)) or (bps == 1 and TR):
+                return GradGeometry(False, G, groups, B * groups,
+                                    GRAD_THREADS, _tile_smem(G, NB, TR, W, wb),
+                                    bps, R, TR, NB)
+    smem = _tile_smem(G, 1, 1, W, wb)
+    raise ValueError(f"grad_gather: one row of one band of a {W} px wide "
+                     f"gradient, with {G} ({hb}, {wb}) components, needs "
+                     f"{smem} B of shared memory (at most {SMEM_LIMIT})")
 
 
 def grad_gather(grad, seds, morphs, origins, pad):
@@ -1308,8 +1393,8 @@ def grad_gather(grad, seds, morphs, origins, pad):
     hb, wb) float32; origins (..., K, 2) integer.  Returns ((..., K, C),
     (..., K, hb, wb)).  g_morph equals the plain version bit for bit;
     g_sed to float32 roundoff of its hb*wb-term sum (reduction order), the
-    same bits from run to run.  The route (:func:`grad_geometry`) follows
-    the gradient's shape.
+    same bits from run to run and in any batch.  The route
+    (:func:`grad_geometry`) follows the shapes.
     """
     if _is_cpu(grad, seds, morphs, origins):
         return grad_gather_plain(grad, seds, morphs, origins, pad)
@@ -1351,7 +1436,8 @@ def grad_gather(grad, seds, morphs, origins, pad):
             g4.data_ptr(), seds.data_ptr(), morphs.data_ptr(),
             org.data_ptr(), g_seds.data_ptr(), g_morphs.data_ptr(), B, K, C,
             hb, wb, Hp, Wp, int(pad), *g4.stride()[:3], int(geo.staged),
-            geo.G, geo.groups, geo.smem, _stream(grad))
+            geo.G, geo.groups, geo.smem, geo.R, geo.tile_rows,
+            geo.band_group, _stream(grad))
     _check(name, err)
     grad_gather.launches += 1
     return g_seds, g_morphs
@@ -1379,9 +1465,9 @@ def gather_kernel_info(B, K, C, H, W, hb, wb):
              dict(grid=(B, sg.bands, sg.tiles), XV=sg.XV, TX=sg.TX,
                   TY=sg.TY)),
             ("grad_gather", lambda v: lib.scarlet_grad_kernel_info(
-                int(gg.staged), C, gg.smem, v), gg,
-             dict(grid=(B, gg.groups), G=gg.G,
-                  route="staged" if gg.staged else "direct"))):
+                int(gg.staged), C, gg.band_group, gg.smem, v), gg,
+             dict(grid=(B, gg.groups), G=gg.G, route=gg.route, R=gg.R,
+                  tile_rows=gg.tile_rows, band_group=gg.band_group))):
         vals = (ctypes.c_int * 3)()
         _check(name, err(vals))
         out[name] = dict(registers=vals[0], spill_bytes=vals[1],

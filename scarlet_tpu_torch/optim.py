@@ -146,10 +146,13 @@ def phi_psi(scheme, it, g, state, b1=0.9, b2=0.999, eps=1e-8, p=0.25):
 
 def adaprox_step(x, g, it, state, step, prox=None, scheme="amsgrad",
                  b1=0.9, b2=0.999, eps=1e-8, p=0.25, max_prox_iter=1,
-                 active=None, param_dims=None):
+                 prox_e_rel=1e-6, active=None, param_dims=None):
     """One proximal-Adam parameter update (lite/parameters.py:274-305):
     moment update, ``x -= step*phi/psi`` (damped 10x at ``it == 0``), then
     PGM sub-iterations of ``prox`` with step ``gamma = step / max(psi)``.
+
+    ``prox_e_rel`` is accepted and unused, as in the JAX package: the
+    sub-iterations run ``max_prox_iter`` times without a tolerance test.
 
     ``param_dims``: the trailing dims of one parameter in a stacked batch
     (``max(psi)`` is taken per parameter over them; None = all dims).

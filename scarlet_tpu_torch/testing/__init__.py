@@ -19,7 +19,13 @@ from .blendsets import (  # noqa: F401
     generate_real_blend_set,
 )
 from .multires import blob_centers, make_pair  # noqa: F401
-from .galaxy import large_galaxy, large_galaxy_fit  # noqa: F401
+from .galaxy import (  # noqa: F401
+    convolution_probe,
+    fit_gaps,
+    large_galaxy,
+    large_galaxy_engine,
+    large_galaxy_fit,
+)
 from .deblend import deblend  # noqa: F401
 from .measure import measurements, mag_diff  # noqa: F401
 from .store import save_records, load_records, save_residuals  # noqa: F401

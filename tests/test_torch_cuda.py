@@ -382,8 +382,8 @@ def _gradient(B, C, H, W, layout, device, seed=3):
 
 
 # (box, C, K, scene): boxes 21-69 and a non-square one, C 1-8, K 1-40, the
-# fit's 58 x 48 scene (K4's staged route) and 160 x 160 (above the staging
-# budget at C > 1: the direct route)
+# fit's 58 x 48 scene (K4's staged route up to 7 bands) and 160 x 160
+# (above the staging budget at C > 1: the tiled route)
 SCENE_GRAD_CASES = [
     (21, 5, 16, (58, 48)), (41, 5, 16, (58, 48)), (59, 5, 16, (58, 48)),
     (69, 5, 16, (58, 48)), (59, 1, 16, (58, 48)), (59, 8, 16, (58, 48)),
@@ -425,10 +425,9 @@ def test_scene_and_grad_match_plain(cuda, box, C, K, scene, layout):
         assert torch.equal(again[0], gs) and torch.equal(again[1], gm)
 
 
-# (box, C, K, scene): more than 8 bands (the kernels' grouped
-# instantiations), on the fit's 58 x 48 scene (K4's direct route) and on
-# scenes small enough for K4's staged route at pad 0 (40 x 40 at C = 12
-# and 16, 24 x 24 at C = 40); padded by P, every case is direct
+# (box, C, K, scene): more than 8 bands (K3's grouped instantiation, K4's
+# tiled route), on the fit's 58 x 48 scene and on small scenes (40 x 40 at
+# C = 12 and 16, 24 x 24 at C = 40, one tile each), unpadded and padded
 MANY_BAND_CASES = [
     (59, 9, 16, (58, 48)), (59, 10, 16, (58, 48)), (21, 12, 16, (40, 40)),
     (21, 16, 16, (40, 40)), (21, 40, 16, (24, 24))]
@@ -439,8 +438,8 @@ MANY_BAND_CASES = [
 def test_scene_and_grad_match_plain_at_many_bands(cuda, box, C, K, scene):
     """K3 and K4 past 8 bands, one launch per call: K3 and g_morph bit for
     bit, g_sed within 1e-5 of sum |g * morph| and the same bits in two
-    launches, on the unpadded (strided) gradient and padded by P; the
-    small scenes take K4's staged route at pad 0."""
+    launches, on the unpadded (strided) gradient and padded by P; past 8
+    bands K4 takes its tiled route at every shape."""
     H, W = scene
     P = box + 2
     B = 4
@@ -465,19 +464,71 @@ def test_scene_and_grad_match_plain_at_many_bands(cuda, box, C, K, scene):
         assert bool(((gs - rs).abs() <= 1e-5 * scale).all())
         again = kn.grad_gather(g, seds, morphs, origins, p)
         assert torch.equal(again[0], gs) and torch.equal(again[1], gm)
-    assert routes == [H * W < 58 * 48, False]
+    assert routes == [False, False]
+
+
+# (box, C, K, scene, B): K4's tiled route at the lite fit's scene past 7
+# bands (PAUS's 40 the most; 16 components, one warp a component, and 4,
+# two warps), 5 bands at boxes 81 and 101 on scenes of their size, boxes
+# past 170 (one, two and four components: 8, 4 and 4 warps a component),
+# and band groups that do not fill their instantiation (20 bands; 70 in a
+# group of 64 and one of 6)
+TILED_CASES = [
+    (59, 8, 16, (58, 48), 4), (59, 9, 16, (58, 48), 4),
+    (59, 10, 16, (58, 48), 4), (59, 16, 16, (58, 48), 4),
+    (59, 10, 4, (58, 48), 4),
+    (59, 40, 16, (58, 48), 4), (81, 5, 16, (80, 80), 4),
+    (101, 5, 16, (100, 100), 2), (171, 5, 4, (170, 170), 2),
+    (201, 5, 2, (200, 200), 2), (256, 5, 1, (256, 256), 2),
+    (21, 20, 8, (40, 40), 2), (21, 70, 5, (24, 24), 2)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("C", [5, 10])
+@pytest.mark.parametrize("box,C,K,scene,B", TILED_CASES, ids=str)
+def test_tiled_route_matches_plain(cuda, box, C, K, scene, B):
+    """K4's tiled route on the strided gradient (pad 0, as the fit calls
+    it), contiguous, and padded by P, its boxes overhanging every edge
+    (negative origins) and one wholly off the scene: one launch a call,
+    g_morph bit for bit, g_sed within 1e-5 of sum |g * morph|, two
+    launches the same bits."""
+    H, W = scene
+    P = box // 2 + 2
+    seds, morphs, origins, _ = (x.to(cuda) for x in _bucket(
+        B, K, C, H, W, box, box, P, seed=box + C + K))
+    grad = _gradient(B, C, H, W, "strided", cuda)
+    for g, p in ((grad, 0), (grad.contiguous(), 0),
+                 (F.pad(grad, (P, P, P, P)), P)):
+        assert kn.grad_geometry(B, K, C, *g.shape[-2:], box,
+                                box).route == "tiled"
+        before = kn.grad_gather.launches
+        gs, gm = kn.grad_gather(g, seds, morphs, origins, p)
+        assert kn.grad_gather.launches == before + 1
+        rs, rm = kn.grad_gather_plain(g, seds, morphs, origins, p)
+        assert torch.equal(gm, rm)
+        scale = kn.grad_gather_plain(g.abs(), seds, morphs, origins, p)[0]
+        assert bool(((gs - rs).abs() <= 1e-5 * scale).all())
+        again = kn.grad_gather(g, seds, morphs, origins, p)
+        assert torch.equal(again[0], gs) and torch.equal(again[1], gm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [5, 10, 16])
 def test_grad_gather_does_not_depend_on_the_batch(cuda, C):
     """A blend's g_sed and g_morph are the same bits alone and inside a
-    larger batch, though the batch size sets the components per block
-    (G): the warp that sums a window row follows the component's index,
-    not its place in the block."""
+    larger batch, though the batch size sets the launch: on the staged
+    route (5 bands) the components per block (G), whose warp map follows
+    the component's index, not its place in the block; on the tiled route
+    (10, 16) the tile rows and blocks an SM, while each warp keeps one
+    component's sums in its registers across the tiles."""
     B, K = 128, 16
-    assert kn.grad_geometry(B, K, C, 58, 48, BOX, BOX).G != \
-        kn.grad_geometry(B // 4, K, C, 58, 48, BOX, BOX).G
+    whole_geo = kn.grad_geometry(B, K, C, 58, 48, BOX, BOX)
+    part_geo = kn.grad_geometry(B // 4, K, C, 58, 48, BOX, BOX)
+    assert whole_geo.route == ("staged" if C <= 7 else "tiled")
+    if whole_geo.staged:
+        assert whole_geo.G != part_geo.G
+    else:
+        assert (whole_geo.tile_rows, whole_geo.blocks_per_sm) != \
+            (part_geo.tile_rows, part_geo.blocks_per_sm)
     seds, morphs, origins, _ = (x.to(cuda) for x in _bucket(B, K, C))
     grad = _gradient(B, C, 58, 48, "strided", cuda)
     whole = kn.grad_gather(grad, seds, morphs, origins, 0)
@@ -489,9 +540,11 @@ def test_grad_gather_does_not_depend_on_the_batch(cuda, C):
 
 @pytest.mark.cuda
 def test_gather_kernels_raise_past_shared_memory(cuda):
-    """What is left of a limit: K3's origins and seds, and K4's two
-    morphology buffers, must fit a block's shared memory; past it each
-    wrapper raises ValueError naming the bytes, before any launch."""
+    """What is left of a limit: K3's origins and seds must fit a block's
+    shared memory, and K4 one row of one band of the gradient, twice, with
+    a row of each window; past it each wrapper raises ValueError naming
+    the bytes, before any launch.  K4 takes box 171 (the limit of its
+    earlier design) and matches its plain version."""
     kn.reset_launch_counts()
     C = 30000
     seds = torch.ones(1, 2, C, device=cuda)
@@ -500,13 +553,23 @@ def test_gather_kernels_raise_past_shared_memory(cuda):
     on = torch.ones(1, 2, dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError, match="B of shared memory"):
         kn.scene_assembly(seds, morphs, origins, on, (C, 4, 4), 3)
-    big = torch.ones(1, 1, 171, 171, device=cuda)
     with pytest.raises(ValueError, match="B of shared memory"):
-        kn.grad_gather(torch.ones(1, 1, 8, 8, device=cuda),
-                       torch.ones(1, 1, 1, device=cuda), big,
+        kn.grad_gather(torch.ones(1, 1, 1, 30000, device=cuda),
+                       torch.ones(1, 1, 1, device=cuda),
+                       torch.ones(1, 1, 1, 1, device=cuda),
                        origins[:, :1], 0)
     counts = kn.launch_counts()
     assert counts["scene_assembly"] == counts["grad_gather"] == 0
+    big = torch.rand(1, 1, 171, 171, device=cuda)
+    grad = torch.randn(1, 1, 8, 8, device=cuda)
+    sed = torch.ones(1, 1, 1, device=cuda)
+    org = torch.full((1, 1, 2), -80, dtype=torch.int32, device=cuda)
+    gs, gm = kn.grad_gather(grad, sed, big, org, 0)
+    rs, rm = kn.grad_gather_plain(grad, sed, big, org, 0)
+    assert torch.equal(gm, rm)
+    assert bool(((gs - rs).abs() <= 1e-5 * kn.grad_gather_plain(
+        grad.abs(), sed, big, org, 0)[0]).all())
+    assert kn.launch_counts()["grad_gather"] == 1
 
 
 @pytest.mark.cuda
@@ -804,6 +867,35 @@ def test_object_tree_box_grows_past_73_on_card(cuda):
     cpu, cpu_boxes = large_galaxy_fit("cpu")
     assert boxes == cpu_boxes and max(boxes[-1]) > 73
     np.testing.assert_allclose(card.loss, cpu.loss, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_lite_fit_at_box_181_on_card(cuda):
+    """A lite fit past box 170 on the card: the large galaxy (3 bands,
+    180 x 180) and a second source, the port's own init, one bucket forced
+    to box 181 (the cap max(H, W) + 1), 10 iterations through the engine.
+    K4 runs its tiled route once an iteration; the losses are finite,
+    improve, and are held to the CPU's at rtol 1e-4
+    (``testing.fit_gaps``) with every convolution in float64 on both
+    devices, and with the card's convolutions run on the CPU.  cuFFT's
+    float32 fit is not held to the CPU's: the first SED gradient of this
+    fit cancels to ~3e-6 of its terms, so one float32 rounding of the
+    model's scale turns its sign and the fit's path (ROADMAP.md Queue 3,
+    F4; tests/test_torch_parity.py)."""
+    from scarlet_tpu_torch.testing import fit_gaps, large_galaxy_engine
+
+    config, data, state = large_galaxy_engine(cuda)
+    assert config.box_shapes == ((181, 181),)
+    assert kn.grad_geometry(1, config.bucket_counts[0], *config.scene_shape,
+                            181, 181).route == "tiled"
+    kn.reset_launch_counts()
+    _, loss = engine.fit_scan(state, data, config, 10)
+    assert kn.launch_counts()["grad_gather"] == 10
+    loss = loss.cpu().numpy()
+    assert np.isfinite(loss).all() and loss[-1] > loss[0]
+    gaps = fit_gaps(cuda, loss)
+    assert gaps["host_convolutions"] <= 1e-4 and gaps["exact"] <= 1e-4, \
+        gaps
 
 
 @pytest.mark.cuda
