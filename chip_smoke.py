@@ -238,7 +238,11 @@ Run from the repository root, with one CUDA card:
    fit's shapes (128 blends x 16 components, box 59, 58 x 48: K4's tiled
    route) and on a 24 x 24 scene (box 21: staged at 8 bands), each on the
    unpadded gradient and padded by the box: K3 and g_morph bit for bit,
-   g_sed to GRAD_SED_RTOL, two launches bitwise; (b) the device stream
+   g_sed to GRAD_SED_RTOL, two launches bitwise; K3 alone bit for bit at
+   C = 1-10, 12, 16 and 40 (SCENE_CHECK_BANDS) on the lite fit's shapes
+   and at 5 and 12 on TILED_SHAPES' boxes, on contiguous and strided
+   morphologies, by the shape's walk and, up to 8 bands, by the staged
+   walk forced; (b) the device stream
    on 64 generated (10, 58, 48) blends at the het cell's settings
    (counted from zero; records finite and 10 bands wide, logL improving),
    4 of them on the card and the CPU (init decisions equal, logL within
@@ -254,9 +258,10 @@ Run from the repository root, with one CUDA card:
    fitted 20 iterations by default, with ``packed_prox_chain`` (logL bit
    for bit with the default) and with ``fuse_morph`` (within the fused
    configurations' tolerances), each counted from zero; (d) K3 and K4 at
-   C = 5, 8, 10, 16 and 40 on the lite fit's shapes: device ms (CUDA
+   C = 3, 5, 8, 10, 16 and 40 on the lite fit's shapes: device ms (CUDA
    events over replays of a CUDA graph of 20 calls) and CUDA events around
-   one call (medians of 10) beside the bytes bound; (e) K4 at box 81 (32
+   one call (medians of 10) beside the bytes bound, K3's walk, band
+   groups, registers and spill; (e) K4 at box 81 (32
    x 16 on 80 x 80, 5 bands) and at boxes 171, 201 and 256 on scenes of
    their size (TILED_SHAPES): strided, contiguous and padded gradients
    bit for bit in g_morph, g_sed to GRAD_SED_RTOL, two launches bitwise,
@@ -752,7 +757,10 @@ def log_gather_info(B, K, C, H, W, hb, wb, P, card):
             if name == "scene_assembly" and pad:
                 continue
             route = f", {i['route']} route, G={i['G']}" \
-                if "route" in i else f", XV={i['XV']}"
+                if name == "grad_gather" else (
+                    f", {i['route']} walk, XV={i['XV']}, {i['NG']} band "
+                    f"group(s) of {i['CG']} at most, {i['GT']} at once, "
+                    f"{i['walks']} walk(s)")
             log(f"{name} at B={B} K={K} C={C} {hw[0]}x{hw[1]} (pad {pad})"
                 f"{route}: grid {tuple(i['grid'])}, {i['threads']} threads,"
                 f" {i['registers']} registers, {i['spill_bytes']} B local "
@@ -5716,7 +5724,9 @@ def options_phase(dev, card, setup, het):
 # band counts past the gather kernels' one-group instantiations (PAUS's 40
 # narrow bands the largest), and those timed at the lite fit's shapes
 BAND_CHECKS = (8, 9, 10, 12, 16, 40)
-BAND_TIMES = (5, 8, 10, 16, 40)
+BAND_TIMES = (3, 5, 8, 10, 16, 40)
+# K3 alone, both walks, contiguous and strided morphologies
+SCENE_CHECK_BANDS = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 12, 16, 40)
 BAND_REPS, BAND_GRAPH_CALLS = 10, 20
 # (B, K, (H, W), box): the lite fit's shapes (K4's tiled route from 8
 # bands) and a small scene (staged up to 8 bands, one tile past them)
@@ -5828,6 +5838,61 @@ def band_kernel_checks(dev, card):
     return out
 
 
+def scene_walk_checks(dev, card):
+    """(a) K3 bit for bit against its plain version at SCENE_CHECK_BANDS
+    on the lite fit's shapes, on contiguous and strided morphologies (a
+    crop of a larger array), the shape's walk and, up to 8 bands, the
+    staged walk forced; and at TILED_SHAPES' boxes at 5 and 12 bands.
+    Returns {label: {walk, max_abs_err}}."""
+    import functools
+
+    from scarlet_tpu_torch.ops import kernels as kn
+
+    out = {}
+    B, K, (H, W), box = BAND_FIT_SHAPE
+    cases = [(B, K, C, (H, W), box) for C in SCENE_CHECK_BANDS] + [
+        (b, k, C, hw, bx) for b, k, _, hw, bx in TILED_SHAPES
+        for C in (5, 12)]
+    real = kn.scene_geometry
+    for B, K, C, (H, W), box in cases:
+        seds, m, origins, on, _ = band_inputs(B, K, C, H, W, box, dev,
+                                              7 * C + box)
+        big = m.new_zeros(B, K + 1, box + 2, box + 3)
+        big[:, 1:, 1:1 + box, 2:2 + box] = m
+        strided = big[:, 1:, 1:1 + box, 2:2 + box]
+        ref = kn.scene_assembly_plain(seds, m, origins, on, (C, H, W), box)
+        walks = [None] + (["staged"] if C <= kn.SCENE_BANDS else [])
+        for walk in walks:
+            try:
+                if walk:
+                    kn.scene_geometry = functools.partial(real, route=walk)
+                for layout, mm in (("contiguous", m), ("strided", strided)):
+                    got = kn.scene_assembly(seds, mm, origins, on, (C, H, W),
+                                            box)
+                    err = float((got - ref).abs().max())
+                    label = (f"B={B} K={K} C={C} {H}x{W} box={box} {layout}"
+                             + (f" {walk} forced" if walk else ""))
+                    out[label] = dict(walk=kn.scene_geometry(
+                        B, K, C, H, W).route, max_abs_err=err)
+                    if not torch_equal(got, ref):
+                        raise AssertionError(f"scene_assembly at {label} "
+                                             f"differs by {err}")
+            finally:
+                kn.scene_geometry = real
+    log(f"scene_assembly bit for bit at {len(out)} checks (C = "
+        f"{', '.join(map(str, SCENE_CHECK_BANDS))} at {BAND_FIT_SHAPE}, "
+        f"boxes {', '.join(str(s[-1]) for s in TILED_SHAPES)} at C = 5, 12;"
+        f" contiguous and strided morphologies; staged walk forced up to 8 "
+        f"bands) on {card}")
+    return out
+
+
+def torch_equal(a, b):
+    import torch
+
+    return bool(torch.equal(a, b))
+
+
 def graph_ms(fn, reps=BAND_REPS, per=BAND_GRAPH_CALLS):
     """Device ms per call of ``fn``: ``per`` calls captured in one CUDA
     graph, each replay timed with CUDA events (``time_ms``), the median of
@@ -5870,6 +5935,8 @@ def band_timings(dev, card):
         gs, gm = kn.grad_gather(grad, seds, m, origins, 0)
         sg = kn.scene_geometry(B, K, C, H, W)
         gg = kn.grad_geometry(B, K, C, H, W, box, box)
+        info = kn.gather_kernel_info(B, K, C, H, W, box,
+                                     box)["scene_assembly"]
         out[C] = dict(
             scene_assembly=dict(
                 **bound(nbytes(seds, origins, on, scene) + 4 * px,
@@ -5880,7 +5947,12 @@ def band_timings(dev, card):
                     seds, m, origins, on, shape, box), BAND_REPS),
                 plain_ms=time_ms(lambda: kn.scene_assembly_plain(
                     seds, m, origins, on, shape, box), 3),
-                grid=(B, sg.bands, sg.tiles), walks=-(-C // 8)),
+                grid=(B, sg.bands, sg.tiles), walks=sg.walks,
+                route=sg.route, band_groups=sg.NG, band_group=sg.CG,
+                groups_at_once=sg.GT, threads=sg.threads,
+                staged_components=sg.S,
+                **{k: info[k] for k in ("registers", "spill_bytes",
+                                        "blocks_per_sm")}),
             grad_gather=dict(
                 **bound(nbytes(grad, seds, m, origins, gs, gm),
                         4.0 * B * K * C * box * box),
@@ -5900,7 +5972,12 @@ def band_timings(dev, card):
                 f"by {r['bound_by']} ({100 * r['bound_ms'] / r['ms']:.1f}% "
                 f"of the bound's speed), {r['walks']} band walk(s)"
                 + (f", {r['route']} route, G={r['G']}"
-                   if name == "grad_gather" else "") + f" on {card}")
+                   if name == "grad_gather" else
+                   f", {r['route']} walk, {r['band_groups']} band group(s) "
+                   f"of {r['band_group']} at most, {r['groups_at_once']} at "
+                   f"once, {r['threads']} threads, {r['registers']} "
+                   f"registers, {r['spill_bytes']} B spill, "
+                   f"{r['blocks_per_sm']} blocks per SM") + f" on {card}")
     return out
 
 
@@ -6345,13 +6422,15 @@ def wide_fits(dev, card):
 
 
 def bands_phase(dev, card):
-    """Phase 17: (a) K3/K4 past 8 bands against their plain versions, (b)
+    """Phase 17: (a) K3/K4 past 8 bands and K3 at 1-40 bands on both walks
+    against their plain versions, (b)
     the 10-band stream and the 6 + 4-band multi-resolution fit, (c) K5 and
     K6 on wide boxes and their engine fits, (d) K3/K4 times at
     BAND_TIMES, (e) K4 at TILED_SHAPES, (f) the lite fit at box
     BIG_FIT_BOX.  Returns ({path: counts}, checks, summary)."""
     t0 = time.perf_counter()
-    checks = dict(bands=band_kernel_checks(dev, card))
+    checks = dict(bands=band_kernel_checks(dev, card),
+                  scene=scene_walk_checks(dev, card))
     stream_counts, stream_summary = band_stream(dev, card)
     mr_counts, mr_summary = band_multires(dev, card)
     checks["wide"] = wide_chain_checks(dev, card)
@@ -6560,6 +6639,7 @@ def main():
         kres[name]["band_times"] = {
             C: t[name] for C, t in b17_summary["times"].items()}
     kres["grad_gather"]["band_checks"] = b17_checks["bands"]
+    kres["scene_assembly"]["walk_checks"] = b17_checks["scene"]
     kres["grad_gather"]["tiled_shapes"] = b17_checks["tiled"]
     kres["grad_gather"]["launches_box_181_fit"] = \
         int(b17_counts["big_box_fit"]["grad_gather"])

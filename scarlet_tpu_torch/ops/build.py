@@ -124,10 +124,11 @@ def load():
         [f] * 6 + [p] * 4 + wide
     lib.scarlet_wide_kernel_info.argtypes = [i] * 6 + [p]
     # the gather kernels end with the geometry of kernels.scene_geometry
-    # (XV, TX, TY, bands, tiles, threads, smem) and grad_geometry (staged,
-    # G, groups, smem, R, tile rows, band group)
-    lib.scarlet_scene_assembly.argtypes = [p] * 5 + [i] * 7 + [i] * 7 + [p]
-    lib.scarlet_scene_kernel_info.argtypes = [i, i, i, i, p]
+    # (staged, XV, TX, TY, P, NG, CG, S, bands, tiles, threads, smem) and
+    # grad_geometry (staged, G, groups, smem, R, tile rows, band group)
+    lib.scarlet_scene_assembly.argtypes = [p] * 5 + [i] * 5 + [ll] + \
+        [i] * 4 + [i] * 12 + [p]
+    lib.scarlet_scene_kernel_info.argtypes = [i] * 5 + [p]
     lib.scarlet_grad_gather.argtypes = [p] * 6 + [i] * 8 + [ll] * 3 + \
         [i] * 7 + [p]
     lib.scarlet_grad_kernel_info.argtypes = [i, i, i, i, p]

@@ -1097,44 +1097,139 @@ def scene_assembly_plain(seds, morphs, origins, comp_active, scene_shape,
     return out.reshape(*lead, C, H, W)
 
 
-SCENE_THREADS = 128       # most threads of a scene-assembly block
+SCENE_BANDS = 8           # bands a thread sums (csrc/scene.cu kBands)
+SCENE_THREADS = 512       # most threads of a staged-walk block
+SCENE_DIRECT_THREADS = 128  # most threads of a direct-walk block
+SCENE_PIXEL_THREADS = 64  # pixel threads of a band group's set, or 2x
+SCENE_CHUNK = 8           # most components a staging buffer holds
 
 
 class SceneGeometry(NamedTuple):
     """How the scene-assembly kernel covers a batch of (C, H, W) scenes
     (csrc/scene.cu): block (b, band, tile) takes blend b, rows
     ``[band * TY, band * TY + TY)`` and columns ``[tile * TX * XV,
-    (tile + 1) * TX * XV)``; its thread ``t < TX * TY`` takes row
-    ``t // TX`` of the band and the ``XV`` columns from
-    ``(tile * TX + t % TX) * XV``, all C bands of them (more than 8 in
-    groups of 8, one walk of the block's components per group)."""
+    (tile + 1) * TX * XV)``; pixel thread ``p < TX * TY`` takes row ``p //
+    TX`` of the band and the ``XV`` columns from ``(tile * TX + p % TX) *
+    XV``.
+
+    Direct walk (``staged`` false; at most ``SCENE_BANDS`` bands): thread
+    ``p`` sums all C bands, reading each component's values itself.
+
+    Staged walk: the C bands in NG balanced groups (group i: bands ``[i *
+    C // NG, (i + 1) * C // NG)``, CG or CG - 1 of them), the block's
+    threads in GT sets of P: thread ``g * P + p`` takes pixel thread p for
+    groups g, g + GT, ... (``walks`` of the list; one where NG <= GT).
+    The listed components' values at the block's pixels pass through two
+    shared buffers of S components, each copied once, by the set ``j %
+    GT`` for the j-th of a chunk."""
     XV: int           # consecutive columns a thread owns: 4, 2 or 1
     TX: int           # threads along a row
     TY: int           # rows of a block
     bands: int        # row bands of a scene
     tiles: int        # column tiles of a scene
     blocks: int
-    threads: int      # a whole number of warps, at most SCENE_THREADS
-    smem: int         # bytes: origins, the component list and the seds
+    threads: int      # a whole number of warps
+    smem: int         # bytes: origins, list and seds (direct), or the
+    #                   staging buffers, origins, list and flags (staged)
+    staged: bool = True
+    P: int = 0        # pixel threads of a set (whole warps)
+    NG: int = 1       # band groups (the direct walk: one)
+    CG: int = 0       # bands of the largest group (the kernel's)
+    GT: int = 1       # staged: sets of P threads (groups walked at once)
+    S: int = 0        # staged: components a staging buffer holds
+
+    @property
+    def route(self):
+        return "staged" if self.staged else "direct"
+
+    @property
+    def walks(self):
+        """Walks of the block's list a thread makes."""
+        return -(-self.NG // self.GT)
+
+
+def _scene_smem(K, C, S=0, P=0, XV=0, GT=0, CG=0):
+    """Dynamic shared bytes of a scene-assembly block (csrc/scene.cu): the
+    (K, 2) origins and the (K) list beside, on the direct walk (S = 0),
+    the (K, C) seds, or on the staged walk two buffers of S components'
+    values at P pixel threads of XV columns and of their seds (GT groups
+    of CG, each rounded up to 4), and the (K) active bytes (in whole 16
+    bytes)."""
+    if not S:
+        return 4 * K * (3 + C)
+    return 4 * _quads(2 * S * (P * XV + GT * _quads(CG)) + 3 * K
+                      + -(-K // 4))
+
+
+def _scene_tile(W, H, XV, most):
+    TX = min(W // XV, most)
+    TY = max(1, min(H, most // TX))
+    return TX, TY, -(-H // TY), -(-W // (TX * XV))
+
+
+def _scene_pixel_threads(W, H, XV, cap):
+    """P's bound for the staged walk: of SCENE_PIXEL_THREADS and twice it
+    (those within ``cap``, else ``cap``), the one whose blocks keep more
+    of their pixel threads at work (the warps' last threads and a row's
+    last tile idle), the smaller on a tie: 64 at the fit's 58 x 48 and
+    box 81's 80 x 80 (at 10 bands 0.0154 ms against 0.0163 at 128 on an
+    H100, tools/gather_ab.py), 128 where a row is longer than 64
+    threads."""
+    def busy(most):
+        TX, TY, _, tiles = _scene_tile(W, H, XV, most)
+        P = max(32, -(-TX * TY // 32) * 32)
+        return TX * TY / P * W / (tiles * TX * XV)
+    return max([m for m in (SCENE_PIXEL_THREADS, 2 * SCENE_PIXEL_THREADS)
+                if m <= cap] or [cap], key=busy)
 
 
 @functools.lru_cache(maxsize=256)
-def scene_geometry(B, K, C, H, W):
-    """The launch geometry of the scene-assembly kernel; raises ValueError
-    where a block's origins and seds (``4 K (3 + C)`` bytes) do not fit
-    its shared memory."""
-    smem = 4 * K * (3 + C)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"scene_assembly: {K} components of {C} bands "
-                         f"need {smem} B of shared memory (at most "
-                         f"{SMEM_LIMIT})")
+def scene_geometry(B, K, C, H, W, route=None):
+    """The launch geometry of the scene-assembly kernel.  ``route``
+    ("staged" or "direct") overrides the shape's walk, for A/B timing
+    (``tools.gather_ab``) and tests.
+
+    The walk is the shape's: the direct walk up to ``SCENE_BANDS`` bands
+    where its seds fit a block's shared memory, the staged walk past
+    them.  Staged: NG = ceil(C / SCENE_BANDS) groups,
+    GT = NG sets up to ``SCENE_THREADS // 32``, each of P threads, P up to
+    ``SCENE_PIXEL_THREADS`` or twice it (``_scene_pixel_threads``) and
+    ``SCENE_THREADS // GT``; buffers of S =
+    min(K, SCENE_CHUNK) components, fewer where shared memory is short.
+    Shared memory is the only limit: where one component's values and
+    seds, twice, with the origins, list and active flags, do not fit a
+    block, it raises ValueError naming the bytes."""
     XV = 4 if W % 4 == 0 else (2 if W % 2 == 0 else 1)
-    TX = min(W // XV, SCENE_THREADS)
-    TY = max(1, min(H, SCENE_THREADS // TX))
-    threads = max(32, -(-TX * TY // 32) * 32)
-    bands, tiles = -(-H // TY), -(-W // (TX * XV))
+    staged = route == "staged" or (route is None and C > SCENE_BANDS)
+    if not staged:
+        if C > SCENE_BANDS:
+            raise ValueError(f"scene_assembly: the direct walk takes at most "
+                             f"{SCENE_BANDS} bands, not {C}")
+        TX, TY, bands, tiles = _scene_tile(W, H, XV, SCENE_DIRECT_THREADS)
+        smem = _scene_smem(K, C)
+        threads = max(32, -(-TX * TY // 32) * 32)
+        if smem <= SMEM_LIMIT:
+            return SceneGeometry(XV, TX, TY, bands, tiles, B * bands * tiles,
+                                 threads, smem, False, threads, 1, C)
+        if route == "direct":
+            raise ValueError(f"scene_assembly: the direct walk's {K} "
+                             f"components of {C} bands need {smem} B of "
+                             f"shared memory (at most {SMEM_LIMIT})")
+    NG = -(-C // SCENE_BANDS)
+    CG = -(-C // NG)
+    GT = min(NG, SCENE_THREADS // 32)
+    TX, TY, bands, tiles = _scene_tile(W, H, XV, _scene_pixel_threads(
+        W, H, XV, SCENE_THREADS // GT // 32 * 32))
+    P = max(32, -(-TX * TY // 32) * 32)
+    S = max(1, min(K, SCENE_CHUNK))
+    while S > 1 and _scene_smem(K, C, S, P, XV, GT, CG) > SMEM_LIMIT:
+        S -= 1
+    smem = _scene_smem(K, C, S, P, XV, GT, CG)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"scene_assembly: {K} components need {smem} B of "
+                         f"shared memory (at most {SMEM_LIMIT})")
     return SceneGeometry(XV, TX, TY, bands, tiles, B * bands * tiles,
-                         threads, smem)
+                         GT * P, smem, True, P, NG, CG, GT, S)
 
 
 def scene_assembly(seds, morphs, origins, comp_active, scene_shape, pad):
@@ -1142,7 +1237,10 @@ def scene_assembly(seds, morphs, origins, comp_active, scene_shape, pad):
     (possibly negative or overhanging) integer origins; boxes clip at the
     scene edge.
 
-    seds (..., K, C), morphs (..., K, hb, wb) float32; origins (..., K, 2)
+    seds (..., K, C) float32; morphs (..., K, hb, wb) float32 with unit
+    column stride, read in place through its strides by the staged walk
+    where its components lie a whole number of rows apart (else, and on
+    the direct walk, copied first if not contiguous); origins (..., K, 2)
     integer scene coordinates of each box's corner; comp_active (..., K)
     bool.  Returns (..., C, H, W) for ``scene_shape = (C, H, W)``.
     ``pad`` is the overhang the plain version pads by (the kernel needs
@@ -1165,7 +1263,17 @@ def scene_assembly(seds, morphs, origins, comp_active, scene_shape, pad):
                          f" origins {tuple(origins.shape)}, comp_active "
                          f"{tuple(comp_active.shape)}")
     _f32(name, seds, "seds")
-    _f32(name, morphs, "morphs")
+    if morphs.dtype != torch.float32:
+        raise TypeError(f"{name}: morphs must be float32, got "
+                        f"{morphs.dtype}")
+    if morphs.stride(-1) != 1 and wb > 1:
+        raise ValueError(f"{name}: morphs' column stride is "
+                         f"{morphs.stride(-1)}; the kernel reads unit stride")
+    try:
+        m4 = morphs.view(-1, K, hb, wb)
+    except RuntimeError:
+        raise ValueError(f"{name}: morphs' leading dimensions do not merge "
+                         f"into one stride {tuple(morphs.stride())}") from None
     org = origins.to(torch.int32).contiguous()
     act = comp_active.to(torch.bool).contiguous()
     out = torch.empty(lead + (C, H, W), dtype=seds.dtype, device=seds.device)
@@ -1175,12 +1283,22 @@ def scene_assembly(seds, morphs, origins, comp_active, scene_shape, pad):
     if K == 0:
         return out.zero_()
     g = scene_geometry(B, K, C, H, W)
+    msb, msk, msy = m4.stride()[:3]
+    if (not g.staged and not m4.is_contiguous()) or msy < wb or msk % msy:
+        # the staged walk steps by rows (components a whole number of
+        # rows apart); the direct walk reads contiguous morphologies
+        m4 = m4.contiguous()
+        msb, msk, msy = m4.stride()[:3]
+    if (K - 1) * msk + (hb - 1) * msy + wb >= 2 ** 31:
+        raise ValueError(f"{name}: a blend's morphologies span more than "
+                         f"2**31 floats (strides {tuple(morphs.stride())})")
     lib = build.load()
     with torch.cuda.device(seds.device):
         err = lib.scarlet_scene_assembly(
-            seds.data_ptr(), morphs.data_ptr(), org.data_ptr(),
-            act.data_ptr(), out.data_ptr(), B, K, C, hb, wb, H, W, g.XV,
-            g.TX, g.TY, g.bands, g.tiles, g.threads, g.smem, _stream(seds))
+            seds.data_ptr(), m4.data_ptr(), org.data_ptr(), act.data_ptr(),
+            out.data_ptr(), B, K, C, hb, wb, msb, msk // msy, msy, H, W,
+            int(g.staged), g.XV, g.TX, g.TY, g.P, g.NG, g.CG, g.S, g.bands,
+            g.tiles, g.threads, g.smem, _stream(seds))
     _check(name, err)
     scene_assembly.launches += 1
     return out
@@ -1461,9 +1579,10 @@ def gather_kernel_info(B, K, C, H, W, hb, wb):
     out = {}
     for name, err, geo, extra in (
             ("scene_assembly", lambda v: lib.scarlet_scene_kernel_info(
-                sg.XV, C, sg.threads, sg.smem, v), sg,
+                int(sg.staged), sg.XV, sg.CG, sg.threads, sg.smem, v), sg,
              dict(grid=(B, sg.bands, sg.tiles), XV=sg.XV, TX=sg.TX,
-                  TY=sg.TY)),
+                  TY=sg.TY, route=sg.route, P=sg.P, NG=sg.NG, CG=sg.CG,
+                  GT=sg.GT, S=sg.S, walks=sg.walks)),
             ("grad_gather", lambda v: lib.scarlet_grad_kernel_info(
                 int(gg.staged), C, gg.band_group, gg.smem, v), gg,
              dict(grid=(B, gg.groups), G=gg.G, route=gg.route, R=gg.R,

@@ -21,15 +21,19 @@ The runs go in the order ``--order`` gives (indices into ``--roots``;
 the default, parent, change, change, parent, parent, change, takes three
 of each in turns), and the summary gives each root's median and spread.
 A root may end in ``@`` and overrides of K4's geometry
-(``kernels.grad_geometry``'s ``route`` and ``R``), which compares two
-geometries of one checkout.  Run from a checkout's root, with a CUDA
-device::
+(``kernels.grad_geometry``'s ``route`` and ``R``) or of K3's
+(``kernels.scene_geometry``'s ``route``, written ``scene_route``), which
+compares two geometries of one checkout.  ``--only scene`` (or
+``grad``) times one kernel alone.  Run from a checkout's root, with a
+CUDA device::
 
     python -m scarlet_tpu_torch.tools.gather_ab --roots PARENT_DIR .
     python -m scarlet_tpu_torch.tools.gather_ab --roots PARENT_DIR . \
         --bands 5 --blends 32 --box 81 --scene 80 80
     python -m scarlet_tpu_torch.tools.gather_ab --roots . .@route=tiled \
         --bands 3 5
+    python -m scarlet_tpu_torch.tools.gather_ab --only scene --roots . \
+        .@scene_route=staged --bands 3 5 8
 
 It prints one line per run and a JSON summary last.
 """
@@ -90,17 +94,22 @@ def _device_ms(fn, key, reps):
 
 
 def _geometry_overrides(spec):
-    """{"route": ..., "R": ...} of a root's ``@route=tiled,R=4``."""
-    out = {}
+    """({"route": ..., "R": ...}, {"route": ...}) of a root's
+    ``@route=tiled,R=4,scene_route=staged``: K4's overrides and K3's."""
+    grad, scene = {}, {}
     for item in filter(None, spec.split(",")):
         key, value = item.split("=")
-        out[key] = int(value) if key == "R" else value
-    return out
+        if key == "scene_route":
+            scene["route"] = value
+        else:
+            grad[key] = int(value) if key == "R" else value
+    return grad, scene
 
 
-def worker(root, bands, reps, shape=SHAPE, pad=0):
+def worker(root, bands, reps, shape=SHAPE, pad=0, only=None):
     """One run in this process, on the checkout at ``root`` (with its
-    ``@`` overrides)."""
+    ``@`` overrides); ``only`` "scene" or "grad" times that kernel
+    alone."""
     root, _, spec = root.partition("@")
     sys.path.insert(0, os.path.abspath(root))
     import functools
@@ -109,19 +118,32 @@ def worker(root, bands, reps, shape=SHAPE, pad=0):
     from scarlet_tpu_torch.ops import build, kernels as kn
 
     assert os.path.abspath(kn.__file__).startswith(os.path.abspath(root))
-    if spec:
-        kn.grad_geometry = functools.partial(kn.grad_geometry,
-                                             **_geometry_overrides(spec))
+    grad_over, scene_over = _geometry_overrides(spec)
+    if grad_over:
+        kn.grad_geometry = functools.partial(kn.grad_geometry, **grad_over)
+    if scene_over:
+        kn.scene_geometry = functools.partial(kn.scene_geometry,
+                                              **scene_over)
     build.load()
     out = {}
     B, K, (H, W), box = shape
     for C in bands:
         seds, m, org, on, grad = _inputs(C, 100 + C, shape, pad)
         scene_shape = (C, H, W)
-        got = kn.scene_assembly(seds, m, org, on, scene_shape, box)
-        ref = kn.scene_assembly_plain(seds, m, org, on, scene_shape, box)
-        res = dict(scene_assembly=_device_ms(lambda: kn.scene_assembly(
-            seds, m, org, on, scene_shape, box), "scene_kernel", reps))
+        res = {}
+        if only != "grad":
+            got = kn.scene_assembly(seds, m, org, on, scene_shape, box)
+            ref = kn.scene_assembly_plain(seds, m, org, on, scene_shape, box)
+            if not torch.equal(got, ref):
+                raise AssertionError(f"C={C}: scene_assembly differs from "
+                                     "its plain version")
+            res["scene_assembly"] = _device_ms(lambda: kn.scene_assembly(
+                seds, m, org, on, scene_shape, box), "scene_kernel", reps)
+            geo = kn.scene_geometry(B, K, C, H, W)
+            res["scene_route"] = getattr(geo, "route", None)
+        if only == "scene":
+            out[C] = res
+            continue
         try:
             geo = kn.grad_geometry(B, K, C, H + 2 * pad, W + 2 * pad, box,
                                    box)
@@ -130,9 +152,9 @@ def worker(root, bands, reps, shape=SHAPE, pad=0):
             continue
         gm = kn.grad_gather(grad, seds, m, org, pad)[1]
         rm = kn.grad_gather_plain(grad, seds, m, org, pad)[1]
-        if not (torch.equal(got, ref) and torch.equal(gm, rm)):
-            raise AssertionError(f"C={C}: a kernel differs from its plain "
-                                 "version")
+        if not torch.equal(gm, rm):
+            raise AssertionError(f"C={C}: grad_gather differs from its "
+                                 "plain version")
         out[C] = dict(res, grad_gather=_device_ms(lambda: kn.grad_gather(
             grad, seds, m, org, pad), "grad_kernel", reps),
             route="staged" if geo.staged else getattr(geo, "route",
@@ -153,12 +175,13 @@ def main(argv=None):
     ap.add_argument("--scene", type=int, nargs=2, default=SHAPE[2])
     ap.add_argument("--box", type=int, default=SHAPE[3])
     ap.add_argument("--pad", type=int, default=0)
+    ap.add_argument("--only", choices=("scene", "grad"))
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     shape = (args.blends, args.components, tuple(args.scene), args.box)
     if args.worker:
         print(json.dumps(worker(args.worker, args.bands, args.reps, shape,
-                                args.pad)))
+                                args.pad, args.only)))
         return None
     runs = []
     for i in args.order:
@@ -170,7 +193,8 @@ def main(argv=None):
                "--reps", str(args.reps), "--bands",
                *map(str, args.bands), "--blends", str(args.blends),
                "--components", str(args.components), "--box", str(args.box),
-               "--scene", *map(str, args.scene)]
+               "--scene", *map(str, args.scene)] + (
+                   ["--only", args.only] if args.only else [])
         proc = subprocess.run(cmd, capture_output=True, text=True,
                               cwd=path)
         if proc.returncode != 0:
@@ -184,9 +208,11 @@ def main(argv=None):
         mine = [r for rt, r in runs if rt == root]
         summary[root] = {}
         for C in map(str, args.bands):
-            summary[root][C] = dict(route=mine[0][C]["route"],
-                                    R=mine[0][C].get("R"))
+            summary[root][C] = {k: mine[0][C].get(k) for k in (
+                "route", "R", "scene_route") if k in mine[0][C]}
             for k in ("scene_assembly", "grad_gather"):
+                if k not in mine[0][C]:
+                    continue
                 times = [r[C][k] for r in mine]
                 summary[root][C][k] = dict(
                     median=None if None in times else float(np.median(times)),

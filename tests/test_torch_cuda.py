@@ -467,6 +467,92 @@ def test_scene_and_grad_match_plain_at_many_bands(cuda, box, C, K, scene):
     assert routes == [False, False]
 
 
+# (B, K, C, (H, W), box): K3 at the lite fit's shapes at 1-16 and 40
+# bands (the staged walk past 8: 10 -> 5 + 5, 40 -> 5 x 8), box 81 on its
+# 80 x 80 scene, box 171 on 170 x 170, and an odd width (one column a
+# thread)
+SCENE_BAND_CASES = [(128, 16, C, (58, 48), 59)
+                    for C in (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 12, 16, 40)] + [
+    (32, 16, 5, (80, 80), 81), (32, 16, 10, (80, 80), 81),
+    (4, 4, 5, (170, 170), 171), (4, 4, 12, (170, 170), 171),
+    (8, 16, 10, (57, 47), 59)]
+
+
+def _scene_inputs(B, K, C, H, W, box, device, seed):
+    """Seeded K3 inputs as the fit makes them: boxes centred in the scene
+    and overhanging its edges, 10% of the slots off; the morphologies
+    contiguous and as a strided crop of a larger array (rows, components
+    and blends apart), the same values."""
+    rng = np.random.default_rng(seed)
+    seds = torch.from_numpy(rng.uniform(0.1, 2, (B, K, C)).astype(
+        np.float32)).to(device)
+    big = torch.from_numpy(rng.uniform(0, 1, (B, K + 1, box + 3,
+                                              box + 5)).astype(np.float32))
+    strided = big.to(device)[:, 1:, 2:2 + box, 3:3 + box]
+    cy = rng.integers(0, H, (B, K, 1))
+    cx = rng.integers(0, W, (B, K, 1))
+    origins = torch.from_numpy(np.concatenate(
+        [cy - box // 2, cx - box // 2], -1).astype(np.int32)).to(device)
+    on = torch.from_numpy(rng.uniform(size=(B, K)) > 0.1).to(device)
+    return seds, strided.contiguous(), strided, origins, on
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,K,C,scene,box", SCENE_BAND_CASES, ids=str)
+def test_scene_assembly_matches_plain_at_any_band_count(cuda, B, K, C,
+                                                        scene, box):
+    """K3 bit for bit against its plain version on contiguous and strided
+    morphologies, one launch a call, at the shapes' walk (direct up to 8
+    bands, staged past them) and, up to 8 bands, on the staged walk
+    forced (kernels.scene_geometry's ``route``)."""
+    H, W = scene
+    seds, morphs, strided, origins, on = _scene_inputs(
+        B, K, C, H, W, box, cuda, B + K + C + box)
+    assert not strided.is_contiguous()
+    ref = kn.scene_assembly_plain(seds, morphs, origins, on, (C, H, W), box)
+    geo = kn.scene_geometry(B, K, C, H, W)
+    assert geo.staged == (C > kn.SCENE_BANDS) and geo.walks == 1
+    for m in (morphs, strided):
+        kn.reset_launch_counts()
+        got = kn.scene_assembly(seds, m, origins, on, (C, H, W), box)
+        assert kn.launch_counts()["scene_assembly"] == 1
+        assert torch.equal(got, ref)
+    if C <= kn.SCENE_BANDS:
+        real = kn.scene_geometry
+        try:
+            kn.scene_geometry = lambda *a: real(*a, route="staged")
+            got = kn.scene_assembly(seds, strided, origins, on, (C, H, W),
+                                    box)
+        finally:
+            kn.scene_geometry = real
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [5, 10, 40])
+def test_scene_staged_walk_with_non_finite_seds(cuda, C):
+    """An active component's inf or NaN sed gives inf or NaN inside its
+    box only, as in the plain version: the staged walk, whose staged
+    values are 0 outside a box, walks such a chunk with the box masks."""
+    B, K, H, W, box = 4, 16, 58, 48, 59
+    seds, morphs, _, origins, on = _scene_inputs(B, K, C, H, W, box, cuda,
+                                                 C + 3)
+    seds[0, 3, 0] = float("inf")
+    seds[2, 5, C - 1] = float("nan")
+    on[0, 3] = on[2, 5] = True
+    ref = kn.scene_assembly_plain(seds, morphs, origins, on, (C, H, W), box)
+    nan = torch.isnan(ref)
+    assert nan.any()
+    real = kn.scene_geometry
+    try:
+        kn.scene_geometry = lambda *a: real(*a, route="staged")
+        got = kn.scene_assembly(seds, morphs, origins, on, (C, H, W), box)
+    finally:
+        kn.scene_geometry = real
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan], ref[~nan])
+
+
 # (box, C, K, scene, B): K4's tiled route at the lite fit's scene past 7
 # bands (PAUS's 40 the most; 16 components, one warp a component, and 4,
 # two warps), 5 bands at boxes 81 and 101 on scenes of their size, boxes
@@ -540,19 +626,22 @@ def test_grad_gather_does_not_depend_on_the_batch(cuda, C):
 
 @pytest.mark.cuda
 def test_gather_kernels_raise_past_shared_memory(cuda):
-    """What is left of a limit: K3's origins and seds must fit a block's
-    shared memory, and K4 one row of one band of the gradient, twice, with
-    a row of each window; past it each wrapper raises ValueError naming
-    the bytes, before any launch.  K4 takes box 171 (the limit of its
-    earlier design) and matches its plain version."""
+    """What is left of a limit: K3's origins and list words (with two
+    staging slots past 8 bands) must fit a block's shared memory, and K4
+    one row of one band of the gradient, twice, with a row of each
+    window; past it each wrapper raises ValueError naming the bytes,
+    before any launch.  K3 takes 30,000 bands of 2 components (the limit
+    of its earlier design) and K4 box 171 (its earlier limit), each
+    matching its plain version."""
     kn.reset_launch_counts()
-    C = 30000
-    seds = torch.ones(1, 2, C, device=cuda)
-    morphs = torch.ones(1, 2, 3, 3, device=cuda)
-    origins = torch.zeros(1, 2, 2, dtype=torch.int32, device=cuda)
-    on = torch.ones(1, 2, dtype=torch.bool, device=cuda)
-    with pytest.raises(ValueError, match="B of shared memory"):
-        kn.scene_assembly(seds, morphs, origins, on, (C, 4, 4), 3)
+    K = 29000
+    for C in (1, 9):
+        seds = torch.ones(1, K, C, device=cuda)
+        morphs = torch.ones(1, K, 3, 3, device=cuda)
+        origins = torch.zeros(1, K, 2, dtype=torch.int32, device=cuda)
+        on = torch.ones(1, K, dtype=torch.bool, device=cuda)
+        with pytest.raises(ValueError, match="B of shared memory"):
+            kn.scene_assembly(seds, morphs, origins, on, (C, 4, 4), 3)
     with pytest.raises(ValueError, match="B of shared memory"):
         kn.grad_gather(torch.ones(1, 1, 1, 30000, device=cuda),
                        torch.ones(1, 1, 1, device=cuda),
@@ -560,6 +649,14 @@ def test_gather_kernels_raise_past_shared_memory(cuda):
                        origins[:, :1], 0)
     counts = kn.launch_counts()
     assert counts["scene_assembly"] == counts["grad_gather"] == 0
+    C = 30000
+    seds = torch.rand(1, 2, C, device=cuda)
+    on = torch.ones(1, 2, dtype=torch.bool, device=cuda)
+    got = kn.scene_assembly(seds, morphs[:, :2], origins[:, :2] - 1, on,
+                            (C, 4, 4), 3)
+    assert torch.equal(got, kn.scene_assembly_plain(
+        seds, morphs[:, :2], origins[:, :2] - 1, on, (C, 4, 4), 3))
+    assert kn.launch_counts()["scene_assembly"] == 1
     big = torch.rand(1, 1, 171, 171, device=cuda)
     grad = torch.randn(1, 1, 8, 8, device=cuda)
     sed = torch.ones(1, 1, 1, device=cuda)

@@ -10,6 +10,10 @@ gradient-gather (K4, ``csrc/grad.cu``) kernels, on the CPU.
   once, the gradient's staging copy covers each value once with aligned
   16-byte copies, the shared bytes stay within a block's budget, and the
   route follows the documented rule;
+- K3's walks modelled in float32 numpy, block by block (the list, the
+  band groups, each band's ascending-k chain, the staged copies): the
+  plain version's bits, each output value computed by exactly one thread
+  and each in-scene active morphology value copied once;
 - K4's tiled route modelled in float32 numpy, block by block and lane by
   lane (tiles, band groups, the order of each sum): g_morph bit for bit
   with the plain version, g_sed the same bits whatever the batch size,
@@ -26,6 +30,15 @@ import torch.nn.functional as F
 
 from scarlet_tpu_torch.ops import fft as tfft
 from scarlet_tpu_torch.ops import kernels as kn
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """Two intra-op threads (several test workers share the machine)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 def _components(rng, B, K, C, H, W, hb, wb, reach):
@@ -91,6 +104,77 @@ def _scene_cover(g, H, W):
             for v in range(g.XV):
                 np.add.at(seen, (y[on], x0[on] + v), 1)
     return seen
+
+
+def _scene_groups(g, C):
+    """The (first, last + 1) bands of each band group a thread set of the
+    scene kernel walks: every group of the staged walk (sets g0 < GT, walks
+    w, group g0 + w * GT below NG), or all C bands on the direct walk."""
+    if not g.staged:
+        return [(0, C)]
+    out = []
+    for g0 in range(g.GT):
+        for w in range(g.walks):
+            i = g0 + w * g.GT
+            if i < g.NG:
+                out.append((i * C // g.NG, (i + 1) * C // g.NG))
+    return out
+
+
+def _scene_model(seds, morphs, origins, on, C, H, W, g):
+    """csrc/scene.cu in float32 numpy, block by block: the block's list
+    (active components whose box meets its rows and columns, ascending
+    k), each pixel thread's XV columns, each band group's sums as one
+    chain a band over the list (``acc + sed * m``, each step rounded),
+    the values a staged block copies (the j-th listed component by the
+    set ``j % GT``, each thread at its own pixels in the box).  The
+    staged walk adds every staged value, 0 outside the box, unless a
+    listed sed is not finite (then, as the direct walk, only the box's
+    pixels).  Returns (scene, writes (B, C, H, W), copies (B, K, H,
+    W))."""
+    s, m = (np.asarray(x, np.float32) for x in (seds, morphs))
+    org = np.asarray(origins, np.int64)
+    act = np.asarray(on, bool)
+    B, K, hb, wb = m.shape
+    scene = np.full((B, C, H, W), np.nan, np.float32)
+    writes = np.zeros((B, C, H, W), int)
+    copies = np.zeros((B, K, H, W), int)
+    p = np.arange(g.TX * g.TY)
+    ty, tx = p // g.TX, p % g.TX
+    groups = _scene_groups(g, C)
+    for b, band, tile in np.ndindex(B, g.bands, g.tiles):
+        y0, xs0 = band * g.TY, tile * g.TX * g.XV
+        y1, xs1 = min(H, y0 + g.TY), min(W, xs0 + g.TX * g.XV)
+        listed = [k for k in range(K) if act[b, k]
+                  and org[b, k, 0] < y1 and org[b, k, 0] + hb > y0
+                  and org[b, k, 1] < xs1 and org[b, k, 1] + wb > xs0]
+        y, x0 = y0 + ty, xs0 + tx * g.XV
+        live = (y < y1) & (x0 < xs1)
+        ys = np.repeat(y[live][:, None], g.XV, 1)
+        xs = x0[live][:, None] + np.arange(g.XV)
+        boxes = []
+        for j, k in enumerate(listed):
+            ly, lx = ys - org[b, k, 0], xs - org[b, k, 1]
+            inb = (ly >= 0) & (ly < hb) & (lx >= 0) & (lx < wb)
+            vals = m[b, k, np.clip(ly, 0, hb - 1), np.clip(lx, 0, wb - 1)]
+            boxes.append((k, inb, vals))
+            if g.staged:     # set j % GT copies it, each thread its pixels
+                assert j % g.GT < g.GT
+                np.add.at(copies[b, k], (ys[inb], xs[inb]), 1)
+        masked = not g.staged or not np.isfinite(s[b, listed]).all()
+        for c0, c1 in groups:
+            assert c1 - c0 in ((g.CG, g.CG - 1) if g.staged else (C,))
+            acc = np.zeros((c1 - c0,) + ys.shape, np.float32)
+            for k, inb, vals in boxes:
+                vals = np.where(inb, vals, np.float32(0))
+                for c in range(c0, c1):
+                    with np.errstate(invalid="ignore"):
+                        t = (s[b, k, c] * vals).astype(np.float32)
+                    acc[c - c0] = np.where(inb | (not masked), (
+                        acc[c - c0] + t).astype(np.float32), acc[c - c0])
+            scene[b, c0:c1, ys, xs] = np.moveaxis(acc, 0, -1)
+            np.add.at(writes[b], (slice(c0, c1), ys, xs), 1)
+    return scene, writes, copies
 
 
 def _grad_cover(g, K, hb, wb):
@@ -283,7 +367,16 @@ def test_gather_geometry_covers_each_pixel_once(hb, wb, C, K, scene):
         assert sg.TX * sg.TY <= sg.threads and W % sg.XV == 0
         assert sg.XV == (4 if W % 4 == 0 else 2 if W % 2 == 0 else 1)
         assert sg.blocks == B * sg.bands * sg.tiles
-        assert sg.smem == 4 * K * (3 + C) <= kn.SMEM_LIMIT
+        # the walk: direct up to 8 bands, staged past them; the shared
+        # bytes: the staging buffers, origins and list words
+        assert sg.staged == (C > kn.SCENE_BANDS)
+        if sg.staged:
+            assert sg.smem == 4 * kn._quads(2 * sg.S * (
+                sg.P * sg.XV + sg.GT * kn._quads(sg.CG)) + 3 * K
+                + -(-K // 4))
+        else:
+            assert sg.smem == 4 * K * (3 + C)
+        assert sg.smem <= kn.SMEM_LIMIT
 
         gg = kn.grad_geometry(B, K, C, H, W, hb, wb)
         assert (_grad_cover(gg, K, hb, wb) == 1).all()
@@ -336,31 +429,60 @@ def test_gather_geometry_past_eight_bands():
     components, box 59, 58 x 48) take K4's tiled route: every band in one
     walk of each window, 2 blocks an SM of one warp a component; more
     bands mean shorter tiles.  A small scene past 8 bands is tiled too,
-    its whole gradient one tile."""
+    its whole gradient one tile.  K3 past 8 bands takes its staged walk:
+    balanced groups of at most 8 bands (10 -> 5 + 5, 16 -> 8 + 8, 40 ->
+    5 x 8), all walked at once by sets of pixel threads, so each thread
+    walks the list once; 16 components staged 8 at a time."""
     rows = {}
     for C in (8, 10, 16, 40):
         g = kn.grad_geometry(128, 16, C, 58, 48, 59, 59)
         assert g.route == "tiled" and g.band_group == C
         assert (g.G, g.groups, g.blocks_per_sm, g.R) == (8, 2, 2, 1)
         rows[C] = g.tile_rows
-        assert kn.scene_geometry(128, 16, C, 58, 48).smem == 4 * 16 * (3 + C)
     assert rows == {8: 16, 10: 14, 16: 11, 40: 5}
     assert kn.grad_geometry(128, 16, 7, 58, 48, 59, 59).staged
     small = kn.grad_geometry(4, 16, 40, 24, 24, 21, 21)
     assert small.route == "tiled" and small.tile_rows == 16
     assert small.band_group == 40
+    scene = {C: kn.scene_geometry(128, 16, C, 58, 48) for C in
+             (8, 9, 10, 16, 40)}
+    assert scene[8].route == "direct" and scene[8].threads == 128
+    shape = {C: (g.route, g.NG, g.CG, g.GT, g.walks, g.P, g.TY, g.threads,
+                 g.S) for C, g in scene.items() if C > 8}
+    assert shape == {9: ("staged", 2, 5, 2, 1, 64, 5, 128, 8),
+                     10: ("staged", 2, 5, 2, 1, 64, 5, 128, 8),
+                     16: ("staged", 2, 8, 2, 1, 64, 5, 128, 8),
+                     40: ("staged", 5, 8, 5, 1, 64, 5, 320, 8)}
+    assert scene[40].smem == 4 * (2 * 8 * (64 * 4 + 5 * 8) + 3 * 16 + 4)
+    # past 16 groups (128 bands) a thread takes its groups in turn
+    wide = kn.scene_geometry(4, 16, 200, 58, 48)
+    assert (wide.NG, wide.GT, wide.walks, wide.P) == (25, 16, 2, 32)
 
 
 def test_gather_geometry_raises_past_shared_memory():
-    """K3's origins and seds must fit a block's shared memory.  K4 takes
-    every box (its tiled route streams the gradient and the morphologies
-    by rows): boxes 81 and 171-1024 on scenes of their size, at 5 and 40
-    bands.  What is left of a limit: one row of one band of the gradient,
-    twice, beside a row of each window; past it the geometry raises
-    ValueError naming the bytes."""
-    with pytest.raises(ValueError, match="240024 B of shared memory"):
-        kn.scene_geometry(1, 2, 30000, 4, 4)
-    assert kn.scene_geometry(1, 2, 29000, 4, 4).smem <= kn.SMEM_LIMIT
+    """K3's origins and list words, beside two staging slots, must fit a
+    block's shared memory (the direct walk, up to 8 bands, also its seds,
+    or the staged walk runs): the band count no longer counts, and every
+    (K, C) that the design before it took (4 K (3 + C) bytes at most
+    SMEM_LIMIT) still runs; past it the geometry raises ValueError naming
+    the bytes.  K4 takes every box (its tiled route
+    streams the gradient and the morphologies by rows): boxes 81 and
+    171-1024 on scenes of their size, at 5 and 40 bands.  What is left of
+    a limit: one row of one band of the gradient, twice, beside a row of
+    each window; past it the geometry raises ValueError naming the
+    bytes."""
+    with pytest.raises(ValueError, match="379056 B of shared memory"):
+        kn.scene_geometry(1, 29000, 30000, 4, 4)
+    # the direct walk's seds do not fit: the staged walk, which raises
+    with pytest.raises(ValueError, match="378096 B of shared memory"):
+        kn.scene_geometry(1, 29000, 8, 4, 4)
+    assert kn.scene_geometry(1, 6000, 8, 4, 4).staged
+    for C in (1, 8, 9, 40, 29000, 30000):
+        assert kn.scene_geometry(1, 2, C, 4, 4).smem <= kn.SMEM_LIMIT
+    for K, C in ((14528, 1), (1291, 42), (57, 1016), (2, 29053)):
+        assert 4 * K * (3 + C) <= kn.SMEM_LIMIT
+        for H, W in ((4, 4), (58, 48), (180, 180), (9, 11)):
+            assert kn.scene_geometry(1, K, C, H, W).smem <= kn.SMEM_LIMIT
     for B, K, C, S, box in ((32, 16, 5, 80, 81), (4, 4, 5, 170, 171),
                             (2, 2, 5, 200, 201), (1, 1, 5, 256, 256),
                             (1, 1, 40, 256, 256), (1, 1, 5, 1023, 1024),
@@ -376,11 +498,13 @@ def test_gather_geometry_raises_past_shared_memory():
     assert kn.grad_geometry(1, 1, 1, 1, 29000, 1, 1).smem <= kn.SMEM_LIMIT
 
 
-@pytest.mark.parametrize("C", [9, 10, 16, 40])
+@pytest.mark.parametrize("C", [1, 5, 8, 9, 10, 16, 40])
 def test_grouped_band_walk_keeps_the_plain_bits(C):
-    """The kernels' order past 8 bands, modelled in float32 numpy: K3's
-    bands in groups of 8, each band's sum over the components in
-    ascending k; K4's tiled route in band groups of 8 (``_tile_model``),
+    """The kernels' order at any band count, modelled in float32 numpy:
+    K3's staged walk (``_scene_model``: the bands in balanced groups of at
+    most 8, each band's sum over the listed components in ascending k,
+    each output value written by one thread) and, up to 8 bands, its
+    direct walk; K4's tiled route in band groups of 8 (``_tile_model``),
     g_morph carried from one group to the next through the value stored
     between them.  Equal to the plain versions bit for bit (g_sed to
     1e-5 of sum |g * morph|)."""
@@ -389,20 +513,14 @@ def test_grouped_band_walk_keeps_the_plain_bits(C):
     seds, morphs, origins = _components(rng, B, K, C, H, W, hb, hb, 4)
     origins = origins.clamp(-hb + 1, 16)
     on = torch.ones(B, K, dtype=torch.bool)
-    scene = np.zeros((B, C, H, W), np.float32)
-    s, m, o = seds.numpy(), morphs.numpy(), origins.numpy()
-    for b in range(B):
-        for c0 in range(0, C, 8):
-            for c in range(c0, min(C, c0 + 8)):
-                for k in range(K):
-                    y0, x0 = o[b, k]
-                    for y in range(max(0, y0), min(H, y0 + hb)):
-                        for x in range(max(0, x0), min(W, x0 + hb)):
-                            scene[b, c, y, x] = np.float32(
-                                scene[b, c, y, x] + np.float32(
-                                    s[b, k, c] * m[b, k, y - y0, x - x0]))
     ref = kn.scene_assembly_plain(seds, morphs, origins, on, (C, H, W), hb)
-    assert torch.equal(torch.from_numpy(scene), ref)
+    routes = ["staged"] + (["direct"] if C <= kn.SCENE_BANDS else [])
+    for route in routes:
+        geo = kn.scene_geometry(B, K, C, H, W, route=route)
+        scene, writes, _ = _scene_model(seds, morphs, origins, on, C, H, W,
+                                        geo)
+        assert (writes == 1).all()
+        assert torch.equal(torch.from_numpy(scene), ref)
 
     g = torch.from_numpy(rng.normal(size=(B, C, H, W)).astype(np.float32))
     rs, rm = kn.grad_gather_plain(g, seds, morphs, origins, 0)
@@ -511,6 +629,84 @@ def test_span_copy_covers_each_value_once(n):
                 seen[max(x0, 0):min(x0 + 4, n)] += 1
         assert (seen == 1).all()
         assert (n + 6) // 4 * 4 >= n + shift
+
+
+# (hb, wb, C, K): boxes 21-81 and non-square ones, C 1-40 (both walks),
+# K 1-64; scenes from 9 x 11 to 180 x 180
+STAGED_CASES = [(21, 21, 1, 1), (41, 41, 5, 16), (59, 59, 9, 16),
+                (81, 81, 10, 16), (31, 21, 16, 64), (21, 31, 40, 8),
+                (59, 61, 12, 33), (69, 69, 40, 40), (81, 45, 3, 5)]
+STAGED_SCENES = [(9, 11), (58, 48), (57, 47), (80, 80), (180, 180)]
+
+
+@pytest.mark.parametrize("scene", STAGED_SCENES)
+@pytest.mark.parametrize("hb,wb,C,K", STAGED_CASES)
+def test_scene_geometry_computes_each_value_once(hb, wb, C, K, scene):
+    """K3's geometry on both walks: every output value (c, y, x) of a
+    blend is computed by exactly one thread (one block's pixel thread,
+    one set's band group: the groups of a staged walk split the bands
+    into balanced runs of CG or CG - 1), within the block's threads and
+    shared memory; each thread walks the list once up to 128 bands (16
+    groups).  One blend's model on seeded components: each in-scene
+    pixel of each active box copied once (staged) and the plain version's
+    bits."""
+    H, W = scene
+    rng = np.random.default_rng(hb * 1000 + C * 10 + K)
+    seds, morphs, origins = _components(rng, 1, K, C, H, W, hb, wb, 6)
+    on = torch.from_numpy(rng.uniform(size=(1, K)) > 0.1)
+    ref = kn.scene_assembly_plain(seds, morphs, origins, on, (C, H, W),
+                                  max(hb, wb) + 4)
+    for route in ("staged", "direct") if C <= kn.SCENE_BANDS else \
+            ("staged",):
+        g = kn.scene_geometry(1, K, C, H, W, route=route)
+        assert g.route == route and (_scene_cover(g, H, W) == 1).all()
+        seen = np.zeros(C, int)
+        for c0, c1 in _scene_groups(g, C):
+            seen[c0:c1] += 1
+        assert (seen == 1).all()
+        if g.staged:
+            assert g.threads == g.GT * g.P <= kn.SCENE_THREADS
+            assert g.TX * g.TY <= g.P and g.P % 32 == 0
+            assert g.NG == -(-C // 8) and g.CG == -(-C // g.NG)
+            assert g.walks == 1 and 1 <= g.S <= min(K, kn.SCENE_CHUNK)
+        else:
+            assert g.threads <= kn.SCENE_DIRECT_THREADS
+        assert g.smem <= kn.SMEM_LIMIT
+        if H * W > 60 * 60 and K > 16:
+            continue     # the model's cost; the geometry is checked above
+        got, writes, copies = _scene_model(seds, morphs, origins, on, C, H,
+                                           W, g)
+        assert (writes == 1).all()
+        assert torch.equal(torch.from_numpy(got), ref)
+        if g.staged:
+            want = np.zeros_like(copies)
+            for k in np.flatnonzero(on[0].numpy()):
+                oy, ox = origins[0, k].tolist()
+                want[0, k, max(oy, 0):max(0, min(H, oy + hb)),
+                     max(ox, 0):max(0, min(W, ox + wb))] = 1
+            assert np.array_equal(copies, want)
+
+
+@pytest.mark.parametrize("C", [5, 10])
+def test_staged_walk_masks_blocks_with_non_finite_seds(C):
+    """An active component's inf or NaN sed: the plain version gives inf
+    or NaN inside its box only.  The staged walk's zeros outside a box
+    would turn those pixels NaN (inf * 0), so a block whose staged seds
+    hold a non-finite value walks with the box masks; the model of it is
+    the plain version's bits, NaN where it has NaN."""
+    rng = np.random.default_rng(C + 50)
+    B, K, H, W, hb = 2, 4, 20, 16, 9
+    seds, morphs, origins = _components(rng, B, K, C, H, W, hb, hb, 4)
+    origins = origins.clamp(-hb + 1, 14)
+    seds[0, 1, 0] = float("inf")
+    seds[1, 2, C - 1] = float("nan")
+    on = torch.ones(B, K, dtype=torch.bool)
+    ref = kn.scene_assembly_plain(seds, morphs, origins, on, (C, H, W), hb)
+    assert torch.isnan(ref).any() or torch.isinf(ref).any()
+    geo = kn.scene_geometry(B, K, C, H, W, route="staged")
+    got, writes, _ = _scene_model(seds, morphs, origins, on, C, H, W, geo)
+    assert (writes == 1).all()
+    assert np.array_equal(got, ref.numpy(), equal_nan=True)
 
 
 def test_scene_plain_inactive_nan_is_the_stated_difference():
