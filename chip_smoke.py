@@ -39,13 +39,15 @@ Run from the repository root, with one CUDA card:
    chunk 0 three ways (default, ``packed_prox_chain`` = K5,
    ``fuse_morph`` = K6), which must agree.
 5. T1, the attribution microkernels: holds each of the seven variants of
-   ``mono_pass_variant`` (``ops/csrc/attrib.cu``) against its plain
-   version at 8 passes on the tool's input (128 x (59, 590)), then runs
-   ``scarlet_tpu_torch.tools.mono_pass_attrib`` (its path), checks that
-   ``full`` equals K1 bit for bit and prints its JSON line; then fits K1's
-   own cost per pass on the same input (``K1_COUNTS``) beside ``full``'s
-   and estimates from it the passes each K1 launch of the profiled fit
-   runs, beside the exact count.
+   ``mono_pass_variant`` (``ops/csrc/attrib.cu``, K1's pass engine) against
+   its plain version at 8 passes on the tool's input (128 x (59, 590)),
+   then runs ``scarlet_tpu_torch.tools.mono_pass_attrib`` (its path),
+   checks that ``full`` equals K1 bit for bit and prints its JSON line;
+   then fits K1's own cost per pass on the same input (``K1_COUNTS``)
+   beside ``full``'s, the two timed in turns (K1 / full must lie in
+   ``K1_OVER_FULL``), logs the
+   parts of K1's pass and estimates the passes each K1 launch of the
+   profiled fit runs, beside the exact count.
 6. Device detection: the het stream with ``centers=None`` (warm-up, then
    three runs from numpy and three device-resident), its overhead over
    the catalog stream, the host syncs per detection call, the card's
@@ -297,8 +299,10 @@ SEED = 7
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # K1's own cost per pass, fitted over these forced pass counts on T1's
-# input (no morphology there exits before 48 passes)
+# input (no morphology there exits before 48 passes), in turns with
+# T1's full over K1_ROUNDS rounds
 K1_COUNTS = (8, 16, 24, 32)
+K1_ROUNDS = 31
 N_BLENDS = 128
 MAX_ITER, CHECK_EVERY, E_REL = 100, 25, 1e-4
 N_CPU = 4
@@ -326,6 +330,10 @@ PATH_KERNELS = ("monotonic_prox", "scene_assembly", "grad_gather")
 # version rounds each operation once to bf16, as the bf16x2 instructions
 # do), bit for bit.
 T1_BOUNDS = {"alu8": 1e-6}
+# K1 / full, K1's own cost per pass over T1's ``full`` (K1's pass on the
+# same engine, forced) in one run: outside this range the attribution
+# does not split the pass K1 runs
+K1_OVER_FULL = (0.8, 1.25)
 # het blends whose catalogs the card and the CPU detect
 DET_CPU_BLENDS = 32
 REDETECT_BLENDS = 128
@@ -1379,7 +1387,8 @@ def fused_configs(dev, het):
 def attrib_phase(dev, card, k1_fit_ms, k1_morphs, k1_phase_ms, exact):
     """T1: each variant against its plain version at 8 passes on the
     tool's input, then the attribution tool's run, whose launches count;
-    then K1's own cost per pass beside ``full``'s, and the passes per K1
+    then K1's own cost per pass beside ``full``'s (their ratio must lie in
+    ``K1_OVER_FULL``), the parts of K1's pass, and the passes per K1
     launch it implies beside the ``exact`` counts ({"fit": ...,
     "kernel_phase": ...} mean passes per morphology).  Returns (kernel
     entry, launches, report)."""
@@ -1387,6 +1396,7 @@ def attrib_phase(dev, card, k1_fit_ms, k1_morphs, k1_phase_ms, exact):
     from scarlet_tpu_torch.ops import kernels as kn
     from scarlet_tpu_torch.tools import mono_pass_attrib as tool
 
+    t_phase = time.perf_counter()
     wsel, keepsel, wtab, keep = (torch.from_numpy(a).to(dev)
                                  for a in tool.slot_tables())
     packed = torch.from_numpy(tool.packed_input()).to(dev)
@@ -1403,20 +1413,29 @@ def attrib_phase(dev, card, k1_fit_ms, k1_morphs, k1_phase_ms, exact):
             raise AssertionError(f"mono_pass_variant[{mix}] differs from "
                                  f"its plain version by {errs[mix]}")
     full = lambda f: f(packed, wsel, keepsel, "full", 8)  # noqa: E731
-    # 8 passes of every slot; the work of the nonzero taps of candidate 0
+    # 8 passes of every slot: the morphologies in and out and the slots'
+    # compact taps (what the kernel reads of the tables); the work of the
+    # nonzero taps of candidate 0
+    taps = kn._device_taps(wsel, keepsel, kn._variant_maker("full"))
     res = dict(
-        **bound(2 * nbytes(packed) + nbytes(wsel, keepsel),
+        **bound(2 * nbytes(packed) + nbytes(*taps[:3]),
                 mono_ops(torch.full((tool.B, tool.K), 8, device=dev), idx0,
                          wtab)),
         max_abs_err=max(errs.values()),
         limit="0; alu8 1e-6 of max |plain| (fused multiply-add)",
         errors_by_variant=errs,
-        ms=time_ms(lambda: full(kn.mono_pass_variant), 10),
+        # device time; CUDA events around one call, as earlier runs timed
+        # it, also count the wrapper's host time before the launch
+        ms=device_ms(lambda: full(kn.mono_pass_variant), "mix_kernel"),
+        event_ms=time_ms(lambda: full(kn.mono_pass_variant), 10),
         plain_ms=time_ms(lambda: full(kn.mono_pass_variant_plain), 3),
         shape=f"variant full, 8 passes, B={tool.B} x ({tool.S},"
               f"{tool.K * tool.S})")
-    log(f"kernel mono_pass_variant: kernel {res['ms']:.4f} ms, plain "
-        f"{res['plain_ms']:.4f} ms [{res['shape']}] on {card}")
+    log(f"kernel mono_pass_variant: kernel {res['ms']:.4f} ms device "
+        f"({res['event_ms']:.4f} ms events around a call), plain "
+        f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms by "
+        f"{res['bound_by']} ({res['bound_bytes']} B) "
+        f"[{res['shape']}] on {card}")
 
     kn.reset_launch_counts()
     report = tool.attribute(dev, reps=9, log=log)
@@ -1425,9 +1444,11 @@ def attrib_phase(dev, card, k1_fit_ms, k1_morphs, k1_phase_ms, exact):
     if report["full_vs_production_max_diff"] != 0.0:
         raise AssertionError("variant full differs from K1: "
                              f"{report['full_vs_production_max_diff']}")
-    # K1's own cost per pass, on the same input and card: forced pass
-    # counts (no morphology of this input exits before them), a least-
-    # squares line as the tool fits its variants
+    # K1's own cost per pass beside full's, on the same input and card,
+    # at forced pass counts, the two timed in one queue per round
+    # (tool.k1_over_full): another process on the card lands its time
+    # slices on long kernels, so the tool's full (calls of up to 3 ms)
+    # against K1 timed after it can read far from 1 on a sound kernel
     k1 = lambda n: kn.monotonic_prox_packed(  # noqa: E731
         packed, idx0, wtab, keep, tool.S, n, tol=0.0)
     ran = mono_passes_run(packed.reshape(tool.B, tool.S, tool.K, tool.S)
@@ -1441,27 +1462,55 @@ def attrib_phase(dev, card, k1_fit_ms, k1_morphs, k1_phase_ms, exact):
     if k1_full_err != 0.0:
         raise AssertionError(f"K1 at 32 passes differs from full by "
                              f"{k1_full_err}")
-    xs = np.array(K1_COUNTS, float)
-    A = np.vstack([xs, np.ones_like(xs)]).T
-    ms = [time_ms(lambda: k1(n), 9) for n in K1_COUNTS]
-    ys = np.array(ms) * 1e-3
-    (tau_b, ovh_b), *_ = np.linalg.lstsq(A, ys, rcond=None)
-    r2 = 1 - np.sum((A @ [tau_b, ovh_b] - ys) ** 2) / max(
-        np.sum((ys - ys.mean()) ** 2), 1e-30)
+    turns = tool.k1_over_full(dev, K1_ROUNDS, K1_COUNTS)
+    k1_slope, beside = turns["k1"], turns["full"]
+    per_round = turns["over_full_by_round"]
+    k1_slope.update(over_full=turns["over_full"], full_in_turns=beside,
+                    over_full_by_round=per_round)
     full_slope = report["variants"]["full"]["us_per_pass_per_blend"]
-    k1_slope = dict(us_per_pass_per_blend=float(tau_b / tool.B * 1e6),
-                    overhead_us_per_blend=float(ovh_b / tool.B * 1e6),
-                    r2=float(r2), ms_at_counts=dict(zip(map(str, K1_COUNTS),
-                                                        ms)))
-    k1_slope["over_full"] = k1_slope["us_per_pass_per_blend"] / full_slope
+    k1_slope["over_tool_full"] = (k1_slope["us_per_pass_per_blend"]
+                                  / full_slope)
     report["k1"] = k1_slope
+    at = {name: [round(m, 4) for m in turns[name]["ms_at_counts"].values()]
+          for name in ("k1", "full")}
     log(f"K1 (monotonic_prox_packed) {k1_slope['us_per_pass_per_blend']:.5f}"
         f" us/pass/blend, overhead {k1_slope['overhead_us_per_blend']:.4f} "
-        f"us/blend, r2 {r2:.6f}, ms at {K1_COUNTS}: "
-        f"{[round(m, 4) for m in ms]}; full (the block design's pass) "
-        f"{full_slope:.5f} us/pass/blend in the same run: K1 / full = "
-        f"{k1_slope['over_full']:.4f}; K1 at 32 passes equals full "
-        f"(max diff {k1_full_err}); on {card}")
+        f"us/blend, r2 {k1_slope['r2']:.6f}; full in turns with it "
+        f"{beside['us_per_pass_per_blend']:.5f} us/pass/blend, overhead "
+        f"{beside['overhead_us_per_blend']:.4f} us/blend, r2 "
+        f"{beside['r2']:.6f} (device ms, least of {K1_ROUNDS} rounds, at "
+        f"{K1_COUNTS}: K1 {at['k1']}, full {at['full']}): "
+        f"K1 / full = {k1_slope['over_full']:.4f} (limits {K1_OVER_FULL}; "
+        f"by round {min(per_round):.4f}-{max(per_round):.4f}); K1 over the "
+        f"tool's full ({full_slope:.5f} us/pass/blend, passes "
+        f"{tool.COUNTS}) {k1_slope['over_tool_full']:.4f}; K1 at 32 passes "
+        f"equals full (max diff {k1_full_err}); on {card}")
+    inflated = full_slope / beside["us_per_pass_per_blend"]
+    if abs(inflated - 1) > 0.1:
+        # the tool times each count as the least of 9 runs of 3 calls of
+        # up to 3 ms, which a second context on the card slows every time
+        log(f"the tool's full ({full_slope:.5f}) is {inflated:.3f} times "
+            "full in turns with K1: the card was shared during the "
+            "tool's run, whose slopes and parts below are inflated")
+    lo, hi = K1_OVER_FULL
+    if not lo <= k1_slope["over_full"] <= hi:
+        raise AssertionError(f"K1 / full = {k1_slope['over_full']:.4f}: "
+                             "T1 does not time the pass K1 runs")
+    parts = report["derived_us_per_pass_per_blend"]
+    slopes = {m: v["us_per_pass_per_blend"]
+              for m, v in report["variants"].items()}
+    log("K1's pass, us per pass per blend (T1, the same run): full "
+        f"{full_slope:.5f}; its neighbour loads (full - norolls) "
+        f"{parts['neighbour_loads']:.5f} "
+        f"({100 * parts['neighbour_loads'] / full_slope:.1f}%), its test "
+        f"(full - noreduce) {parts['convergence_test']:.5f} "
+        f"({100 * parts['convergence_test'] / full_slope:.1f}%), a test "
+        f"every 8 passes would save {parts['unroll8_saving']:.5f} "
+        f"({100 * parts['unroll8_saving'] / full_slope:.1f}%); "
+        f"rollsonly (4 halo loads, no taps) {slopes['rollsonly']:.5f}, "
+        f"alu8 (8 chained FMAs) {slopes['alu8']:.5f}, norolls in bf16x2 "
+        f"{slopes['bf16']:.5f} (norolls / bf16 "
+        f"{parts['norolls_over_bf16']:.3f}); on {card}")
 
     # passes per K1 launch: the launch's time per morphology less K1's
     # overhead, over K1's cost per pass and morphology
@@ -1480,6 +1529,8 @@ def attrib_phase(dev, card, k1_fit_ms, k1_morphs, k1_phase_ms, exact):
         f"{exact['fit']:.2f}), {passes['kernel_phase']:.1f} in the kernel "
         f"phase ({k1_phase_ms:.4f} ms; exact {exact['kernel_phase']:.2f}), "
         f"{k1_morphs} morphologies per launch, on {card}")
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"the T1 phase took {res['phase_s']:.1f} s")
     return res, launches, report
 
 

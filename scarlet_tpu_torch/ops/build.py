@@ -132,9 +132,8 @@ def load():
     lib.scarlet_grad_gather.argtypes = [p] * 6 + [i] * 8 + [ll] * 3 + \
         [i] * 7 + [p]
     lib.scarlet_grad_kernel_info.argtypes = [i, i, i, i, p]
-    lib.scarlet_mono_pass_variant.argtypes = [p, p, p, p, i, i, i, i, i, i,
-                                              f, p]
-    lib.scarlet_mono_pass_variant_smem_bytes.argtypes = [i, i, i]
+    # T1 ends with (T, P, ny, transposed, threads) and the stream, as K1
+    lib.scarlet_mono_pass_variant.argtypes = [p] * 5 + [i] * 5 + geom
     lib.scarlet_error_string.argtypes = [i]
     lib.scarlet_error_string.restype = ctypes.c_char_p
     for name in ("scarlet_mono_prox", "scarlet_mono_kernel_info",
@@ -143,8 +142,7 @@ def load():
                  "scarlet_prox_chain", "scarlet_fused_morph",
                  "scarlet_scene_assembly", "scarlet_scene_kernel_info",
                  "scarlet_grad_gather", "scarlet_grad_kernel_info",
-                 "scarlet_mono_pass_variant",
-                 "scarlet_mono_pass_variant_smem_bytes"):
+                 "scarlet_mono_pass_variant"):
         getattr(lib, name).restype = ctypes.c_int
     _lib = lib
     return lib

@@ -64,10 +64,14 @@
 //     that two 480-thread blocks allow, the 40 registers of a thread's
 //     taps spill (104 B a thread), and the spill loads cost more than the
 //     second block's latency hiding gains (on an H100, a pass took 0.30 of
-//     T1's `full` pass, attrib.cu, as one uncapped block and 0.39 as two
-//     blocks of 64 registers; chip_smoke.py, PERF.md).  Each pass
-//     recomputes the slots' halo indices (one add each) rather than keep
-//     P of them and their addresses in registers.
+//     the pass of a flat-loop design with the dense weight planes in
+//     shared memory as one uncapped block, and 0.39 as two blocks of 64
+//     registers; PERF.md).  Each pass recomputes the slots' halo indices
+//     (one add each) rather than keep P of them and their addresses in
+//     registers.
+// The pass engine (Geom, Taps, load_taps, load_x, mono_passes) lives in
+// mono.cuh, where the pass attribution's instruction mixes (attrib.cu)
+// run it too.
 // The chain's epilogue (one block max reduction) and K6's prologue run on
 // the same on-chip copy, so device memory is read once and written once
 // per morphology (K6: six planes in, four out).
@@ -93,177 +97,15 @@
 namespace {
 
 using scarlet::block_max;
-using scarlet::dir_dx;
-using scarlet::dir_dy;
-using scarlet::kUnroll;
-
-constexpr int kMaxThreads = 512;  // kernels.MONO_MAX_THREADS
-
-// This thread's part of one morphology (kernels.mono_geometry): the frame
-// is the box, or its transpose (tr); frame pixel (r, c) lives at halo
-// index (r + 1) * W2 + c + 1 of each tile.
-struct Geom {
-  int W, W2, ny, tr;
-  int tx, ty;  // frame column and first row (ty >= ny: no pixels)
-  int n;       // slots in use: rows ty + j * ny < H
-  int own0;    // halo index of slot 0
-  int step;    // halo distance between slots, ny * W2
-};
-
-__device__ __forceinline__ Geom geometry(int hb, int wb, int ny, int tr) {
-  Geom g;
-  const int H = tr ? wb : hb;
-  g.W = tr ? hb : wb;
-  g.W2 = g.W + 2;
-  g.ny = ny;
-  g.tr = tr;
-  g.tx = threadIdx.x % g.W;
-  g.ty = threadIdx.x / g.W;
-  g.n = g.ty < ny ? (H - g.ty + ny - 1) / ny : 0;
-  g.own0 = (g.ty + 1) * g.W2 + g.tx + 1;
-  g.step = ny * g.W2;
-  return g;
-}
-
-// box (y, x) of slot j
-__device__ __forceinline__ void slot_yx(const Geom& g, int j, int& y,
-                                        int& x) {
-  const int r = g.ty + j * g.ny;
-  y = g.tr ? g.tx : r;
-  x = g.tr ? r : g.tx;
-}
-
-__device__ __forceinline__ int halo(const Geom& g, int y, int x) {
-  const int r = g.tr ? x : y;
-  const int c = g.tr ? y : x;
-  return (r + 1) * g.W2 + c + 1;
-}
-
-// The selected table's taps of this thread's pixels, in registers.
-template <int T, int P>
-struct Taps {
-  static constexpr int NW = T / 4;
-  float w[P][T];
-  unsigned off[P][NW];  // signed byte halo offset of each tap, 4 per word
-  int keep_j;           // slot of the keep pixel, or -1
-};
-
-template <int T, int P>
-__device__ __forceinline__ void load_taps(Taps<T, P>& tp, const Geom& g,
-                                          const float* __restrict__ tw,
-                                          const int* __restrict__ tcode,
-                                          const int* __restrict__ centers,
-                                          long long ci, int hb, int wb) {
-  const long long base = ci * hb * wb;
-#pragma unroll
-  for (int j = 0; j < P; ++j) {
-#pragma unroll
-    for (int t = 0; t < T; ++t) tp.w[j][t] = 0.0f;
-#pragma unroll
-    for (int q = 0; q < Taps<T, P>::NW; ++q) tp.off[j][q] = 0u;
-    if (j < g.n) {
-      int y, x;
-      slot_yx(g, j, y, x);
-      const long long p = base + y * wb + x;
-      const float4* wp = reinterpret_cast<const float4*>(tw + p * T);
-#pragma unroll
-      for (int q = 0; q < T / 4; ++q) {
-        const float4 v = wp[q];
-        tp.w[j][4 * q] = v.x;
-        tp.w[j][4 * q + 1] = v.y;
-        tp.w[j][4 * q + 2] = v.z;
-        tp.w[j][4 * q + 3] = v.w;
-      }
-      const unsigned code = (unsigned)tcode[p];
-      const int cnt = code & 15u;
-#pragma unroll
-      for (int t = 0; t < T; ++t) {
-        if (t < cnt) {  // padded taps keep weight 0 and offset 0 (self)
-          const int d = (code >> (4 + 3 * t)) & 7u;
-          int dy = dir_dy(d), dx = dir_dx(d);
-          if (g.tr) {
-            const int s = dy;
-            dy = dx;
-            dx = s;
-          }
-          const unsigned o = (unsigned)(dy * g.W2 + dx) & 0xffu;
-          tp.off[j][t / 4] |= o << (8 * (t % 4));
-        }
-      }
-    }
-  }
-  const int c = centers[ci];
-  const int cy = c / wb, cx = c - cy * wb;
-  const int kr = g.tr ? cx : cy, kc = g.tr ? cy : cx;
-  const int dr = kr - g.ty;
-  tp.keep_j = (g.n > 0 && kc == g.tx && dr >= 0 && dr % g.ny == 0)
-                  ? dr / g.ny : -1;
-}
-
-// Jacobi passes from x0s (cur holds a copy of it); returns the tile that
-// holds the result.  Every thread of the block must call it.
-template <int T, int P>
-__device__ float* mono_passes(const Taps<T, P>& tp, const Geom& g,
-                              float* cur, float* nxt, const float* x0s,
-                              int n_iter, float scale, float tol) {
-  int t = 0;
-  int changed = 1;
-  while (changed && t < n_iter) {
-    int flag = 0;
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      // opaque to the compiler once per pass, so that it recomputes each
-      // slot's halo index (one add) instead of holding P of them, and
-      // their addresses in the two tiles, in registers across the passes
-      // (128 registers a thread, and a slower pass)
-      int h = g.own0, step = g.step, n = g.n;
-      asm volatile("" : "+r"(h), "+r"(step), "+r"(n));
-#pragma unroll
-      for (int j = 0; j < P; ++j, h += step) {
-        if (j < n) {
-          float ref = 0.0f;
-#pragma unroll
-          for (int k = 0; k < T; ++k) {
-            const int o = (int)(signed char)(tp.off[j][k / 4] >> (8 * (k % 4)));
-            ref = __fadd_rn(ref, __fmul_rn(tp.w[j][k], cur[h + o]));
-          }
-          if (scale != 1.0f) ref = __fmul_rn(ref, scale);
-          const float a = x0s[h];
-          const float v = j == tp.keep_j ? a : fminf(a, ref);
-          nxt[h] = v;
-          if (u == kUnroll - 1) {
-            const float old = cur[h];
-            flag |= tol > 0.0f ? (fabsf(v - old) > tol) : (v != old);
-          }
-        }
-      }
-      float* tmp = cur;
-      cur = nxt;
-      nxt = tmp;
-      if (u < kUnroll - 1) __syncthreads();
-    }
-    changed = __syncthreads_or(flag);
-    t += kUnroll;
-  }
-  return cur;
-}
-
-// Zero both x tiles (their borders stay 0), then copy this thread's
-// pixels of x (box strides sy, sx) into x0s and cur.
-__device__ __forceinline__ void load_x(const Geom& g, float* smem, int plane,
-                                       const float* __restrict__ xin,
-                                       long long sy, long long sx) {
-  for (int i = threadIdx.x; i < 2 * plane; i += blockDim.x) smem[i] = 0.0f;
-  __syncthreads();
-  for (int j = 0; j < g.n; ++j) {
-    int y, x;
-    slot_yx(g, j, y, x);
-    const float v = xin[y * sy + x * sx];
-    const int h = g.own0 + j * g.step;
-    smem[2 * plane + h] = v;
-    smem[h] = v;
-  }
-}
+using scarlet::Geom;
+using scarlet::geometry;
+using scarlet::halo;
+using scarlet::kMaxThreads;
+using scarlet::load_taps;
+using scarlet::load_x;
+using scarlet::mono_passes;
+using scarlet::slot_yx;
+using scarlet::Taps;
 
 // Threshold cut, center floor and max normalization of the result tile
 // `res`, written to the contiguous (hb, wb) `xo`.  Every thread of the

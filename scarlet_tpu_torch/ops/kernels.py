@@ -76,6 +76,7 @@ __all__ = [
     "gather_kernel_info",
     "MONO_PASS_MIXES",
     "mono_pass_variant",
+    "mono_pass_variant_taps",
     "monotonic_prox_plain",
     "MonoTaps",
     "mono_taps",
@@ -466,20 +467,22 @@ def _wide_args(taps, geo, work):
 _TAPS = {}
 
 
-def _device_taps(weights_table, keep_table):
-    """:func:`mono_taps` of two table tensors, on their device: built on
-    the host the first time a table is seen (one device-to-host copy),
-    then kept while the table tensor lives and is not written to."""
-    key = (id(weights_table), id(keep_table))
+def _device_taps(weights_table, keep_table, make=mono_taps):
+    """``make`` (:func:`mono_taps`) of two table tensors, on their device:
+    built on the host the first time a table is seen (one device-to-host
+    copy), then kept while the table tensor lives and is not written to."""
+    key = (id(weights_table), id(keep_table), make)
     version = (weights_table._version, keep_table._version)
     hit = _TAPS.get(key)
     if hit is not None and hit[0]() is weights_table \
             and hit[1]() is keep_table and hit[2] == version:
         return hit[3]
-    taps = mono_taps(weights_table.cpu().numpy(), keep_table.cpu().numpy())
+    taps = make(weights_table.cpu().numpy(), keep_table.cpu().numpy())
     dev = weights_table.device
-    on_dev = MonoTaps(*(torch.from_numpy(a).to(dev) for a in taps[:3]),
-                      taps.T)
+    # C order: the kernels index the taps as contiguous arrays, and a
+    # table read through a view can give them another layout
+    on_dev = MonoTaps(*(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                        for a in taps[:3]), taps.T)
     _TAPS[key] = (weakref.ref(weights_table), weakref.ref(keep_table),
                   version, on_dev)
     weakref.finalize(weights_table, _TAPS.pop, key, None)
@@ -924,7 +927,7 @@ fused_morph_update.wide_launches = 0
 # ---------------------------------------------------------------------------
 # T1: microkernel variants of the monotonicity pass (cost attribution)
 # ---------------------------------------------------------------------------
-# instruction mixes, in the kernel's numbering (csrc/attrib.cu, Mix)
+# instruction mixes, in the kernel's numbering (csrc/mono.cuh, PassMix)
 MONO_PASS_MIXES = ("full", "noreduce", "unroll8", "norolls", "rollsonly",
                    "alu8", "bf16")
 
@@ -988,17 +991,71 @@ def mono_pass_variant_plain(packed, wsel, keepsel, mix, n_passes):
     return x.to(packed.dtype).movedim(-3, -2).reshape(packed.shape)
 
 
+def _slot_tables(wsel, keepsel):
+    """Each slot's tables of the lane-packed (8, hb, K*hb), (hb, K*hb)
+    numpy tables as candidates: (K, 8, hb, hb), (K, hb, hb)."""
+    w = np.asarray(wsel, np.float32)
+    keep = np.asarray(keepsel, np.float32)
+    hb = w.shape[-2]
+    K = w.shape[-1] // hb
+    return (w.reshape(8, hb, K, hb).transpose(2, 0, 1, 3),
+            keep.reshape(hb, K, hb).transpose(1, 0, 2))
+
+
+def _variant_taps(wsel, keepsel):
+    """Every mix but ``alu8``: :func:`mono_taps` of the slots' tables,
+    slot k as candidate k."""
+    wtab, ktab = _slot_tables(wsel, keepsel)
+    n_keep = (ktab > 0.5).reshape(len(ktab), -1).sum(axis=1)
+    if (n_keep != 1).any():
+        raise ValueError("mono_pass_variant: the kernel keeps one pixel a "
+                         "slot, as K1's tables do; keepsel has "
+                         f"{n_keep.tolist()} keep pixels by slot")
+    return mono_taps(wtab, ktab)
+
+
+def _variant_taps_dense(wsel, keepsel):
+    """``alu8``: all 8 weights of every pixel, zeros included, as taps of
+    every direction in ``d`` order (T = 8)."""
+    taps = _variant_taps(wsel, keepsel)
+    wtab, _ = _slot_tables(wsel, keepsel)
+    codes = 8 + sum(d << (4 + 3 * d) for d in range(8))
+    return MonoTaps(np.ascontiguousarray(wtab.transpose(0, 2, 3, 1)),
+                    np.full(taps.codes.shape, codes, np.int32),
+                    taps.centers, 8)
+
+
+def mono_pass_variant_taps(wsel, keepsel, mix):
+    """The taps (:class:`MonoTaps`, numpy) that :func:`mono_pass_variant`'s
+    kernel reads for the slot tables ``wsel`` (8, hb, K*hb) and
+    ``keepsel`` (hb, K*hb): slot k's tables as candidate k of
+    :func:`mono_taps`, or for ``alu8`` all 8 weights of each pixel.  Raises
+    ValueError for a slot without exactly one keep pixel."""
+    return _variant_maker(mix)(wsel, keepsel)
+
+
+def _variant_maker(mix):
+    _variant_passes(mix, 0)         # a known mix
+    return _variant_taps_dense if mix == "alu8" else _variant_taps
+
+
 def mono_pass_variant(packed, wsel, keepsel, mix, n_passes):
     """One instruction mix of the monotonicity pass, run for a forced pass
     count: the microkernels of the TPU tool ``tools/mono_pass_attrib.py``
-    on Hopper (csrc/attrib.cu).
+    on Hopper (csrc/attrib.cu), each K1's pass (csrc/mono.cu) less the
+    part it ablates.
 
     packed (B, hb, K*hb) float32, slot k in columns [k*hb, (k+1)*hb)
-    (square boxes); wsel (8, hb, K*hb) and keepsel (hb, K*hb): each
-    slot's weight and keep tables, unshifted; mix: one of
+    (square boxes that :func:`mono_geometry` takes); wsel (8, hb, K*hb)
+    and keepsel (hb, K*hb): each slot's weight and keep tables, unshifted,
+    with one keep pixel a slot (else ValueError on the card); mix: one of
     :data:`MONO_PASS_MIXES`; n_passes: rounded up to whole blocks of the
     mix's unroll.  The convergence test of the reducing mixes never
     exits.  Returns a fresh (B, hb, K*hb) tensor.
+
+    On the card the kernel reads the slots' taps
+    (:func:`mono_pass_variant_taps`, built on the host once per table
+    tensor) and runs with K1's launch geometry, ``mono_geometry(hb, hb)``.
     """
     if _is_cpu(packed, wsel, keepsel):
         return mono_pass_variant_plain(packed, wsel, keepsel, mix, n_passes)
@@ -1014,18 +1071,20 @@ def mono_pass_variant(packed, wsel, keepsel, mix, n_passes):
                          f"of {hb}")
     for t, what in ((packed, "packed"), (wsel, "wsel"), (keepsel, "keepsel")):
         _f32(name, t, what)
-    lib = build.load()
-    mix_id = MONO_PASS_MIXES.index(mix)
-    if lib.scarlet_mono_pass_variant_smem_bytes(mix_id, hb, hb) > 232448:
-        raise ValueError(f"{name}: box {hb} does not fit shared memory")
+    try:
+        geom = mono_geometry(hb, hb)
+    except ValueError as e:
+        raise ValueError(f"{name}: {e}") from None
     out = torch.empty_like(packed)
     if out.numel() == 0:
         return out
+    taps = _device_taps(wsel, keepsel, _variant_maker(mix))
     with torch.cuda.device(packed.device):
-        err = lib.scarlet_mono_pass_variant(
-            packed.data_ptr(), out.data_ptr(), wsel.data_ptr(),
-            keepsel.data_ptr(), B, gw // hb, hb, hb, mix_id, n, -1.0,
-            _stream(packed))
+        err = build.load().scarlet_mono_pass_variant(
+            packed.data_ptr(), out.data_ptr(), taps.weights.data_ptr(),
+            taps.codes.data_ptr(), taps.centers.data_ptr(), B, gw // hb, hb,
+            MONO_PASS_MIXES.index(mix), n, taps.T, geom.P, geom.ny,
+            int(geom.transposed), geom.threads, _stream(packed))
     _check(name, err)
     mono_pass_variant.launches += 1
     return out

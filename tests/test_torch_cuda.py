@@ -770,12 +770,16 @@ T1_BOUNDS = {"alu8": 1e-6}
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mix", kn.MONO_PASS_MIXES)
-def test_mono_pass_variant_matches_plain(cuda, mix):
+@pytest.mark.parametrize("box", [21, 41, 59, 69])
+def test_mono_pass_variant_matches_plain(cuda, box, mix):
+    """Each mix on K1's pass engine against its plain version, on the
+    tool's input at box 59 (128 blends of 10 slots) and at the other
+    boxes K1 takes (each with its own thread map)."""
     from scarlet_tpu_torch.tools import mono_pass_attrib as tool
 
     wsel, keepsel, _, _ = (torch.from_numpy(a).to(cuda)
-                           for a in tool.slot_tables())
-    packed = torch.from_numpy(tool.packed_input()).to(cuda)
+                           for a in tool.slot_tables(box))
+    packed = torch.from_numpy(tool.packed_input(box=box)).to(cuda)
     before = kn.mono_pass_variant.launches
     got = kn.mono_pass_variant(packed, wsel, keepsel, mix, 8)
     assert kn.mono_pass_variant.launches == before + 1
@@ -785,19 +789,42 @@ def test_mono_pass_variant_matches_plain(cuda, mix):
 
 
 @pytest.mark.cuda
-def test_mono_pass_full_equals_production(cuda):
-    """``full`` at 16 forced passes equals K1 at n_iter=16, tol=0 bit for
-    bit: K1 stops only after a block that changed nothing."""
+@pytest.mark.parametrize("n", [16, 32])
+def test_mono_pass_full_equals_production(cuda, n):
+    """``full`` at 16 and 32 forced passes equals K1 at n_iter=n, tol=0
+    bit for bit: K1 stops only after a block that changed nothing."""
     from scarlet_tpu_torch.tools import mono_pass_attrib as tool
 
     wsel, keepsel, wtab, keep = (torch.from_numpy(a).to(cuda)
                                  for a in tool.slot_tables())
     packed = torch.from_numpy(tool.packed_input(4)).to(cuda)
     idx = torch.zeros((4, tool.K), dtype=torch.int32, device=cuda)
-    ref = kn.monotonic_prox_packed(packed, idx, wtab, keep, tool.S, 16,
+    ref = kn.monotonic_prox_packed(packed, idx, wtab, keep, tool.S, n,
                                    tol=0.0)
     assert torch.equal(kn.mono_pass_variant(packed, wsel, keepsel, "full",
-                                            16), ref)
+                                            n), ref)
+
+
+@pytest.mark.cuda
+def test_mono_pass_variant_rejects_what_k1_does_not_take(cuda):
+    """A slot with two keep pixels, or a box beyond K1's register kernel,
+    raises ValueError on the card, before any launch."""
+    from scarlet_tpu_torch.tools import mono_pass_attrib as tool
+
+    wsel, keepsel, _, _ = (torch.from_numpy(a).to(cuda)
+                           for a in tool.slot_tables(21, 3))
+    packed = torch.from_numpy(tool.packed_input(2, 21, 3)).to(cuda)
+    two = keepsel.clone()
+    two[0, 21] = 1.0
+    before = kn.mono_pass_variant.launches
+    for mix in kn.MONO_PASS_MIXES:
+        with pytest.raises(ValueError, match="one pixel a slot"):
+            kn.mono_pass_variant(packed, wsel, two, mix, 4)
+    wide = [torch.from_numpy(a).to(cuda) for a in tool.slot_tables(75, 1)]
+    with pytest.raises(ValueError, match="does not fit"):
+        kn.mono_pass_variant(torch.zeros((1, 75, 75), device=cuda),
+                             wide[0], wide[1], "full", 4)
+    assert kn.mono_pass_variant.launches == before
 
 
 @pytest.mark.cuda
